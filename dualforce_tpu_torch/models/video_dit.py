@@ -1,0 +1,174 @@
+"""Wan-style video DiT (counterpart of `dualforce_tpu/models/video_dit.py`).
+
+Parameter names are the MOVA/HF state-dict names (`blocks.{i}.self_attn.q`,
+`ffn.0`, `time_projection.1`, ...), so a released checkpoint loads into these
+modules as it is. The DiT block here is shared by the audio tower.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dualforce_tpu_torch import nn as dnn
+from dualforce_tpu_torch.config import VideoDiTConfig
+from dualforce_tpu_torch.ops.attention import attention
+from dualforce_tpu_torch.ops.rope import apply_rope_interleaved
+
+
+class Attention(nn.Module):
+    """q/k/v/o projections with RMS-normed q and k."""
+
+    def __init__(self, dim: int, kv_dim: Optional[int] = None, eps: float = 1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        kv_dim = kv_dim or dim
+        f = dict(device=device, dtype=dtype)
+        self.q = nn.Linear(dim, dim, **f)
+        self.k = nn.Linear(kv_dim, dim, **f)
+        self.v = nn.Linear(kv_dim, dim, **f)
+        self.o = nn.Linear(dim, dim, **f)
+        self.norm_q = dnn.RMSNorm(dim, eps, **f)
+        self.norm_k = dnn.RMSNorm(dim, eps, **f)
+
+    def qkv(self, x: torch.Tensor, ctx: torch.Tensor, num_heads: int):
+        """Projected, RMS-normed q [B, Sx, N, D] and k, v [B, Sc, N, D]."""
+        b, s, dim = x.shape
+        sc = ctx.shape[1]
+        d = dim // num_heads
+        q = self.norm_q(self.q(x)).reshape(b, s, num_heads, d)
+        k = self.norm_k(self.k(ctx)).reshape(b, sc, num_heads, d)
+        v = self.v(ctx).reshape(b, sc, num_heads, d)
+        return q, k, v
+
+
+def self_attention(attn: Attention, x: torch.Tensor, rope, num_heads: int,
+                   attn_impl="auto") -> torch.Tensor:
+    """RMS-normed q/k, interleaved RoPE in fp32, then attention."""
+    b, s, dim = x.shape
+    q, k, v = attn.qkv(x, x, num_heads)
+    cos, sin = rope
+    q = apply_rope_interleaved(q, cos, sin)
+    k = apply_rope_interleaved(k, cos, sin)
+    return attn.o(attention(q, k, v, impl=attn_impl).reshape(b, s, dim))
+
+
+def cross_attention(attn: Attention, x: torch.Tensor, ctx: torch.Tensor,
+                    num_heads: int, attn_impl="auto",
+                    ctx_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Text cross-attention, no RoPE."""
+    b, s, dim = x.shape
+    q, k, v = attn.qkv(x, ctx, num_heads)
+    out = attention(q, k, v, kv_valid_len=ctx_valid_len, impl=attn_impl)
+    return attn.o(out.reshape(b, s, dim))
+
+
+class DiTBlock(nn.Module):
+    """AdaLN-modulated block: self-attention, text cross-attention, FFN."""
+
+    def __init__(self, dim: int, ffn_dim: int, num_heads: int, eps: float = 1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        f = dict(device=device, dtype=dtype)
+        self.num_heads = num_heads
+        self.eps = eps
+        self.self_attn = Attention(dim, eps=eps, **f)
+        self.cross_attn = Attention(dim, eps=eps, **f)
+        self.norm3 = dnn.LayerNorm(dim, eps, **f)
+        self.ffn = nn.Sequential(nn.Linear(dim, ffn_dim, **f),
+                                 nn.GELU(approximate="tanh"),
+                                 nn.Linear(ffn_dim, dim, **f))
+        self.modulation = nn.Parameter(torch.empty(1, 6, dim, **f))
+
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor, t_mod: torch.Tensor,
+                rope, attn_impl="auto",
+                ctx_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, S, dim]; t_mod [B, 6, dim] in the compute dtype."""
+        mod = self.modulation.to(t_mod.dtype) + t_mod
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
+            mod[:, :, None, :].unbind(1)
+        h = dnn.layer_norm(x, self.eps) * (1 + scale_msa) + shift_msa
+        x = x + gate_msa * self_attention(self.self_attn, h, rope, self.num_heads,
+                                          attn_impl)
+        h = self.norm3(x)
+        cross_impl = attn_impl if not callable(attn_impl) else "auto"
+        x = x + cross_attention(self.cross_attn, h, ctx, self.num_heads,
+                                cross_impl, ctx_valid_len)
+        h = dnn.layer_norm(x, self.eps) * (1 + scale_mlp) + shift_mlp
+        return x + gate_mlp * self.ffn(h)
+
+
+class Head(nn.Module):
+    """Final modulated projection; t is the [B, dim] time embedding."""
+
+    def __init__(self, dim: int, out_features: int, eps: float = 1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.head = nn.Linear(dim, out_features, device=device, dtype=dtype)
+        self.modulation = nn.Parameter(torch.empty(1, 2, dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        mod = self.modulation.to(t.dtype) + t[:, None, :]
+        shift, scale = mod[:, 0:1], mod[:, 1:2]
+        return self.head(dnn.layer_norm(x, self.eps) * (1 + scale) + shift)
+
+
+class DiTTower(nn.Module):
+    """Embeddings, blocks and head shared by the video and audio towers."""
+
+    def __init__(self, cfg, patch_embedding: nn.Module, out_features: int,
+                 device=None, dtype=None):
+        super().__init__()
+        f = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.patch_embedding = patch_embedding
+        self.text_embedding = nn.Sequential(nn.Linear(cfg.text_dim, cfg.dim, **f),
+                                            nn.GELU(approximate="tanh"),
+                                            nn.Linear(cfg.dim, cfg.dim, **f))
+        self.time_embedding = nn.Sequential(nn.Linear(cfg.freq_dim, cfg.dim, **f),
+                                            nn.SiLU(),
+                                            nn.Linear(cfg.dim, cfg.dim, **f))
+        self.time_projection = nn.Sequential(nn.SiLU(),
+                                             nn.Linear(cfg.dim, cfg.dim * 6, **f))
+        self.blocks = nn.ModuleList(
+            DiTBlock(cfg.dim, cfg.ffn_dim, cfg.num_heads, cfg.eps, **f)
+            for _ in range(cfg.num_layers))
+        self.head = Head(cfg.dim, out_features, cfg.eps, **f)
+
+    def time_embeds(self, timestep: torch.Tensor):
+        """fp32 time embedding and its 6-way projection: (t [B, dim],
+        t_mod [B, 6, dim]), both fp32; the caller casts them down."""
+        emb = dnn.sinusoidal_embedding_1d(self.cfg.freq_dim, timestep.float())
+        fc1, fc2 = self.time_embedding[0], self.time_embedding[2]
+        t = F.linear(F.silu(F.linear(emb, fc1.weight.float(), fc1.bias.float())),
+                     fc2.weight.float(), fc2.bias.float())
+        tp = self.time_projection[1]
+        t_mod = F.linear(F.silu(t), tp.weight.float(), tp.bias.float())
+        return t, t_mod.reshape(t.shape[0], 6, self.cfg.dim)
+
+    def embed_text(self, context: torch.Tensor) -> torch.Tensor:
+        """text_dim -> dim MLP with tanh-GELU."""
+        return self.text_embedding(context)
+
+
+class VideoDiT(DiTTower):
+    """The video tower (WanModel): Conv3d patchify, 3D RoPE."""
+
+    def __init__(self, cfg: VideoDiTConfig, device=None, dtype=None):
+        patch = nn.Conv3d(cfg.in_dim, cfg.dim, cfg.patch_size, stride=cfg.patch_size,
+                          device=device, dtype=dtype)
+        super().__init__(cfg, patch, cfg.out_dim * math.prod(cfg.patch_size),
+                         device, dtype)
+
+    def patchify(self, x: torch.Tensor):
+        """[B, C, F, H, W] -> (tokens [B, f*h*w, dim], grid)."""
+        return dnn.patch_embed_3d(x, self.patch_embedding.weight,
+                                  self.patch_embedding.bias, self.cfg.patch_size)
+
+    def unpatchify(self, x: torch.Tensor, grid: Tuple[int, int, int]) -> torch.Tensor:
+        return dnn.unpatchify_3d(x, grid, self.cfg.patch_size, self.cfg.out_dim)
