@@ -26,6 +26,27 @@ Phases, each of which must pass:
    shift 5. Each result must be a uint8 [193, 352, 640, 3] video and 386,000
    finite audio samples, and each request must launch the flash kernel
    exactly 112 times.
+6. backward kernels: at the training path's three flash shapes (B 1, 40
+   heads, D 128: video self 11,440 x 11,440, video text cross 11,440 x 512,
+   a2v 11,440 x 103) the forward with its LSE output and the backward, held
+   on two heads against their plain versions (LSE within 1e-3 absolute; o
+   relative L2 <= 1e-2; dq, dk, dv relative L2 <= 2e-2), plus a masked case
+   with an LSE cotangent whose length-0 batch must get exactly zero dq and
+   whose masked keys exactly zero dk and dv, and a backward through
+   `flash_attention` that must leave q.grad, k.grad and v.grad nonzero;
+   times as in phase 3, the yardstick being the backward of
+   `scaled_dot_product_attention`.
+7. small backward: one LoRA `training_loss` at the head_dim-128 geometry of
+   phase 4, its LoRA gradients through the kernels against those through
+   plain fp32 attention (relative L2 <= 5e-2 over all of them).
+8. train path: `LoRATrainer` on the main path's modules at the 360p training
+   recipe (352x640, 49 frames at 24 fps: 11,440 video tokens, 103 audio
+   tokens; LoRA rank 16, alpha 16, lr 1e-4 with 100 warmup steps, cosine,
+   remat) for 4 optimizer steps on synthetic clips from a numpy seed. The
+   experts must run 0, 1, 0, 1; loss and grad norm must be finite (the norm
+   above 0); each micro-step must launch the forward kernel exactly 16 times
+   and the backward kernel 8 times; afterwards every module's LoRA `b` must
+   be nonzero, and the saved `lora_weights.npz` must load back equal.
 
 The line before the last is the card's name and power limit; the one
 before that lists each kernel as JSON. The last line of standard output is
@@ -36,6 +57,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -60,10 +82,27 @@ MAIN_PATH_SHAPES = [
     ("audio_self", 12, 403, 403),
     ("audio_text_cross", 12, 403, 512),
 ]
+# (name, heads, Sq, Sk) of each flash-attention call of a 360p training step (B = 1):
+# 49 frames give 13 x 22 x 40 = 11,440 video tokens; 98,000 audio samples 103 tokens
+TRAIN_PATH_SHAPES = [
+    ("video_self", 40, 11440, 11440),
+    ("video_text_cross", 40, 11440, 512),
+    ("a2v_bridge", 40, 11440, 103),
+]
 KERNEL_REL_TOL = 1e-2
 STEP_REL_TOL = 2e-2
+LSE_ABS_TOL = 1e-3
+GRAD_REL_TOL = 2e-2
+LORA_GRAD_REL_TOL = 5e-2
 # per request: (2 shared layers x 6 attentions + 1 tail layer x 2) x 2 CFG passes x 4 steps
 LAUNCHES_PER_REQUEST = (2 * 6 + 1 * 2) * 2 * 4
+# per training micro-step: the 3 video-side attentions of each of 2 shared layers (video
+# self, video text cross, a2v; the 103-query audio side takes plain attention) and the 2 of
+# the 1 tail layer; remat runs each forward twice
+TRAIN_FLASH_CALLS = 2 * 3 + 1 * 2
+TRAIN_FWD_LAUNCHES = 2 * TRAIN_FLASH_CALLS
+TRAIN_BWD_LAUNCHES = TRAIN_FLASH_CALLS
+TRAIN_STEPS = 4
 
 
 class ByteTokenizer:
@@ -124,13 +163,26 @@ def rel_err(got, want) -> float:
     return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def attention_bound_ms(b: int, n: int, sq: int, sk_valid: int, sk: int):
-    """Least time on an H100 SXM: bf16 q, k, v read once and o written once,
-    against 4*Sq*Sk*D flops over the keys this input leaves valid."""
-    flops = 4 * b * n * sq * sk_valid * HEAD_DIM
-    nbytes = 2 * b * n * HEAD_DIM * (2 * sq + 2 * sk)
+def _bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound_ms(b: int, n: int, sq: int, sk_valid: int, sk: int, lse: bool = False):
+    """Least time on an H100 SXM: bf16 q, k, v read once and o written once
+    (and the fp32 LSE, when written), against 4*Sq*Sk*D flops over the keys
+    this input leaves valid."""
+    nbytes = 2 * b * n * HEAD_DIM * (2 * sq + 2 * sk) + (4 * b * n * sq if lse else 0)
+    return _bound(4 * b * n * sq * sk_valid * HEAD_DIM, nbytes)
+
+
+def attention_bwd_bound_ms(b: int, n: int, sq: int, sk_valid: int, sk: int):
+    """Least time on an H100 SXM for the backward: bf16 q, o, dO read and dq
+    written (4 Sq rows), k, v read and dk, dv written (4 Sk rows), fp32 lse
+    and delta read, against 10*Sq*Sk*D flops (the five products) over the
+    keys this input leaves valid."""
+    nbytes = 2 * b * n * HEAD_DIM * (4 * sq + 4 * sk) + 2 * 4 * b * n * sq
+    return _bound(10 * b * n * sq * sk_valid * HEAD_DIM, nbytes)
 
 
 def phase_device():
@@ -151,13 +203,21 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dualforce_tpu_torch.ops import _build
 
-    built = _build.build("flash_fwd")
-    log(f"[build] flash_fwd: {built.path.name} nvcc {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    names = ("flash_fwd", "flash_bwd")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = dict(zip(names, pool.map(_build.build, names)))
+    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.2f} s of wall time")
+    for name, built in builds.items():
+        log(f"[build] {name}: {built.path.name} nvcc {built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def phase_kernels():
@@ -372,6 +432,257 @@ def phase_main_path():
         f"flash launches over both requests {launches}")
     if launches == 0:
         raise AssertionError("the main path never launched the flash kernel")
+    return launches, cfg, modules
+
+
+def _rand(g, *shape, dtype=None):
+    import torch
+
+    return torch.randn(*shape, generator=g, device="cuda", dtype=dtype or torch.bfloat16)
+
+
+def phase_backward_kernels():
+    """The forward with its LSE output and the backward kernel at the
+    training path's shapes, against their plain versions, and timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention,
+                                                         flash_attention_bwd,
+                                                         flash_attention_bwd_plain,
+                                                         flash_attention_plain,
+                                                         flash_attention_with_lse)
+
+    g = torch.Generator("cuda").manual_seed(1)
+    rows, max_abs = [], {"fwd": 0.0, "bwd": 0.0}
+    for name, n, sq, sk in TRAIN_PATH_SHAPES:
+        q, k, v, do = (_rand(g, 1, s, n, HEAD_DIM) for s in (sq, sk, sk, sq))
+        o, lse = flash_attention_with_lse(q, k, v)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        heads = [0, n - 1]
+        sub = [x[:, :, heads].float() for x in (q, k, v, o, do)]
+        want_o, want_lse = flash_attention_plain(*sub[:3], return_lse=True)
+        lse_err = float((lse[:, heads] - want_lse).abs().max())
+        o_err = rel_err(o[:, :, heads], want_o)
+        want = flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4])
+        errs = {gn: rel_err(got[:, :, heads], w)
+                for gn, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        mae = max(float((got[:, :, heads].float() - w).abs().max())
+                  for got, w in zip((dq, dk, dv), want))
+        max_abs["fwd"] = max(max_abs["fwd"], float((o[:, :, heads].float() - want_o)
+                                                   .abs().max()))
+        max_abs["bwd"] = max(max_abs["bwd"], mae)
+        if not (lse_err <= LSE_ABS_TOL and o_err <= KERNEL_REL_TOL
+                and all(e <= GRAD_REL_TOL for e in errs.values())):
+            raise AssertionError(f"{name}: lse abs err {lse_err}, o rel err {o_err}, "
+                                 f"grad rel errs {errs}")
+        del sub, want_o, want_lse, want, dq, dk, dv
+        fwd_ms, _ = time_ms(lambda: flash_attention_with_lse(q, k, v), reps=7, warmup=2)
+        fwd_plain_ms, _ = time_ms(lambda: flash_attention_plain(q, k, v, return_lse=True),
+                                  reps=3, warmup=1)
+        bwd_ms, bwd_host_us = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do),
+                                      reps=7, warmup=2)
+        bwd_plain_ms, _ = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do),
+                                  reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_fwd_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                reps=7, warmup=2)
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        lib_bwd_ms, _ = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                            retain_graph=True),
+                                reps=7, warmup=2)
+        fwd_bound, fwd_by = attention_bound_ms(1, n, sq, sk, sk, lse=True)
+        bwd_bound, bwd_by = attention_bwd_bound_ms(1, n, sq, sk, sk)
+        row = dict(shape=name, heads=n, sq=sq, sk=sk, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+                   fwd_library_ms=lib_fwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                   bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_library_ms=lib_bwd_ms,
+                   bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, max_abs_err=mae)
+        rows.append(row)
+        log(f"[kernel] flash_fwd+lse {name} N={n} Sq={sq} Sk={sk}: kernel_ms={fwd_ms:.4f} "
+            f"bound_ms={fwd_bound:.4f} ({fwd_by}) library_ms={lib_fwd_ms:.4f} "
+            f"plain_ms={fwd_plain_ms:.4f} (not a yardstick) lse_abs_err={lse_err:.3e} "
+            f"o_rel_err={o_err:.3e}")
+        log(f"[kernel] flash_bwd {name} N={n} Sq={sq} Sk={sk}: kernel_ms={bwd_ms:.4f} "
+            f"bound_ms={bwd_bound:.4f} ({bwd_by}) library_ms={lib_bwd_ms:.4f} "
+            f"(sdpa backward) plain_ms={bwd_plain_ms:.4f} (not a yardstick) "
+            + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
+            + f" max_abs_err={mae:.3e} host_us={bwd_host_us:.1f}")
+        del q, k, v, do, o, lse, qt, kt, vt, out, dot
+        torch.cuda.empty_cache()
+
+    # per-batch kv lengths, one of them 0, and an LSE cotangent
+    b, n, sq, sk, lens = 3, 8, 4096, 512, [512, 77, 0]
+    q, do = _rand(g, b, sq, n, HEAD_DIM), _rand(g, b, sq, n, HEAD_DIM)
+    k, v = _rand(g, b, sk, n, HEAD_DIM), _rand(g, b, sk, n, HEAD_DIM)
+    dlse = _rand(g, b, n, sq, dtype=torch.float32)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o, lse = flash_attention_with_lse(q, k, v, kv_len)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, kv_len, dlse)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), kv_len, dlse)
+    errs = {gn: rel_err(got, w) for gn, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    mae = max(float((got.float() - w).abs().max()) for got, w in zip((dq, dk, dv), want))
+    max_abs["bwd"] = max(max_abs["bwd"], mae)
+    nonzero = int(torch.count_nonzero(dq[2])) + sum(
+        int(torch.count_nonzero(x[i, length:])) for x in (dk, dv)
+        for i, length in enumerate(lens))
+    if not all(e <= GRAD_REL_TOL for e in errs.values()) or nonzero:
+        raise AssertionError(f"masked backward: rel errs {errs}, {nonzero} nonzero where "
+                             f"exact zeros are due")
+    log(f"[kernel] flash_bwd masked B={b} N={n} Sq={sq} Sk={sk} kv_len={lens} with dlse: "
+        + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
+        + f" max_abs_err={mae:.3e}; length-0 dq and masked dk/dv exactly 0")
+
+    # autograd: a backward through `flash_attention` reaches q, k and v through the kernels
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    flash_attention(q, k, v, kv_len).backward(do)
+    torch.cuda.synchronize()
+    launched = (flash_attention.launches - fwd, flash_attention_bwd.launches - bwd)
+    empty = [name for name, x in zip("qkv", (q, k, v))
+             if x.grad is None or not torch.count_nonzero(x.grad)]
+    if empty or launched != (1, 1):
+        raise AssertionError(f"autograd through the kernels: grads None or zero for "
+                             f"{empty}, launches (fwd, bwd) {launched}")
+    log("[kernel] autograd through flash_attention: q.grad, k.grad, v.grad nonzero; one "
+        "forward (with LSE) and one backward launch")
+    return rows, max_abs
+
+
+def _train_tables(cfg):
+    from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
+    from dualforce_tpu_torch.diffusion.training import build_train_tables
+
+    sched = FlowMatchPairScheduler(cfg.scheduler)
+    sched.set_timesteps(cfg.scheduler.num_train_timesteps, training=True)
+    return build_train_tables(sched, cfg.boundary_ratio)
+
+
+def phase_small_backward():
+    """LoRA gradients of one training loss through the kernels against the
+    same through plain fp32 attention."""
+    import torch
+
+    from dualforce_tpu_torch.diffusion.training import lora_grads
+    from dualforce_tpu_torch.engine import lora as lora_mod
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    cfg = _small_config()
+    mods = init_pipeline_params(cfg, device="cuda", dtype=torch.bfloat16, seed=3,
+                                with_vaes=False, with_text=False, two_video_towers=False)
+    g = torch.Generator("cuda").manual_seed(5)
+    enc = {"video_latents": _rand(g, 1, 16, 3, 32, 48, dtype=torch.float32),   # 1,152 tokens
+           "condition": _rand(g, 1, 20, 3, 32, 48, dtype=torch.float32),
+           "audio_latents": _rand(g, 1, 32, 300, dtype=torch.float32),
+           "context": _rand(g, 1, 512, 256)}
+    noise = (_rand(g, 1, 16, 3, 32, 48, dtype=torch.float32),
+             _rand(g, 1, 32, 300, dtype=torch.float32))
+    host = torch.Generator().manual_seed(6)
+    lora = lora_mod.init_pipeline_lora(mods, 16, host)
+    with torch.no_grad():            # nonzero b, so both factors get gradients
+        for p in lora_mod.lora_parameters(lora)[1::2]:
+            p.copy_(torch.randn(p.shape, generator=host) * 1e-2)
+    tables = _train_tables(cfg)
+    flat = {}
+    for impl in ("auto", "ref"):
+        before = flash_attention_bwd.launches
+        grads, _ = lora_grads(lora, mods, cfg, tables, enc, None, 0,
+                              compute_dtype=torch.bfloat16, remat=True, attn_impl=impl,
+                              noise_override=noise, timestep_id=100, device="cuda")
+        flat[impl] = torch.cat([x.float().flatten() for x in grads])
+        launched = flash_attention_bwd.launches - before
+        if (launched > 0) != (impl == "auto"):
+            raise AssertionError(f"attn_impl={impl}: {launched} backward launches")
+    err = rel_err(flat["auto"], flat["ref"])
+    if not (torch.isfinite(flat["auto"]).all() and err <= LORA_GRAD_REL_TOL):
+        raise AssertionError(f"small backward: LoRA grads rel err {err}")
+    log(f"[small] training_loss LoRA grads ({flat['auto'].numel()} values) through the "
+        f"kernels vs plain attention: rel_err={err:.3e} (tolerance {LORA_GRAD_REL_TOL})")
+
+
+def _synthetic_clips(count: int):
+    """Clips of the 360p training recipe from a numpy seed: uniform video
+    in [-1, 1], a tone plus noise for audio, a byte-tokenised caption."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    tok = ByteTokenizer()
+    t = np.arange(int(48000 * 49 / 24)) / 48000.0
+    for i in range(count):
+        ids = tok([f"clip {i}: a drummer on a rooftop at dusk"], max_length=512)
+        audio = 0.3 * np.sin(2 * np.pi * 110.0 * (i + 2) * t) + 0.05 * rng.standard_normal(t.size)
+        yield {"video": rng.uniform(-1, 1, (1, 49, 352, 640, 3)).astype(np.float32),
+               "audio": audio.astype(np.float32)[None, None],
+               "text_ids": ids["input_ids"], "text_mask": ids["attention_mask"]}
+
+
+def phase_train_path(cfg, modules, root: str):
+    """`LoRATrainer` for TRAIN_STEPS optimizer steps at the 360p recipe."""
+    import shutil
+
+    import torch
+
+    from dualforce_tpu_torch.engine import lora as lora_mod
+    from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+
+    save_dir = os.path.join(root, "build", "chip_smoke_train")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    tcfg = TrainerConfig(lr=1e-4, weight_decay=1e-2, warmup_steps=100,
+                         max_steps=TRAIN_STEPS, lr_schedule="cosine", lora_rank=16,
+                         lora_alpha=16.0, log_interval=1, save_interval=1000,
+                         save_dir=save_dir, logger="jsonl", remat=True)
+    trainer = LoRATrainer(cfg, modules, tcfg, device="cuda")
+    n_lora = sum(p.numel() for p in lora_mod.lora_parameters(trainer.lora))
+    log(f"[train] LoRATrainer on the main path's modules: {n_lora / 1e6:.2f} M LoRA "
+        f"parameters (rank 16) over {sum(len(t) for t in trainer.lora.values())} weights")
+
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = 0   # the train path's count
+    t0 = time.perf_counter()
+    final = trainer.train(_synthetic_clips(TRAIN_STEPS), on_micro_step=steps.append)
+    wall = time.perf_counter() - t0
+    launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, st in enumerate(steps):
+        log(f"[train] step {i + 1}: expert {st['expert']} timestep {st['timestep']:.1f} "
+            f"loss {st['loss']:.5f} (video {st['video_loss']:.5f}, audio "
+            f"{st['audio_loss']:.5f}) grad_norm {st['grad_norm']:.5f}; encode "
+            f"{st['encode_s']:.3f} s, loss+backward {st['loss_backward_s']:.3f} s, "
+            f"optimizer {st['optimizer_s']:.4f} s; flash launches fwd {st['flash_fwd']} "
+            f"bwd {st['flash_bwd']}")
+    log(f"[train] {final} steps in {wall:.2f} s (saves included); max_memory_allocated "
+        f"{peak:.2f} GiB; flash launches over the phase fwd {launches['fwd']} "
+        f"bwd {launches['bwd']}")
+
+    if final != TRAIN_STEPS or [st["expert"] for st in steps] != [0, 1, 0, 1]:
+        raise AssertionError(f"{final} steps, experts {[st['expert'] for st in steps]}")
+    for st in steps:
+        values = [st[k] for k in ("loss", "video_loss", "audio_loss", "grad_norm")]
+        if not all(math.isfinite(x) for x in values) or st["grad_norm"] <= 0:
+            raise AssertionError(f"non-finite or zero metrics {st}")
+        if (st["flash_fwd"], st["flash_bwd"]) != (TRAIN_FWD_LAUNCHES, TRAIN_BWD_LAUNCHES):
+            raise AssertionError(f"flash launches per micro-step fwd {st['flash_fwd']} bwd "
+                                 f"{st['flash_bwd']}, expected {TRAIN_FWD_LAUNCHES} and "
+                                 f"{TRAIN_BWD_LAUNCHES}")
+    for mod, tree in trainer.lora.items():
+        zero = [n for n, ab in tree.items() if not torch.count_nonzero(ab["b"])]
+        if zero:
+            raise AssertionError(f"{mod}: LoRA b still zero at {zero[:3]}")
+    back, _ = lora_mod.load_lora(os.path.join(save_dir, f"step-{final}", "lora_weights.npz"),
+                                 cfg.bridge.interaction_layers())
+    for mod, tree in trainer.lora.items():
+        for name, ab in tree.items():
+            for part in ("a", "b"):
+                if not torch.equal(back[mod][name][part], ab[part].detach().cpu()):
+                    raise AssertionError(f"saved LoRA differs at {mod} {name} {part}")
+    log(f"[train] experts 0, 1, 0, 1; every module's LoRA b nonzero; "
+        f"step-{final}/lora_weights.npz reloads equal to the live LoRA")
     return launches
 
 
@@ -394,23 +705,44 @@ def main() -> int:
     phase_build()
     rows, max_abs = phase_kernels()
     phase_small_step()
-    launches = phase_main_path()
+    serve_launches, cfg, modules = phase_main_path()
+    bwd_rows, bwd_max_abs = phase_backward_kernels()
+    phase_small_backward()
+    train = phase_train_path(cfg, modules, root)
 
-    video_self = rows[0]
+    video_self, train_self = rows[0], bwd_rows[0]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
-        "launches": launches,
-        "max_abs_err": max_abs,
+        "launches": serve_launches + train["fwd"],
+        "launches_by_path": {"serve": serve_launches, "train": train["fwd"]},
+        "max_abs_err": max(max_abs, bwd_max_abs["fwd"]),
         "ms": video_self["kernel_ms"],
         "plain_ms": video_self["plain_ms"],
         "bound_ms": video_self["bound_ms"],
         "bound_by": video_self["bound_by"],
         "library_ms": video_self["library_ms"],
         "held_against_plain": True,
-        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128; the other shapes are on the [kernel] lines",
+        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128, no LSE; the other shapes "
+                 "and the LSE output at the training shapes are on the [kernel] lines",
+    }, {
+        "name": "flash_bwd",
+        "route": "cuda",
+        "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "dualforce_tpu/ops/flash_attention.py:365",
+        "launches": train["bwd"],
+        "launches_by_path": {"serve": 0, "train": train["bwd"]},
+        "max_abs_err": bwd_max_abs["bwd"],
+        "ms": train_self["bwd_ms"],
+        "plain_ms": train_self["bwd_plain_ms"],
+        "bound_ms": train_self["bwd_bound_ms"],
+        "bound_by": train_self["bwd_bound_by"],
+        "library_ms": train_self["bwd_library_ms"],
+        "held_against_plain": True,
+        "shape": "video_self at training: 40 heads, Sq = Sk = 11440, D 128; the other "
+                 "shapes are on the [kernel] lines",
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,7 +7,8 @@ is the key map of the JAX package's `convert/torch_export.py`, kept here as
 its own copy; for UMT5, the Wan VAE and DAC it inverts the JAX package's
 converters (`models/umt5.convert_umt5`, `convert/load_checkpoint._convert_wan_vae`,
 `convert/torch_import.convert_dac`). `load` loads them with strict=True, so
-no key may be missing or extra.
+no key may be missing or extra. `lora` carries a JAX LoRA tree (factors
+stacked per layer, `engine/lora.init_pipeline_lora`) into the port's LoRA.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from dualforce_tpu_torch.config import (AudioDiTConfig, BridgeConfig, DACVAEConfig,
                                         MOVAConfig, UMT5Config, VideoDiTConfig,
                                         WanVAEConfig)
+from dualforce_tpu_torch.engine import lora as lora_mod
 
 Array = np.ndarray
 StateDict = Dict[str, Array]
@@ -259,3 +261,10 @@ def load(modules: Dict[str, torch.nn.Module], params: Dict[str, Any],
     for name, module in modules.items():
         module.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                                 for k, v in sds[name].items()}, strict=True)
+
+
+def lora(tree: Dict[str, Any], cfg: MOVAConfig) -> lora_mod.Lora:
+    """The JAX package's LoRA tree ({module: {path: {a: [L, in, r], b:
+    [L, r, out]}}}) as the port's LoRA: per-layer fp32 factors on the host,
+    keyed by the port's weight names, leaves that require grad."""
+    return lora_mod.from_stacked(tree, cfg.bridge.interaction_layers())

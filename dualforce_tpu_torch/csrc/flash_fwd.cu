@@ -1,11 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32 accumulation.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (dualforce_tpu/ops/flash_attention.py:132)
-// in its exact mode without the LSE output. Per (batch, head) it computes
+// in its exact mode, with or without the LSE output. Per (batch, head) it computes
 //     O = softmax(Q K^T / sqrt(D) + mask) V,
 // non-causal, D = 128, with keys at positions >= kv_len[b] excluded. As on the TPU, the
 // running max is floored at -1e4 (log2 units) and a row whose softmax denominator is 0
-// (every key masked) writes zeros instead of NaN.
+// (every key masked) writes zeros instead of NaN. When `lse` is given it also writes the
+// natural-log LSE of each row, [B, N, Sq] fp32: (m + log2 l) * ln 2 in the kernel's log2
+// units, with l = 0 taken as 1, so a row with no valid key gets -1e4 * ln 2 (the backward
+// kernel's input; serving passes no `lse` and writes nothing more).
 //
 // What bounds it on an H100: at the main path's sequence lengths it is bound by tensor-core
 // operations, not bytes. Video self-attention at 43,120 tokens does 4*Sq*Sk*D flops against
@@ -40,6 +43,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kSmemLd = kHeadDim + 8;
 constexpr int kSmemBytes = (kBlockM + 2 * kBlockN) * kSmemLd * 2;
 constexpr float kMaxFloor = -1.0e4f;  // running-max floor, log2 units (the TPU kernel's)
+constexpr float kLn2 = 0.6931471805599453f;
 
 static_assert(kBlockM == kWarps * 16, "one 16-row mma tile per warp");
 
@@ -109,7 +113,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     const int* __restrict__ kv_len, int heads, int sq, int sk, int64_t q_sb,
+                     float* __restrict__ lse, const int* __restrict__ kv_len, int heads,
+                     int sq, int sk, int64_t q_sb,
                      int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                      int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
                      int64_t o_sh, float scale_log2) {
@@ -243,16 +248,22 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 
   // Epilogue: normalise and store; a row with no valid key (sum 0) stores zeros.
+  const int row_a = m0 + warp * 16 + lane / 4;
+  const int row_b = row_a + 8;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float total = row_sum[r];
     total += __shfl_xor_sync(0xffffffffu, total, 1);
     total += __shfl_xor_sync(0xffffffffu, total, 2);
-    inv[r] = total == 0.f ? 1.f : 1.f / total;
+    const float safe = total == 0.f ? 1.f : total;
+    inv[r] = 1.f / safe;
+    const int row = r == 0 ? row_a : row_b;
+    // the floor also covers a row that saw no key tile at all (kv_len 0)
+    if (lse != nullptr && lane % 4 == 0 && row < sq)
+      lse[static_cast<int64_t>(blockIdx.y) * sq + row] =
+          (fmaxf(row_max[r], kMaxFloor) + log2f(safe)) * kLn2;
   }
-  const int row_a = m0 + warp * 16 + lane / 4;
-  const int row_b = row_a + 8;
 #pragma unroll
   for (int dt = 0; dt < kHeadDim / 8; ++dt) {
     const int col = dt * 8 + (lane % 4) * 2;
@@ -268,14 +279,15 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Launches the kernel on `stream`. Strides are in elements, for [B, S, N, D] views with a
-// unit D stride. kv_len is a device pointer to [B] int32, or null for no key mask.
+// unit D stride. lse is a device pointer to [B, N, Sq] fp32, or null for no LSE output.
+// kv_len is a device pointer to [B] int32, or null for no key mask.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int dft_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                  const void* kv_len, int batch, int heads, int sq, int sk,
-                                  long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                                  long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                                  long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-                                  float scale_log2, void* stream) {
+                                  void* lse, const void* kv_len, int batch, int heads, int sq,
+                                  int sk, long long q_sb, long long q_ss, long long q_sh,
+                                  long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                                  long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+                                  long long o_sh, float scale_log2, void* stream) {
   // The opt-in to more than 48 KiB of dynamic shared memory is made once per device, not on
   // every launch (two threads racing here both set the same value).
   constexpr int kMaxDevices = 64;
@@ -293,7 +305,7 @@ extern "C" int dft_flash_fwd_bf16(const void* q, const void* k, const void* v, v
   flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(kv_len), heads, sq, sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2);
+      static_cast<float*>(lse), static_cast<const int*>(kv_len), heads, sq, sk, q_sb, q_ss,
+      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

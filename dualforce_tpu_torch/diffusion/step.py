@@ -9,7 +9,7 @@ depend only on the generation geometry: build them once per generation with
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -72,9 +72,13 @@ def dual_tower_step(
     attn_impl="auto",
     ctx_valid_len: Optional[torch.Tensor] = None,
     rope_pack=None,
+    remat: bool = False,
+    params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (visual prediction [B, out, F, H, W], audio prediction
-    [B, out, T]) in the compute dtype."""
+    [B, out, T]) in the compute dtype. `remat` and `params` (tensors in place
+    of the layers' own parameters, e.g. LoRA-merged weights) go to
+    `forward_dual_tower`."""
     if audio_timestep is None:
         audio_timestep = timestep
     v_t, v_t_mod = video.time_embeds(timestep)
@@ -98,7 +102,7 @@ def dual_tower_step(
         cross_rope=rope_pack.get("cross"), condition_scale=condition_scale,
         a2v_condition_scale=a2v_condition_scale,
         v2a_condition_scale=v2a_condition_scale, attn_impl=attn_impl,
-        ctx_valid_len=ctx_valid_len)
+        ctx_valid_len=ctx_valid_len, remat=remat, params=params)
 
     visual_out = video.unpatchify(video.head(visual_x, v_t), grid)
     audio_out = audio.unpatchify(audio.head(audio_x, a_t))

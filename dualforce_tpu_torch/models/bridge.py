@@ -11,7 +11,7 @@ The pooled-AdaLN variant and the sequence-parallel variants are not ported.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -74,12 +74,15 @@ class DualTowerBridge(nn.Module):
 
     def layer_apply(self, layer: int, visual_x: torch.Tensor, audio_x: torch.Tensor,
                     visual_freqs, audio_freqs, a2v_scale: torch.Tensor,
-                    v2a_scale: torch.Tensor, attn_impl="auto"):
+                    v2a_scale: torch.Tensor, attn_impl="auto",
+                    params: Optional[Dict[str, torch.Tensor]] = None):
         """One interaction at shared layer `layer`: both directions read the
-        pre-interaction states."""
-        dv = self.audio_to_video_conditioners[str(layer)](
-            visual_x, audio_x, visual_freqs, audio_freqs, attn_impl)
-        da = self.video_to_audio_conditioners[str(layer)](
-            audio_x, visual_x, audio_freqs, visual_freqs, attn_impl)
+        pre-interaction states. `params`: optional {name: tensor} in place of
+        the bridge's own parameters (names from the bridge, see `nn.call`)."""
+        a2v, v2a = "audio_to_video_conditioners", "video_to_audio_conditioners"
+        dv = dnn.call(getattr(self, a2v)[str(layer)], params, f"{a2v}.{layer}.",
+                      visual_x, audio_x, visual_freqs, audio_freqs, attn_impl)
+        da = dnn.call(getattr(self, v2a)[str(layer)], params, f"{v2a}.{layer}.",
+                      audio_x, visual_x, audio_freqs, visual_freqs, attn_impl)
         return (visual_x + dv * a2v_scale.to(visual_x.device, visual_x.dtype),
                 audio_x + da * v2a_scale.to(audio_x.device, audio_x.dtype))

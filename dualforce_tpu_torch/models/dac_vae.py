@@ -1,11 +1,12 @@
-"""DAC audio VAE decoder, continuous (KL) mode (counterpart of
-`dualforce_tpu/models/dac_vae.py`).
+"""DAC audio VAE, continuous (KL) mode: encode (mean of the moments) and
+decode (counterpart of `dualforce_tpu/models/dac_vae.py`).
 
-Runs in fp32 on [B, C, T] tensors. Parameter names are those of the MOVA
-DAC checkpoint (`decoder.model.{i}`, `encoder.block.{i}`, `quant_conv`,
-`post_quant_conv`) with plain conv weights: weight norm is folded before
-loading, as the JAX package's converter does. The encoder's parameters are
-present so a full checkpoint loads strictly; encoding is not ported.
+Runs in fp32 on [B, C, T] tensors, as the JAX package runs it (its VAE
+parameters stay fp32 and training's `encode_batch` feeds fp32 audio).
+Parameter names are those of the MOVA DAC checkpoint (`decoder.model.{i}`,
+`encoder.block.{i}`, `quant_conv`, `post_quant_conv`) with plain conv
+weights: weight norm is folded before loading, as the JAX package's
+converter does. The RVQ mode and `compress`/`decompress` are not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ class _EncoderBlock(nn.Module):
             nn.Conv1d(dim // 2, dim, 2 * stride, stride=stride,
                       padding=math.ceil(stride / 2), **f))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
 
 class _Encoder(nn.Module):
     def __init__(self, cfg: DACVAEConfig, device=None, dtype=None):
@@ -71,6 +75,9 @@ class _Encoder(nn.Module):
             layers.append(_EncoderBlock(d, stride, **f))
         layers += [Snake1d(d, **f), nn.Conv1d(d, cfg.latent_dim, 3, padding=1, **f)]
         self.block = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
 
 
 class _DecoderBlock(nn.Module):
@@ -118,3 +125,22 @@ class DACVAE(nn.Module):
 def decode(vae: DACVAE, z: torch.Tensor) -> torch.Tensor:
     """z: [B, D, T] latents -> audio [B, 1, T * hop] in [-1, 1], in fp32."""
     return vae.decoder.model(vae.post_quant_conv(z.float()))
+
+
+def preprocess(audio: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """Right-pad the last axis with zeros to a multiple of the hop."""
+    pad = -audio.shape[-1] % hop_length
+    return torch.nn.functional.pad(audio, (0, pad)) if pad else audio
+
+
+def encode_moments(vae: DACVAE, audio: torch.Tensor):
+    """audio [B, 1, S] -> (mean, logvar) each [B, D, ceil(S / hop)], fp32;
+    logvar clipped to [-30, 20]."""
+    z = vae.encoder(preprocess(audio.float(), vae.cfg.hop_length))
+    mean, logvar = vae.quant_conv(z).chunk(2, dim=1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def encode_mode(vae: DACVAE, audio: torch.Tensor) -> torch.Tensor:
+    """audio [B, 1, S] -> latent mean [B, D, ceil(S / hop)], fp32."""
+    return encode_moments(vae, audio)[0]

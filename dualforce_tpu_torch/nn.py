@@ -11,7 +11,7 @@ package's int8, int4 and fp8 weight paths are not ported.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def call(module: nn.Module, params: Optional[Dict[str, torch.Tensor]], prefix: str,
+         *args):
+    """`module(*args)` with some parameters replaced: the entries of `params`
+    (a flat {name: tensor} dict, named from an enclosing module) whose names
+    start with `prefix`, prefix stripped, stand in for the module's own
+    parameters of those names for this call (`torch.func.functional_call`).
+    The LoRA-merged weights of training reach the layers this way, so the
+    base parameters stay as they are. No matching entry: a plain call."""
+    sub = ({k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+           if params else None)
+    if not sub:
+        return module(*args)
+    return torch.func.functional_call(module, sub, args)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,153 @@
+"""The port's flash-attention LSE output and backward against the JAX package.
+
+On the CPU the port's wrappers run the kernels' plain versions, and the
+backward is the port's own (`flash_attention_bwd` from the saved LSE, the
+formula of the CUDA kernel), never autograd through the plain forward. They
+are held against the JAX package's Pallas kernels run in interpret mode, as
+`tests/test_flash_attention.py` runs them: the forward with `save_lse`
+(`flash_attention_with_lse`) and `jax.grad` through `flash_attention`, which
+runs `_bwd_fused`. Everything in fp32; tolerance 2e-5 on outputs and LSE
+and 1e-4 on gradients (fp32 round-off over a few hundred keys). Shapes stay
+small (N 2, S <= 384, D 128): the Pallas backward is slow in interpret mode.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dualforce_tpu.ops.flash_attention import flash_attention as jax_flash
+from dualforce_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash_lse
+
+from dualforce_tpu_torch.ops import flash_attention as fa
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+BLOCKS = dict(block_q=128, block_k=128)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_reference_unoptimised():
+    """Compile the JAX reference with XLA's optimisation passes off (the same
+    math, compiled faster at these sizes); restored for later files."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
+def _inputs(seed, b, sq, sk, n=2, d=128):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((b, sq, n, d), (b, sk, n, d), (b, sk, n, d), (b, sq, n, d),
+                           (b, n, sq)))
+
+
+def _grad_leaves(*arrays):
+    return [torch.from_numpy(a).requires_grad_() for a in arrays]
+
+
+@pytest.mark.parametrize("sq,sk,lens", [(300, 200, None), (130, 384, (384, 37))],
+                         ids=["nomask", "mask"])
+def test_forward_lse_matches_pallas(sq, sk, lens):
+    q, k, v, _, _ = _inputs(0, 2, sq, sk)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    want_o, want_lse = jax_flash_lse(q, k, v, kv_valid_len=jl, **BLOCKS)
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    got_o, got_lse = fa.flash_attention_with_lse(*map(torch.from_numpy, (q, k, v)), tl)
+    assert got_lse.shape == (2, 2, sq) and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
+
+
+@pytest.mark.parametrize("sq,sk,lens", [(300, 200, None), (257, 130, (130, 37))],
+                         ids=["nomask", "mask"])
+def test_flash_grads_match_pallas_backward(sq, sk, lens, monkeypatch):
+    """dq, dk, dv of `flash_attention` against `jax.grad` of the JAX
+    package's `flash_attention` (its fused Pallas backward), and the port's
+    gradient comes from its own backward (`flash_attention_bwd_plain` on the
+    CPU, called once), not from autograd through the plain forward."""
+    q, k, v, do, _ = _inputs(1, 2, sq, sk)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_flash(q, k, v, kv_valid_len=jl, **BLOCKS) * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    calls = []
+    plain_bwd = fa.flash_attention_bwd_plain
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain",
+                        lambda *a: calls.append(1) or plain_bwd(*a))
+    tq, tk, tv = _grad_leaves(q, k, v)
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out = fa.flash_attention(tq, tk, tv, tl)
+    out.backward(torch.from_numpy(do))
+    assert calls == [1]
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=f"d{name}",
+                                   **GRAD_TOL)
+
+
+def test_lse_cotangent_matches_pallas_backward():
+    """Gradients through both outputs of `flash_attention_with_lse`: the LSE
+    cotangent folds into delta, as `_bwd_prepare` folds it."""
+    q, k, v, do, dlse = _inputs(2, 1, 300, 260)
+    lens = np.array([201], np.int32)
+
+    def jloss(q, k, v):
+        o, lse = jax_flash_lse(q, k, v, kv_valid_len=jnp.asarray(lens), **BLOCKS)
+        return jnp.sum(o * do) + jnp.sum(lse * dlse)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = _grad_leaves(q, k, v)
+    o, lse = fa.flash_attention_with_lse(tq, tk, tv, torch.from_numpy(lens))
+    torch.autograd.backward((o, lse), (torch.from_numpy(do), torch.from_numpy(dlse)))
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=f"d{name}",
+                                   **GRAD_TOL)
+
+
+def test_plain_backward_zeros_for_masked_keys_and_empty_rows():
+    """A row with no valid key has LSE -1e4 * ln 2, output 0 and zero dq;
+    keys past each valid length get zero dk and dv."""
+    q, k, v, do, dlse = _inputs(3, 3, 70, 90)
+    lens = torch.tensor([90, 41, 0])
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, lens, return_lse=True)
+    assert torch.all(o[2] == 0)
+    assert torch.allclose(lse[2], torch.tensor(-1e4 / fa.LOG2E))
+    dq, dk, dv = fa.flash_attention_bwd(tq, tk, tv, o, lse, torch.from_numpy(do), lens,
+                                        torch.from_numpy(dlse))
+    assert torch.all(dq[2] == 0)
+    for i, n in enumerate(lens.tolist()):
+        assert torch.all(dk[i, n:] == 0) and torch.all(dv[i, n:] == 0)
+    assert torch.count_nonzero(dq[:2]) > 0 and torch.count_nonzero(dk[1, :41]) > 0
+
+
+def test_no_grad_forward_skips_the_lse_and_autograd():
+    """Serving (no grad) runs the forward without the LSE and records no
+    graph; with grad the output's graph node is the port's backward."""
+    q, k, v, _, _ = _inputs(4, 1, 40, 40)
+    tq, tk, tv = _grad_leaves(q, k, v)
+    with torch.no_grad():
+        assert fa.flash_attention(tq, tk, tv).grad_fn is None
+    out = fa.flash_attention(tq, tk, tv)
+    assert type(out.grad_fn).__name__ == "_FlashLseBackward"
+
+
+def test_lse_only_cotangent_matches_pallas_backward():
+    """A loss on the LSE alone: the unused output's cotangent arrives as
+    None and counts as dO = 0."""
+    q, k, v, _, dlse = _inputs(5, 1, 130, 140)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_flash_lse(q, k, v, **BLOCKS)[1] * dlse)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = _grad_leaves(q, k, v)
+    _, lse = fa.flash_attention_with_lse(tq, tk, tv)
+    lse.backward(torch.from_numpy(dlse))
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=f"d{name}",
+                                   **GRAD_TOL)

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA flash-attention kernels (forward, its LSE output, backward)
+against their plain versions, on the card.
 
 Skips where there is no CUDA device. It imports no JAX, so on a machine
 with the card it runs without the repository's JAX test configuration:
@@ -65,3 +66,90 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     y = torch.zeros(1, 300, 1, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(y, y, y)                       # D = 64
+
+
+# --- forward LSE output and the backward kernel -----------------------------
+# Tolerances: the LSE within 1e-3 absolute of the fp32 plain version; dq, dk
+# and dv (bf16, dq through an fp32 atomicAdd workspace whose summation order
+# varies between runs) within 2e-2 relative L2 of the fp32 plain backward on
+# the same bf16 q, k, v, o, dO and the kernel's own LSE.
+
+def _bwd_inputs(cuda, b, n, sq, sk, lens, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, 128, generator=g, device=cuda, dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    do = torch.randn(b, sq, n, 128, generator=g, device=cuda, dtype=torch.bfloat16)
+    dlse = torch.randn(b, n, sq, generator=g, device=cuda)
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, v, do, dlse, tl
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens", [
+    (1, 2, 300, 200, None),
+    (2, 3, 130, 520, (520, 0)),
+    (3, 2, 1000, 512, (512, 77, 0)),
+    (1, 2, 403, 4031, None),
+])
+def test_lse_matches_plain(cuda, b, n, sq, sk, lens):
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention_with_lse
+
+    q, k, v, _, _, tl = _bwd_inputs(cuda, b, n, sq, sk, lens, 2)
+    before = flash_attention.launches
+    out, lse = flash_attention_with_lse(q, k, v, tl)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, want_lse = flash_attention_plain(q.float(), k.float(), v.float(), tl,
+                                           return_lse=True)
+    assert _rel(out, want) <= 1e-2
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens,with_dlse", [
+    (1, 2, 300, 200, None, False),
+    (1, 2, 257, 403, None, True),
+    (2, 3, 130, 520, (520, 0), True),
+    (3, 2, 1000, 512, (512, 77, 0), True),
+])
+def test_bwd_kernel_matches_plain(cuda, b, n, sq, sk, lens, with_dlse):
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_bwd_plain,
+                                                         flash_attention_with_lse)
+
+    q, k, v, do, dlse, tl = _bwd_inputs(cuda, b, n, sq, sk, lens, 3)
+    dlse = dlse if with_dlse else None
+    o, lse = flash_attention_with_lse(q, k, v, tl)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, tl, dlse)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), tl, dlse)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == w.shape
+        assert _rel(x, w) <= 2e-2, name
+    if lens is not None:
+        dq, dk, dv = got
+        for i, length in enumerate(lens):
+            if length == 0:
+                assert torch.count_nonzero(dq[i]) == 0
+            assert torch.count_nonzero(dk[i, length:]) == 0
+            assert torch.count_nonzero(dv[i, length:]) == 0
+
+
+def test_autograd_goes_through_the_kernels(cuda):
+    """Gradients reach q, k and v through the backward kernel, and under
+    no_grad the forward runs without the LSE output."""
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    q, k, v, do, _, _ = _bwd_inputs(cuda, 1, 2, 300, 300, None, 4)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    for x in (q, k, v):
+        assert x.grad is not None and torch.count_nonzero(x.grad) > 0
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
