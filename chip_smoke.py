@@ -47,6 +47,26 @@ Phases, each of which must pass:
    above 0); each micro-step must launch the forward kernel exactly 16 times
    and the backward kernel 8 times; afterwards every module's LoRA `b` must
    be nonzero, and the saved `lora_weights.npz` must load back equal.
+9. precision kernels: at the six shapes of phase 3, the flash forward's cap
+   mode (the "fast" route) against its plain version (relative L2 <= 1e-2)
+   and the int8-QK sage kernel against its plain version on the same int8
+   quantization (<= 1e-2; its error against exact fp32 attention printed
+   beside JAX's bound of 2.5e-2, for information), two heads each; the
+   masked case for both (the length-0 batch exactly 0) and a cap-mode
+   forward with its LSE (<= 1e-3 absolute; a keyless row's LSE cap * ln 2);
+   times of each kernel, of sage's quantization prologue, of the plain
+   versions on the two checked heads (no yardstick), the bound and the
+   library call (SDPA for the cap mode; none computes int8-QK attention).
+10. precision step: the phase-4 step with "fast" against "ref" and with
+   "sage" through the kernel against "sage" through its plain version
+   (relative L2 <= 2e-2), the latter also with int8 towers.
+11. precision serving: on the main path's modules, which stay as they are,
+   one request through `MOVAPipeline(attn_impl="sage", quantize="int8")`
+   and one through `MOVAPipeline(attn_impl="fast", quantize="int4")`, as in
+   phase 5. The sage request must launch the sage kernel exactly 112 times
+   and the flash kernels never; the fast request the cap mode exactly 112
+   times and nothing else. Prints the seconds spent quantizing and the
+   device memory of the quantized towers against the bf16 ones.
 
 The line before the last is the card's name and power limit; the one
 before that lists each kernel as JSON. The last line of standard output is
@@ -89,6 +109,10 @@ TRAIN_PATH_SHAPES = [
     ("video_text_cross", 40, 11440, 512),
     ("a2v_bridge", 40, 11440, 103),
 ]
+# H100 SXM data sheet: dense int8 tensor-core rate
+PEAK_INT8_OPS = 1979e12
+FAST_SOFTMAX_CAP = 30.0
+SAGE_EXACT_REL_TOL = 2.5e-2     # JAX's bound against exact attention; printed only
 KERNEL_REL_TOL = 1e-2
 STEP_REL_TOL = 2e-2
 LSE_ABS_TOL = 1e-3
@@ -103,6 +127,9 @@ TRAIN_FLASH_CALLS = 2 * 3 + 1 * 2
 TRAIN_FWD_LAUNCHES = 2 * TRAIN_FLASH_CALLS
 TRAIN_BWD_LAUNCHES = TRAIN_FLASH_CALLS
 TRAIN_STEPS = 4
+# the serving requests of phases 5 and 11: 360p, 193 frames at 24 fps, 4 steps, CFG 5, shift 5
+REQUEST = dict(height=352, width=640, num_frames=193, video_fps=24.0, num_inference_steps=4,
+               sigma_shift=5.0, cfg_scale=5.0)
 
 
 class ByteTokenizer:
@@ -208,7 +235,7 @@ def phase_build():
 
     from dualforce_tpu_torch.ops import _build
 
-    names = ("flash_fwd", "flash_bwd")
+    names = ("flash_fwd", "flash_bwd", "sage_fwd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         builds = dict(zip(names, pool.map(_build.build, names)))
@@ -328,6 +355,19 @@ def phase_small_step():
             f"plain attention: rel_err={err:.3e} (tolerance {STEP_REL_TOL})")
 
 
+def _check_result(res, request) -> None:
+    """uint8 [T, H, W, 3] video and finite audio of the request's length."""
+    import numpy as np
+
+    shape = (request["num_frames"], request["height"], request["width"], 3)
+    samples = int(48000 * request["num_frames"] / request["video_fps"])
+    if res.video.dtype != np.uint8 or res.video.shape != shape:
+        raise AssertionError(f"video {res.video.dtype} {res.video.shape}, expected {shape}")
+    if res.audio.shape != (samples,) or not np.isfinite(res.audio).all():
+        raise AssertionError(f"audio {res.audio.shape}, finite="
+                             f"{bool(np.isfinite(res.audio).all())}")
+
+
 def phase_main_path():
     import dataclasses
 
@@ -348,8 +388,7 @@ def phase_main_path():
         audio_dit=dataclasses.replace(base.audio_dit, num_layers=2),
         bridge=dataclasses.replace(base.bridge, visual_layers=3, audio_layers=2),
         text_encoder=dataclasses.replace(base.text_encoder, num_layers=2))
-    request = dict(height=352, width=640, num_frames=193, video_fps=24.0,
-                   num_inference_steps=4, sigma_shift=5.0, cfg_scale=5.0)
+    request = REQUEST
     sched = FlowMatchPairScheduler(cfg.scheduler)
     sched.set_timesteps(request["num_inference_steps"], shift=request["sigma_shift"])
     boundary = build_plan(sched, cfg.boundary_ratio).boundary_step
@@ -402,13 +441,11 @@ def phase_main_path():
     requests = [("a cat playing the piano in a sunlit room", 0),
                 ("ocean waves at dusk, gulls calling over the surf", 1)]
     negative = "blurry, low quality, distorted audio"
-    expected_samples = int(48000 * request["num_frames"] / request["video_fps"])
-
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0            # the main path's count starts here
     per_request = []
     for prompt, seed in requests:
-        image = rng.uniform(-1, 1, (352, 640, 3)).astype(np.float32)
+        image = rng.uniform(-1, 1, (request["height"], request["width"], 3)).astype(np.float32)
         before = flash_attention.launches
         step_s.clear()
         res = pipe(prompt, image, negative_prompt=negative, seed=seed, **request)
@@ -417,11 +454,7 @@ def phase_main_path():
         log(f"[main] request seed={seed}: prepare {marks['prepare']:.2f} s, denoise steps "
             f"{', '.join(f'{s:.2f}' for s in step_s)} s, decode {marks['decode']:.2f} s; "
             f"flash launches {launched}")
-        if res.video.dtype != np.uint8 or res.video.shape != (193, 352, 640, 3):
-            raise AssertionError(f"video {res.video.dtype} {res.video.shape}")
-        if res.audio.shape != (expected_samples,) or not np.isfinite(res.audio).all():
-            raise AssertionError(f"audio {res.audio.shape}, finite="
-                                 f"{bool(np.isfinite(res.audio).all())}")
+        _check_result(res, request)
         if launched != LAUNCHES_PER_REQUEST:
             raise AssertionError(f"{launched} flash launches, expected "
                                  f"{LAUNCHES_PER_REQUEST}")
@@ -686,6 +719,276 @@ def phase_train_path(cfg, modules, root: str):
     return launches
 
 
+def sage_bound_ms(b: int, n: int, sq: int, sk_valid: int, sk: int):
+    """Least time on an H100 SXM for the sage kernel: 2*Sq*Sk*D int8
+    operations for Q.K^T at the int8 rate plus 2*Sq*Sk*D bf16 flops for P.V
+    at the bf16 rate, over the keys this input leaves valid, against int8 q
+    and k, bf16 v and o and the fp32 per-row and per-key scales moved once."""
+    work = 2 * b * n * sq * sk_valid * HEAD_DIM
+    t_ops = work / PEAK_INT8_OPS + work / PEAK_BF16_FLOPS
+    nbytes = b * n * HEAD_DIM * (sq + sk + 2 * sk + 2 * sq) + 4 * b * n * (sq + sk)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _check(name: str, err: float, tol: float) -> None:
+    if not err <= tol:
+        raise AssertionError(f"{name}: relative L2 error {err} > {tol}")
+
+
+def phase_precision_kernels():
+    """The cap mode and the sage kernel at the main path's shapes against
+    their plain versions, and timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from dualforce_tpu_torch.ops import sage_attention as sa
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention,
+                                                         flash_attention_plain,
+                                                         flash_attention_with_lse)
+
+    cap = FAST_SOFTMAX_CAP
+    g = torch.Generator("cuda").manual_seed(7)
+    rows, max_abs = {"cap": [], "sage": []}, {"cap": 0.0, "sage": 0.0}
+    for name, n, sq, sk in MAIN_PATH_SHAPES:
+        q, k, v = (_rand(g, 1, s, n, HEAD_DIM) for s in (sq, sk, sk))
+        heads = [0, n - 1]
+        sub = [x[:, :, heads] for x in (q, k, v)]
+        # cap mode
+        out = flash_attention(q, k, v, softmax_cap=cap)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(*(x.float() for x in sub), softmax_cap=cap)
+        got = out[:, :, heads]
+        cap_err, cap_mae = rel_err(got, want), float((got.float() - want).abs().max())
+        _check(f"cap {name}", cap_err, KERNEL_REL_TOL)
+        exact = flash_attention_plain(*(x.float() for x in sub))
+        # sage, on the wrapper's own quantization of all heads
+        qi, ki, qs, ks = sa.sage_quantize(q, k)
+        sout = sa.sage_fwd(qi, ki, v, qs, ks)
+        torch.cuda.synchronize()
+        swant = sa.sage_fwd_plain(qi[:, :, heads], ki[:, :, heads], sub[2].float(),
+                                  qs[:, heads], ks[:, heads])
+        sgot = sout[:, :, heads]
+        sage_err, sage_mae = rel_err(sgot, swant), float((sgot.float() - swant).abs().max())
+        _check(f"sage {name}", sage_err, KERNEL_REL_TOL)
+        sage_exact_err = rel_err(sgot, exact)
+        max_abs["cap"] = max(max_abs["cap"], cap_mae)
+        max_abs["sage"] = max(max_abs["sage"], sage_mae)
+        del want, got, exact, swant, sgot, out, sout
+
+        cap_ms, cap_host_us = time_ms(lambda: flash_attention(q, k, v, softmax_cap=cap),
+                                      reps=7, warmup=2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                reps=7, warmup=2)
+        sub_f = [x.float() for x in sub]
+        cap_plain_ms, _ = time_ms(lambda: flash_attention_plain(*sub_f, softmax_cap=cap),
+                                  reps=3, warmup=1)
+        sage_ms, sage_host_us = time_ms(lambda: sa.sage_fwd(qi, ki, v, qs, ks),
+                                        reps=7, warmup=2)
+        prologue_ms, _ = time_ms(lambda: sa.sage_quantize(q, k), reps=3, warmup=1)
+        ssub = (qi[:, :, heads].contiguous(), ki[:, :, heads].contiguous(), sub_f[2],
+                qs[:, heads].contiguous(), ks[:, heads].contiguous())
+        sage_plain_ms, _ = time_ms(lambda: sa.sage_fwd_plain(*ssub), reps=3, warmup=1)
+        cap_bound, cap_by = attention_bound_ms(1, n, sq, sk, sk)
+        sage_bound, sage_by = sage_bound_ms(1, n, sq, sk, sk)
+        bq, bk = sa.sage_blocks(sq, sk, False)
+        rows["cap"].append(dict(shape=name, heads=n, sq=sq, sk=sk, kernel_ms=cap_ms,
+                                plain_ms_2_heads=cap_plain_ms, library_ms=library_ms,
+                                bound_ms=cap_bound, bound_by=cap_by, rel_err=cap_err,
+                                max_abs_err=cap_mae))
+        rows["sage"].append(dict(shape=name, heads=n, sq=sq, sk=sk, kernel_ms=sage_ms,
+                                 prologue_ms=prologue_ms, plain_ms_2_heads=sage_plain_ms,
+                                 library_ms=None, bound_ms=sage_bound, bound_by=sage_by,
+                                 rel_err=sage_err, exact_rel_err=sage_exact_err,
+                                 max_abs_err=sage_mae, blocks=(bq, bk)))
+        log(f"[kernel] flash_fwd cap {name} N={n} Sq={sq} Sk={sk}: kernel_ms={cap_ms:.4f} "
+            f"bound_ms={cap_bound:.4f} ({cap_by}) library_ms={library_ms:.4f} "
+            f"plain_ms={cap_plain_ms:.4f} (2 heads, not a yardstick) rel_err={cap_err:.3e} "
+            f"max_abs_err={cap_mae:.3e} host_us={cap_host_us:.1f}")
+        log(f"[kernel] sage_fwd {name} N={n} Sq={sq} Sk={sk} blocks {bq}/{bk}: "
+            f"kernel_ms={sage_ms:.4f} prologue_ms={prologue_ms:.4f} bound_ms={sage_bound:.4f} "
+            f"({sage_by}) library_ms=none plain_ms={sage_plain_ms:.4f} (2 heads, not a "
+            f"yardstick) rel_err={sage_err:.3e} max_abs_err={sage_mae:.3e} "
+            f"vs exact fp32 {sage_exact_err:.3e} (JAX's bound {SAGE_EXACT_REL_TOL}, "
+            f"informative) host_us={sage_host_us:.1f}")
+        del q, k, v, qt, kt, vt, sub, sub_f, qi, ki, qs, ks, ssub
+        torch.cuda.empty_cache()
+
+    # per-batch kv lengths, one of them 0: that batch must come back exactly 0
+    b, n, sq, sk, lens = 3, 8, 4096, 512, [512, 77, 0]
+    q, k, v = (_rand(g, b, s, n, HEAD_DIM) for s in (sq, sk, sk))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, lse = flash_attention_with_lse(q, k, v, kv_len, softmax_cap=cap)
+    qi, ki, qs, ks = sa.sage_quantize(q, k, kv_len)
+    sout = sa.sage_fwd(qi, ki, v, qs, ks, kv_len)
+    torch.cuda.synchronize()
+    want, want_lse = flash_attention_plain(q.float(), k.float(), v.float(), kv_len,
+                                           return_lse=True, softmax_cap=cap)
+    swant = sa.sage_fwd_plain(qi, ki, v.float(), qs, ks, kv_len)
+    errs = {"cap": rel_err(out, want), "sage": rel_err(sout, swant)}
+    lse_err = float((lse - want_lse).abs().max())
+    zeros = int(torch.count_nonzero(out[2])) + int(torch.count_nonzero(sout[2]))
+    keyless_lse = float((lse[2] - cap * math.log(2.0)).abs().max())
+    max_abs["cap"] = max(max_abs["cap"], float((out.float() - want).abs().max()))
+    max_abs["sage"] = max(max_abs["sage"], float((sout.float() - swant).abs().max()))
+    if not (all(e <= KERNEL_REL_TOL for e in errs.values()) and lse_err <= LSE_ABS_TOL
+            and zeros == 0 and keyless_lse <= LSE_ABS_TOL):
+        raise AssertionError(f"masked precision case: rel errs {errs}, lse abs err "
+                             f"{lse_err}, {zeros} nonzero in the length-0 batch, keyless "
+                             f"LSE off by {keyless_lse}")
+    log(f"[kernel] masked B={b} N={n} Sq={sq} Sk={sk} kv_len={lens}: cap (with LSE) "
+        f"rel_err={errs['cap']:.3e} lse_abs_err={lse_err:.3e} (keyless rows cap*ln2); sage "
+        f"rel_err={errs['sage']:.3e}; the length-0 batch exactly 0 in both")
+    return rows, max_abs
+
+
+def phase_precision_step():
+    """The phase-4 step through the cap mode and through sage."""
+    import torch
+
+    from dualforce_tpu_torch import nn as dnn
+    from dualforce_tpu_torch.diffusion.step import dual_tower_step
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+    from dualforce_tpu_torch.ops import attention as att
+    from dualforce_tpu_torch.ops import sage_attention as sa
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = _small_config()
+    mods = init_pipeline_params(cfg, device="cuda", dtype=torch.bfloat16, seed=3,
+                                with_vaes=False, with_text=False, two_video_towers=False)
+    towers = {"plain": mods, "int8": {name: dnn.quantize_modules(m, "int8")
+                                      for name, m in mods.items()}}
+    g = torch.Generator("cuda").manual_seed(4)
+    visual = torch.randn(1, 36, 3, 32, 48, generator=g, device="cuda")   # 1,152 tokens
+    audio = torch.randn(1, 32, 300, generator=g, device="cuda")
+    ctx = torch.randn(1, 512, 256, generator=g, device="cuda")
+    t = torch.full((1,), 700.0, device="cuda")
+
+    def step(m, impl):
+        with torch.no_grad():
+            return dual_tower_step(m["video_dit"], m["audio_dit"], m["bridge"], visual, audio,
+                                   ctx, t, attn_impl=impl)
+
+    def compare(what, got, want, launched):
+        for i, name in enumerate(("video", "audio")):
+            err = rel_err(got[i], want[i].float())
+            if not (torch.isfinite(got[i]).all() and err <= STEP_REL_TOL) or not launched:
+                raise AssertionError(f"small step {what} {name}: rel err {err}, "
+                                     f"{launched} kernel launches")
+            log(f"[small] dual_tower_step {what} {name}: rel_err={err:.3e} (tolerance "
+                f"{STEP_REL_TOL}); {launched} kernel launches")
+
+    before = flash_attention.cap_launches
+    fast = step(mods, "fast")
+    compare("fast (cap-mode kernel) vs ref", fast, step(mods, "ref"),
+            flash_attention.cap_launches - before)
+    for kind, m in towers.items():
+        before = sa.sage_attention.launches
+        kernel = step(m, "sage")
+        launched = sa.sage_attention.launches - before
+        att.sage_attention = sa.sage_attention_plain     # the same route, plain version
+        try:
+            plain = step(m, "sage")
+        finally:
+            att.sage_attention = sa.sage_attention
+        if sa.sage_attention.launches - before != launched:
+            raise AssertionError("the plain sage run launched the kernel")
+        compare(f"sage kernel vs sage plain ({kind} towers)", kernel, plain, launched)
+
+
+def _module_bytes(modules) -> int:
+    seen = {}
+    for m in modules:
+        for x in list(m.parameters()) + list(m.buffers()):
+            seen[x.data_ptr()] = x.numel() * x.element_size()
+    return sum(seen.values())
+
+
+def phase_precision_serving(cfg, modules):
+    """One request each through ("sage", int8) and ("fast", int4) on the main
+    path's modules."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.diffusion.pipeline import QUANTIZED_TOWERS, MOVAPipeline
+    from dualforce_tpu_torch.ops import sage_attention as sa
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention
+
+    request = REQUEST
+    towers = [modules[n] for n in QUANTIZED_TOWERS if n in modules]
+    bf16_bytes = _module_bytes(towers)
+    before_state = {n: {k: v.data_ptr() for k, v in modules[n].state_dict().items()}
+                    for n in QUANTIZED_TOWERS if n in modules}
+    rng = np.random.default_rng(1)
+    launches = {}
+    for impl, mode, prompt, seed in (("sage", "int8", "a violinist on a rainy street", 2),
+                                     ("fast", "int4", "a steam train crossing a bridge", 3)):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(),
+                            compute_dtype=torch.bfloat16, device="cuda", attn_impl=impl,
+                            quantize=mode)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        added = torch.cuda.memory_allocated() - mem0
+        q_bytes = _module_bytes([pipe.modules[n] for n in QUANTIZED_TOWERS if n in modules])
+        step_s, last = [], [0.0]
+
+        def on_step(step, total):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            step_s.append(now - last[0])
+            last[0] = now
+
+        pipe.progress_cb = on_step
+        image = rng.uniform(-1, 1, (request["height"], request["width"], 3)).astype(np.float32)
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention.cap_launches = 0   # this path's counts
+        sa.sage_attention.launches = 0
+        t0 = time.perf_counter()
+        state = pipe.prepare_state([prompt], [image], negative_prompts=["blurry"],
+                                   seeds=[seed], **request)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        last[0] = time.perf_counter()
+        state = pipe.denoise_state(state)
+        t0 = time.perf_counter()
+        res = pipe.finalize_state(state)[0]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = {"exact": flash_attention.launches, "cap": flash_attention.cap_launches,
+                  "sage": sa.sage_attention.launches}
+        launches[impl] = counts
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[precision] attn_impl={impl} quantize={mode}: quantized the towers in "
+            f"{quant_s:.2f} s; towers {q_bytes / 2**30:.3f} GiB quantized (+"
+            f"{added / 2**30:.3f} GiB allocated) against {bf16_bytes / 2**30:.3f} GiB bf16; "
+            f"prepare {prepare_s:.2f} s, denoise steps "
+            f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {decode_s:.2f} s; peak "
+            f"{peak:.2f} GiB; launches {counts}")
+        _check_result(res, request)
+        want = ({"exact": 0, "cap": 0, "sage": LAUNCHES_PER_REQUEST} if impl == "sage" else
+                {"exact": 0, "cap": LAUNCHES_PER_REQUEST, "sage": 0})
+        if counts != want:
+            raise AssertionError(f"attn_impl={impl}: launches {counts}, expected {want}")
+        log(f"[precision] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
+            f"{res.audio.shape[0]} finite samples, rms "
+            f"{float(np.sqrt(np.mean(res.audio ** 2))):.4f}")
+        del pipe, state, res
+        torch.cuda.empty_cache()
+    after_state = {n: {k: v.data_ptr() for k, v in modules[n].state_dict().items()}
+                   for n in before_state}
+    from dualforce_tpu_torch.nn import Int4Linear, Int8Linear
+
+    if after_state != before_state or any(isinstance(m, (Int8Linear, Int4Linear))
+                                          for t in towers for m in t.modules()):
+        raise AssertionError("quantizing changed the caller's modules")
+    log("[precision] the main path's bf16 modules are unchanged")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -709,18 +1012,25 @@ def main() -> int:
     bwd_rows, bwd_max_abs = phase_backward_kernels()
     phase_small_backward()
     train = phase_train_path(cfg, modules, root)
+    prec_rows, prec_max_abs = phase_precision_kernels()
+    phase_precision_step()
+    prec = phase_precision_serving(cfg, modules)
 
     video_self, train_self = rows[0], bwd_rows[0]
+    cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
         "launches": serve_launches + train["fwd"],
-        "launches_by_path": {"serve": serve_launches, "train": train["fwd"]},
+        "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
+                             "serve_sage_int8": prec["sage"]["exact"],
+                             "serve_fast_int4": prec["fast"]["exact"]},
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"]),
         "ms": video_self["kernel_ms"],
         "plain_ms": video_self["plain_ms"],
+        "plain_heads": 40,
         "bound_ms": video_self["bound_ms"],
         "bound_by": video_self["bound_by"],
         "library_ms": video_self["library_ms"],
@@ -737,12 +1047,52 @@ def main() -> int:
         "max_abs_err": bwd_max_abs["bwd"],
         "ms": train_self["bwd_ms"],
         "plain_ms": train_self["bwd_plain_ms"],
+        "plain_heads": 40,
         "bound_ms": train_self["bwd_bound_ms"],
         "bound_by": train_self["bwd_bound_by"],
         "library_ms": train_self["bwd_library_ms"],
         "held_against_plain": True,
         "shape": "video_self at training: 40 heads, Sq = Sk = 11440, D 128; the other "
                  "shapes are on the [kernel] lines",
+    }, {
+        "name": "flash_fwd_cap",
+        "route": "cuda",
+        "source": "dualforce_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "dualforce_tpu/ops/flash_attention.py:132",
+        "mode": "cap (the TPU kernel's cap branch, :166-173), attn_impl 'fast'",
+        "launches": prec["fast"]["cap"],
+        "launches_by_path": {"serve_fast_int4": prec["fast"]["cap"],
+                             "serve_sage_int8": prec["sage"]["cap"]},
+        "max_abs_err": prec_max_abs["cap"],
+        "ms": cap_self["kernel_ms"],
+        "plain_ms": cap_self["plain_ms_2_heads"],
+        "plain_heads": 2,
+        "bound_ms": cap_self["bound_ms"],
+        "bound_by": cap_self["bound_by"],
+        "library_ms": cap_self["library_ms"],
+        "held_against_plain": True,
+        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128 (plain_ms on 2 heads); the "
+                 "other shapes are on the [kernel] lines",
+    }, {
+        "name": "sage_fwd",
+        "route": "cuda",
+        "source": "dualforce_tpu_torch/csrc/sage_fwd.cu",
+        "replaces": "dualforce_tpu/ops/flash_attention.py:731",
+        "launches": prec["sage"]["sage"],
+        "launches_by_path": {"serve_sage_int8": prec["sage"]["sage"],
+                             "serve_fast_int4": prec["fast"]["sage"]},
+        "max_abs_err": prec_max_abs["sage"],
+        "ms": sage_self["kernel_ms"],
+        "prologue_ms": sage_self["prologue_ms"],
+        "plain_ms": sage_self["plain_ms_2_heads"],
+        "plain_heads": 2,
+        "bound_ms": sage_self["bound_ms"],
+        "bound_by": sage_self["bound_by"],
+        "library_ms": None,
+        "held_against_plain": True,
+        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128, quantization blocks "
+                 "1232/1960 (plain_ms on 2 heads; prologue_ms is the plain-PyTorch int8 "
+                 "quantization before the kernel); the other shapes are on the [kernel] lines",
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

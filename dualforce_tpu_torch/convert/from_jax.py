@@ -40,7 +40,19 @@ def _unstack(tree, i: int):
 # --- DiTs and bridge: the key map of torch_export.py -----------------------
 
 def _lin(sd: StateDict, prefix: str, p) -> None:
-    sd[f"{prefix}.weight"] = _np32(p["kernel"]).T
+    """A linear, or one quantized by the JAX package's `quantize_tree_int8`
+    (`kernel_q` [in, out] int8, `kernel_scale` [1, out]) or
+    `quantize_tree_int4` (`kernel_q4` [in/2, out] uint8, `kernel_scale4`
+    [in/group, out]), into the port's `nn.Linear`, `Int8Linear` or
+    `Int4Linear` names and [out, ...] layouts."""
+    if "kernel_q" in p:
+        sd[f"{prefix}.weight_q"] = np.asarray(p["kernel_q"]).T
+        sd[f"{prefix}.weight_scale"] = _np32(p["kernel_scale"]).reshape(-1)
+    elif "kernel_q4" in p:
+        sd[f"{prefix}.weight_q4"] = np.asarray(p["kernel_q4"]).T
+        sd[f"{prefix}.weight_scale4"] = _np32(p["kernel_scale4"]).T
+    else:
+        sd[f"{prefix}.weight"] = _np32(p["kernel"]).T
     if "bias" in p:
         sd[f"{prefix}.bias"] = _np32(p["bias"])
 
@@ -251,16 +263,24 @@ def state_dicts(params: Dict[str, Any], cfg: MOVAConfig) -> Dict[str, StateDict]
     return {name: makers[name](p) for name, p in params.items() if p is not None}
 
 
+def _tensor(x) -> torch.Tensor:
+    """Integer leaves (quantized weights) as they are, the rest as fp32."""
+    x = np.asarray(x)
+    return torch.from_numpy(np.array(x, x.dtype if np.issubdtype(x.dtype, np.integer)
+                                     else np.float32))
+
+
 def load(modules: Dict[str, torch.nn.Module], params: Dict[str, Any],
          cfg: MOVAConfig) -> None:
     """Load the JAX tree into `modules` (same keys) with strict=True; each
-    parameter keeps its module's dtype and device."""
+    parameter keeps its module's dtype and device. A tower tree quantized by
+    the JAX package loads into the port's quantized modules
+    (`nn.quantize_modules`)."""
     sds = state_dicts(params, cfg)
     if set(sds) != set(modules):
         raise KeyError(f"modules {sorted(modules)} != params {sorted(sds)}")
     for name, module in modules.items():
-        module.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
-                                for k, v in sds[name].items()}, strict=True)
+        module.load_state_dict({k: _tensor(v) for k, v in sds[name].items()}, strict=True)
 
 
 def lora(tree: Dict[str, Any], cfg: MOVAConfig) -> lora_mod.Lora:

@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 in and out, fp32 accumulation.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (dualforce_tpu/ops/flash_attention.py:132)
-// in its exact mode, with or without the LSE output. Per (batch, head) it computes
+// in both of its modes, with or without the LSE output. Per (batch, head) it computes
 //     O = softmax(Q K^T / sqrt(D) + mask) V,
 // non-causal, D = 128, with keys at positions >= kv_len[b] excluded. As on the TPU, the
 // running max is floored at -1e4 (log2 units) and a row whose softmax denominator is 0
@@ -9,6 +9,14 @@
 // natural-log LSE of each row, [B, N, Sq] fp32: (m + log2 l) * ln 2 in the kernel's log2
 // units, with l = 0 taken as 1, so a row with no valid key gets -1e4 * ln 2 (the backward
 // kernel's input; serving passes no `lse` and writes nothing more).
+//
+// Cap mode (the TPU kernel's `cap` branch, :166-173, and its LSE epilogue, :200; the
+// dispatcher's "fast" route): softmax is shift-invariant, so a static shift `cap` (log2
+// units) replaces the running max. P = exp2(s - cap) with no row max, no alpha and no rescale
+// of the row sum and the accumulator; o = acc / l (l == 0 gives 0) and LSE = (cap + log2 l)
+// * ln 2, so a row with no valid key gets cap * ln 2. Exact while the row's largest score lies
+// in (cap - 126, cap + 127), which MOVA's QK RMS-norm keeps it in. It is a compile-time
+// variant (kCap) of the same kernel, chosen by the C entry's `cap_mode` flag.
 //
 // What bounds it on an H100: at the main path's sequence lengths it is bound by tensor-core
 // operations, not bytes. Video self-attention at 43,120 tokens does 4*Sq*Sk*D flops against
@@ -110,6 +118,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
   }
 }
 
+template <bool kCap>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -117,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
                      int sq, int sk, int64_t q_sb,
                      int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                      int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                     int64_t o_sh, float scale_log2) {
+                     int64_t o_sh, float scale_log2, float cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* s_k = s_q + kBlockM * kSmemLd;
@@ -200,27 +209,39 @@ __global__ void __launch_bounds__(kThreads)
         s[nt][c] = x;
       }
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(fmaxf(row_max[r], mx), kMaxFloor);
-      const float alpha = exp2f(row_max[r] - m_new);
-      row_max[r] = m_new;
-      row_sum[r] *= alpha;
-#pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
-      }
+    if constexpr (kCap) {
+      // static shift: masked keys are -inf and give exact zeros
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        s[nt][2 * r] = exp2f(s[nt][2 * r] - m_new);
-        s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m_new);
-        row_sum[r] += s[nt][2 * r] + s[nt][2 * r + 1];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[nt][c] = exp2f(s[nt][c] - cap);
+          row_sum[c / 2] += s[nt][c];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(fmaxf(row_max[r], mx), kMaxFloor);
+        const float alpha = exp2f(row_max[r] - m_new);
+        row_max[r] = m_new;
+        row_sum[r] *= alpha;
+#pragma unroll
+        for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+          acc[dt][2 * r] *= alpha;
+          acc[dt][2 * r + 1] *= alpha;
+        }
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+          s[nt][2 * r] = exp2f(s[nt][2 * r] - m_new);
+          s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m_new);
+          row_sum[r] += s[nt][2 * r] + s[nt][2 * r + 1];
+        }
       }
     }
 
@@ -260,9 +281,9 @@ __global__ void __launch_bounds__(kThreads)
     inv[r] = 1.f / safe;
     const int row = r == 0 ? row_a : row_b;
     // the floor also covers a row that saw no key tile at all (kv_len 0)
+    const float shift = kCap ? cap : fmaxf(row_max[r], kMaxFloor);
     if (lse != nullptr && lane % 4 == 0 && row < sq)
-      lse[static_cast<int64_t>(blockIdx.y) * sq + row] =
-          (fmaxf(row_max[r], kMaxFloor) + log2f(safe)) * kLn2;
+      lse[static_cast<int64_t>(blockIdx.y) * sq + row] = (shift + log2f(safe)) * kLn2;
   }
 #pragma unroll
   for (int dt = 0; dt < kHeadDim / 8; ++dt) {
@@ -276,36 +297,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The opt-in to more than 48 KiB of dynamic shared memory, made once per device and kernel
+// variant, not on every launch (two threads racing here both set the same value).
+template <bool kCap>
+cudaError_t smem_opt_in() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return err;
+}
+
 }  // namespace
 
 // Launches the kernel on `stream`. Strides are in elements, for [B, S, N, D] views with a
 // unit D stride. lse is a device pointer to [B, N, Sq] fp32, or null for no LSE output.
-// kv_len is a device pointer to [B] int32, or null for no key mask.
+// kv_len is a device pointer to [B] int32, or null for no key mask. A nonzero cap_mode runs
+// the cap-mode variant with the static shift `cap` (log2 units); cap is unused otherwise.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int dft_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                   void* lse, const void* kv_len, int batch, int heads, int sq,
                                   int sk, long long q_sb, long long q_ss, long long q_sh,
                                   long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                                   long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-                                  long long o_sh, float scale_log2, void* stream) {
-  // The opt-in to more than 48 KiB of dynamic shared memory is made once per device, not on
-  // every launch (two threads racing here both set the same value).
-  constexpr int kMaxDevices = 64;
-  static bool smem_opt_in[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+                                  long long o_sh, float scale_log2, int cap_mode, float cap,
+                                  void* stream) {
+  const cudaError_t err = cap_mode ? smem_opt_in<true>() : smem_opt_in<false>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices || !smem_opt_in[device]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (device < kMaxDevices) smem_opt_in[device] = true;
-  }
   const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * heads);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = cap_mode ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), static_cast<const int*>(kv_len), heads, sq, sk, q_sb, q_ss,
-      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2);
+      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2, cap);
   return static_cast<int>(cudaGetLastError());
 }

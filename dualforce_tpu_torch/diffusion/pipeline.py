@@ -4,8 +4,9 @@ Prompt clean -> UMT5 encode (padded to 512) -> video latents (streaming Wan
 VAE encode of the first frame + 4-channel temporal mask) -> audio latents ->
 paired flow-match denoise with the two-expert switch and text CFG -> bf16
 streaming Wan VAE decode and fp32 DAC decode. Weights stay resident on the
-device (the JAX package's offload "none"; no quantization); attention takes
-the dispatcher's "auto" route; the tokenizer is passed in.
+device (the JAX package's offload "none"); attention takes the route
+`attn_impl` names; the DiT towers and the bridge may be quantized
+(`quantize`); the tokenizer is passed in.
 """
 
 from __future__ import annotations
@@ -18,12 +19,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dualforce_tpu_torch import nn as dnn
 from dualforce_tpu_torch import resolve_device
 from dualforce_tpu_torch.config import MOVAConfig
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.diffusion.sampler import build_plan, denoise_loop
 from dualforce_tpu_torch.diffusion.step import make_rope_pack
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
+from dualforce_tpu_torch.ops.attention import ATTN_IMPLS
+
+QUANTIZE_MODES = ("none", "int8", "int4")
+QUANTIZED_TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")
 
 
 def prompt_clean(text: str) -> str:
@@ -52,14 +58,43 @@ class MOVAPipeline:
 
     def __init__(self, cfg: MOVAConfig, modules: Dict[str, torch.nn.Module],
                  tokenizer=None, compute_dtype: torch.dtype = torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", attn_impl="auto", quantize: str = "none",
+                 offload: str = "none"):
+        """attn_impl: "auto" | "fast" | "sage" | "pallas" | "ref" | a callable,
+        the route of every attention (`ops.attention.attention`).
+
+        quantize: "none", "int8" or "int4". "int8" serves the DiT towers'
+        and the bridge's projection linears as w8a8 (`nn.Int8Linear`: int8
+        weights with per-channel scales, per-token activation scales);
+        "int4" as packed int4 weights dequantised at use (`nn.Int4Linear`).
+        Lossy and inference only, like attn_impl "sage"; they compose. The
+        VAEs, UMT5, norms, modulation, embeddings and heads stay as given.
+        The modules passed in are not changed: the quantized towers are new
+        modules (`nn.quantize_modules`) that share their other parameters
+        with them.
+
+        offload: "none" only (the weights stay resident on the device)."""
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if not callable(attn_impl) and attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if offload not in ("none", "component", "group"):
+            raise ValueError(f"unknown offload mode {offload!r}")
+        if offload != "none":
+            raise NotImplementedError(f"offload {offload!r} is not ported")
         self.device = resolve_device(device)
         for name, m in modules.items():
             p = next(m.parameters())
             if p.device.type != self.device.type:
                 raise ValueError(f"{name} is on {p.device}, the pipeline on {self.device}")
+        if quantize != "none":
+            modules = {name: (dnn.quantize_modules(m, quantize)
+                              if name in QUANTIZED_TOWERS else m)
+                       for name, m in modules.items()}
         self.cfg = cfg
         self.modules = modules
+        self.attn_impl = attn_impl
+        self.quantize = quantize
         self.tokenizer = tokenizer
         self.compute_dtype = compute_dtype
         self.scheduler = FlowMatchPairScheduler(cfg.scheduler)
@@ -214,7 +249,8 @@ class MOVAPipeline:
             cfg_scale=s["cfg_scale"], video_fps=s["video_fps"], cfg_batch=s["cfg_batch"],
             compute_dtype=self.compute_dtype, rope_pack=rope_pack,
             cfg_cache_interval=s["cfg_cache_interval"],
-            cfg_scale_bridge=s["cfg_scale_bridge"], progress_fn=self.progress_cb)
+            cfg_scale_bridge=s["cfg_scale_bridge"], progress_fn=self.progress_cb,
+            attn_impl=self.attn_impl)
         return dict(state, step=plan.num_steps, latents=latents,
                     audio_latents=audio_latents)
 

@@ -65,9 +65,11 @@ def denoise_loop(
     progress_fn=None,
     ctx_len_pos: Optional[torch.Tensor] = None,
     ctx_len_neg: Optional[torch.Tensor] = None,
+    attn_impl="auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Runs every step of `plan`; returns the fp32 (latents, audio_latents).
-    progress_fn(step, total) is called on the host after each step."""
+    progress_fn(step, total) is called on the host after each step;
+    attn_impl goes to every attention (`ops.attention.attention`)."""
     if cfg_batch or cfg_cache_interval != 1 or cfg_scale_bridge != 0.0:
         raise NotImplementedError("cfg_batch, cfg_cache_interval and dual CFG "
                                   "(cfg_scale_bridge) are not ported yet")
@@ -82,7 +84,7 @@ def denoise_loop(
     def run(video, ctx, model_in, alat, t, at):
         v, a = dual_tower_step(video, audio, bridge, model_in, alat, ctx,
                                t, at, video_fps=video_fps, compute_dtype=compute_dtype,
-                               rope_pack=rope_pack)
+                               attn_impl=attn_impl, rope_pack=rope_pack)
         return v.float(), a.float()
 
     lat, alat = latents, audio_latents

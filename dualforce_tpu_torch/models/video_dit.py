@@ -48,12 +48,15 @@ class Attention(nn.Module):
 
 def self_attention(attn: Attention, x: torch.Tensor, rope, num_heads: int,
                    attn_impl="auto") -> torch.Tensor:
-    """RMS-normed q/k, interleaved RoPE in fp32, then attention."""
+    """RMS-normed q/k, interleaved RoPE, then attention. The rotation runs
+    in fp32, but in bf16 on the "sage" route, whose int8 quantization of q
+    and k lies far below bf16's precision (as in the JAX package)."""
     b, s, dim = x.shape
     q, k, v = attn.qkv(x, x, num_heads)
     cos, sin = rope
-    q = apply_rope_interleaved(q, cos, sin)
-    k = apply_rope_interleaved(k, cos, sin)
+    rope_dtype = torch.bfloat16 if attn_impl == "sage" else torch.float32
+    q = apply_rope_interleaved(q, cos, sin, rope_dtype)
+    k = apply_rope_interleaved(k, cos, sin, rope_dtype)
     return attn.o(attention(q, k, v, impl=attn_impl).reshape(b, s, dim))
 
 

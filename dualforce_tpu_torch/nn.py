@@ -5,12 +5,21 @@ statistics in fp32 and cast back; patch embedding is a reshape and a matrix
 product in the same token order; the sinusoidal embedding puts cos first.
 Weights keep PyTorch's layouts (`nn.Linear` is [out, in], the patch
 embedding a Conv weight), so a linear layer is `torch.nn.Linear` and
-`torch.nn.functional.linear` as they are, and SiLU is `F.silu`. The JAX
-package's int8, int4 and fp8 weight paths are not ported.
+`torch.nn.functional.linear` as they are, and SiLU is `F.silu`.
+
+The serving precision modes are here too: `Int8Linear` (w8a8, the
+counterpart of `quantize_linear_int8` / `_linear_int8`), `Int4Linear`
+(packed int4 weights dequantised at use, `quantize_linear_int4` /
+`_linear_int4`) and `quantize_modules`, the counterpart of
+`quantize_tree_int8` / `quantize_tree_int4`. Their arithmetic is JAX's; only
+the layout follows PyTorch's [out, in] weights. The JAX package's fp8 weight
+storage (`cast_tree_fp8`) is not ported.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -132,3 +141,126 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
     freqs = torch.pow(torch.tensor(10000.0, device=position.device), exponent)
     sinusoid = position.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)], dim=1)
+
+
+# --- int8 and int4 linears (serving) -----------------------------------------
+
+QUANT_SCOPES = ("self_attn", "cross_attn", "ffn", "inner")
+INT4_GROUP = 128   # input-dim group of the int4 scales (MOVA's in-dims all divide it)
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8 activations of `_linear_int8`: (round(x / s) as int8,
+    s = max(absmax / 127, 1e-12) in fp32 with a trailing axis of 1). The
+    same fp32 arithmetic as casting x to fp32 first, with fewer passes over
+    device memory: |x|'s max is exact in x's dtype, and x / s promotes to
+    fp32 element by element."""
+    scale = (x.abs().amax(dim=-1, keepdim=True).float() / 127.0).clamp_min(1e-12)
+    return torch.round_(x / scale).to(torch.int8), scale
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> int32 [M, N] (`torch._int_mm`). CUDA's
+    wants more than 16 rows, so fewer are padded with zero rows."""
+    m = a.shape[0]
+    if m <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - m))
+    return torch._int_mm(a, b)[:m]
+
+
+class Int8Linear(nn.Module):
+    """w8a8 linear: int8 weights [out, in] with per-output-channel fp32
+    scales; activations quantized per token in fp32 at each call; int8 x int8
+    -> int32; dequantised in fp32 as (acc * a_scale) * w_scale, cast to x's
+    dtype, then the bias is added. The bias is the source layer's own
+    parameter (shared, not copied)."""
+
+    def __init__(self, weight_q: torch.Tensor, weight_scale: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("weight_scale", weight_scale)
+        self.bias = bias
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
+        w = linear.weight.detach().float()
+        scale = (w.abs().amax(dim=1) / 127.0).clamp_min(1e-12)
+        return cls(torch.round(w / scale[:, None]).to(torch.int8), scale, linear.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ai, a_scale = quantize_activations(x)
+        acc = _int_mm(ai.reshape(-1, ai.shape[-1]), self.weight_q.t())
+        acc = acc.reshape(*x.shape[:-1], acc.shape[-1])
+        y = (acc * a_scale).mul_(self.weight_scale).to(x.dtype)   # acc promotes to fp32
+        return y if self.bias is None else y + self.bias
+
+
+def dequantize_int4(q4: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """[out, in/2] packed uint8 (even input index in the high nibble) and
+    [out, in/group] scales -> [out, in] in `dtype`, multiplied in `dtype`."""
+    hi = (q4 >> 4).to(torch.int8) - 8
+    lo = (q4 & 0xF).to(torch.int8) - 8
+    w = torch.stack([hi, lo], dim=-1).reshape(q4.shape[0], -1)
+    ng = scale.shape[-1]
+    wg = w.reshape(w.shape[0], ng, -1).to(dtype) * scale[:, :, None].to(dtype)
+    return wg.reshape(w.shape[0], -1)
+
+
+class Int4Linear(nn.Module):
+    """Weights-only int4 linear: values clip(round(w / s), -7, 7) + 8, two
+    per byte along the input dim, with fp32 scales per (output channel,
+    input group of 128, or the whole input dim where 128 does not divide
+    it); dequantised to the activation dtype at each call, then a matrix
+    product in that dtype and the bias added in it. The bias is the source
+    layer's own parameter."""
+
+    def __init__(self, weight_q4: torch.Tensor, weight_scale4: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.register_buffer("weight_q4", weight_q4)
+        self.register_buffer("weight_scale4", weight_scale4)
+        self.bias = bias
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear, group: int = INT4_GROUP) -> "Int4Linear":
+        w = linear.weight.detach().float()
+        dout, din = w.shape
+        if din % 2:
+            raise ValueError(f"int4 pack needs even in_dim, got {din}")
+        g = group if din % group == 0 else din
+        wg = w.reshape(dout, din // g, g)
+        scale = (wg.abs().amax(dim=2) / 7.0).clamp_min(1e-12)
+        q = torch.clamp(torch.round(wg / scale[:, :, None]), -7, 7)
+        q = (q.reshape(dout, din // 2, 2) + 8.0).to(torch.uint8)
+        return cls((q[..., 0] << 4) | q[..., 1], scale, linear.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, dequantize_int4(self.weight_q4, self.weight_scale4, x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+_QUANTIZERS = {"int8": Int8Linear.from_linear, "int4": Int4Linear.from_linear}
+
+
+def quantize_modules(module: nn.Module, mode: str) -> nn.Module:
+    """A copy of `module` in which every `nn.Linear` below a child named in
+    `QUANT_SCOPES` (block attention q/k/v/o, FFN, the bridge's inner
+    attention) is an `Int8Linear` ("int8") or an `Int4Linear` ("int4"). The
+    copy shares every other parameter and buffer with `module`, which is
+    left as it was."""
+    make = _QUANTIZERS[mode]
+    shared = {id(t): t for t in itertools.chain(module.parameters(), module.buffers())}
+    out = copy.deepcopy(module, shared)
+
+    def walk(parent: nn.Module, in_scope: bool) -> None:
+        for name, child in parent.named_children():
+            scoped = in_scope or name in QUANT_SCOPES
+            if scoped and isinstance(child, nn.Linear):
+                setattr(parent, name, make(child))
+            else:
+                walk(child, scoped)
+
+    walk(out, False)
+    return out

@@ -2,13 +2,17 @@
 plain versions and the autograd glue.
 
 Counterpart of `dualforce_tpu/ops/flash_attention.py`: the Pallas kernels
-`_fwd_kernel` in exact mode (with or without the LSE output) and
-`_bwd_fused_kernel`, behind `flash_attention` and `flash_attention_with_lse`.
-The forward kernel (`csrc/flash_fwd.cu`) computes, per (batch, head),
-softmax(Q K^T / sqrt(D) + kv mask) V, non-causal, D = 128, bf16 in and out
-with fp32 accumulation, and optionally the natural-log LSE [B, N, Sq] in
-fp32; keys at positions >= kv_valid_len[b] are excluded, and a query row with
-no valid key returns zeros (LSE -1e4 * ln 2), not NaN. The backward kernel
+`_fwd_kernel` in its exact and cap modes (with or without the LSE output)
+and `_bwd_fused_kernel`, behind `flash_attention` and
+`flash_attention_with_lse`. The forward kernel (`csrc/flash_fwd.cu`)
+computes, per (batch, head), softmax(Q K^T / sqrt(D) + kv mask) V,
+non-causal, D = 128, bf16 in and out with fp32 accumulation, and optionally
+the natural-log LSE [B, N, Sq] in fp32; keys at positions >= kv_valid_len[b]
+are excluded, and a query row with no valid key returns zeros (LSE -1e4 *
+ln 2), not NaN. With `softmax_cap` (the "fast" route) the static shift cap
+replaces the running max: P = exp2(S log2(e) / sqrt(D) - cap), exact while a
+row's largest score lies in (cap - 126, cap + 127) in log2 units, and a
+keyless row's LSE is cap * ln 2. The backward kernel
 (`csrc/flash_bwd.cu`) computes dq, dk and dv from q, k, v, dO, the LSE and
 delta = rowsum(dO * O) - dlse in one pass.
 
@@ -22,7 +26,8 @@ the same function. There is no fallback from one to the other.
 grad, the forward runs with the LSE output and saves q, k, v, o and the LSE,
 and the backward runs `flash_attention_bwd`. Without grad (serving, under
 `torch.no_grad()`) `flash_attention` runs the forward without the LSE.
-`flash_attention.launches` counts forward kernel launches and
+`flash_attention.launches` counts forward kernel launches in exact mode,
+`flash_attention.cap_launches` those in cap mode, and
 `flash_attention_bwd.launches` backward ones.
 """
 
@@ -36,13 +41,18 @@ import torch
 from dualforce_tpu_torch.ops import _build
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 HEAD_DIM = 128
+# static shift of the cap ("fast") mode, log2 units: exact while a row's
+# largest score lies in (cap - 126, cap + 127), as QK-RMS-normed scores do
+FAST_SOFTMAX_CAP = 30.0
 _MAX_FLOOR = -1.0e4          # running-max floor, in log2 units (the kernel's)
 _PLAIN_SCORE_BYTES = 1 << 28  # fp32 score bytes the plain versions hold per q chunk
 _MAX_GRID_Y = 65535           # batch * heads rides on the grid's y dimension
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_longlong] * 12
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                  + [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p])
 _FINISH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -78,20 +88,24 @@ def _chunk_rows(b: int, n: int, sk: int) -> int:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid_len: Optional[torch.Tensor] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          softmax_cap: Optional[float] = None):
     """The forward kernel's function in plain PyTorch, in fp32.
 
     q: [B, Sq, N, D]; k, v: [B, Sk, N, D]; kv_valid_len: [B] int or None.
     Returns o [B, Sq, N, D] in q's dtype, and with `return_lse` also the
     natural-log LSE [B, N, Sq] in fp32. The running max is floored at the
     kernel's -1e4 (log2 units), so a row with no valid key returns zeros and
-    an LSE of -1e4 * ln 2. Queries go in chunks that keep each fp32 score
-    block near 256 MiB, so it runs at the main path's shapes on the card for
-    a subset of heads.
+    an LSE of -1e4 * ln 2. With `softmax_cap` the cap mode runs instead:
+    P = exp2(S log2(e) / sqrt(D) - cap) with no max, o = P V / l (l == 0
+    gives 0) and LSE = (cap + log2 l) ln 2. Queries go in chunks that keep
+    each fp32 score block near 256 MiB, so it runs at the main path's shapes
+    on the card for a subset of heads.
     """
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    scale = d ** -0.5
+    cap = softmax_cap
+    scale = d ** -0.5 if cap is None else d ** -0.5 * LOG2E   # cap mode: log2 units
     kf = k.float().permute(0, 2, 3, 1)          # [B, N, D, Sk]
     vf = v.float().permute(0, 2, 1, 3)          # [B, N, Sk, D]
     keep = _key_mask(kv_valid_len, sk, q.device)
@@ -103,12 +117,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.matmul(qc * scale, kf)                       # [B, N, c, Sk]
         if keep is not None:
             s = s.masked_fill(~keep, float("-inf"))
-        m = s.amax(dim=-1, keepdim=True).clamp_min(_MAX_FLOOR / LOG2E)
-        p = torch.exp(s - m)
+        if cap is None:
+            m = s.amax(dim=-1, keepdim=True).clamp_min(_MAX_FLOOR / LOG2E)
+            p = torch.exp(s - m)
+        else:
+            p = torch.exp2(s - cap)
         denom = p.sum(dim=-1, keepdim=True)
         denom = torch.where(denom == 0, 1.0, denom)
         out[:, :, s0:s0 + chunk] = (torch.matmul(p, vf) / denom).to(q.dtype)
-        lse[:, :, s0:s0 + chunk] = (m + torch.log(denom))[..., 0]
+        lse_c = m + torch.log(denom) if cap is None else (cap + torch.log2(denom)) * LN2
+        lse[:, :, s0:s0 + chunk] = lse_c[..., 0]
     out = out.permute(0, 2, 1, 3)
     return (out, lse) if return_lse else out
 
@@ -198,7 +216,7 @@ def _lens(kv_valid_len):
     return None if kv_valid_len is None else kv_valid_len.to(torch.int32).contiguous()
 
 
-def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool):
+def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool, softmax_cap):
     shapes = (q.shape, k.shape, v.shape)
     strides = (q.stride(), k.stride(), v.stride())
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
@@ -215,10 +233,15 @@ def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool):
         *ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(),
         None if lens is None else lens.data_ptr(), b, n, sq, shapes[1][1],
         *strides[0][:3], *strides[1][:3], *strides[2][:3], sq * n * d, n * d, d,
-        d ** -0.5 * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+        d ** -0.5 * LOG2E, softmax_cap is not None,
+        0.0 if softmax_cap is None else softmax_cap,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
+    if softmax_cap is None:
+        flash_attention.launches += 1
+    else:
+        flash_attention.cap_launches += 1
     return out, lse
 
 
@@ -261,15 +284,16 @@ def _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse):
     return dq, dk, dv
 
 
-def _forward(q, k, v, kv_valid_len, with_lse: bool):
+def _forward(q, k, v, kv_valid_len, with_lse: bool, softmax_cap=None):
     """(o, lse or None) from the kernel (CUDA) or the plain version (CPU)."""
     if q.is_cuda:
-        return _launch_fwd(q, k, v, kv_valid_len, with_lse)
+        return _launch_fwd(q, k, v, kv_valid_len, with_lse, softmax_cap)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     if with_lse:
-        return flash_attention_plain(q, k, v, kv_valid_len, return_lse=True)
-    return flash_attention_plain(q, k, v, kv_valid_len), None
+        return flash_attention_plain(q, k, v, kv_valid_len, return_lse=True,
+                                     softmax_cap=softmax_cap)
+    return flash_attention_plain(q, k, v, kv_valid_len, softmax_cap=softmax_cap), None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -297,11 +321,13 @@ flash_attention_bwd.launches = 0
 class _FlashLse(torch.autograd.Function):
     """(o, lse) = flash(q, k, v); the counterpart of `_flash` and `_flash_lse`
     with their custom VJPs. An unused output's cotangent arrives as None: an
-    unused LSE adds nothing to delta, an unused o gives dO = 0."""
+    unused LSE adds nothing to delta, an unused o gives dO = 0. In cap mode
+    the forward saves the cap-mode LSE; the backward is the same (P =
+    exp(S / sqrt(D) - lse) is the softmax in both modes)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_valid_len):
-        o, lse = _forward(q, k, v, kv_valid_len, with_lse=True)
+    def forward(ctx, q, k, v, kv_valid_len, softmax_cap):
+        o, lse = _forward(q, k, v, kv_valid_len, with_lse=True, softmax_cap=softmax_cap)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, o, lse, kv_valid_len)
         return o, lse
@@ -311,7 +337,7 @@ class _FlashLse(torch.autograd.Function):
         q, k, v, o, lse, kv_valid_len = ctx.saved_tensors
         do = torch.zeros_like(o) if do is None else do.to(q.dtype).contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, kv_valid_len, dlse)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def _needs_grad(*tensors) -> bool:
@@ -319,28 +345,32 @@ def _needs_grad(*tensors) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_valid_len: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    kv_valid_len: Optional[torch.Tensor] = None,
+                    softmax_cap: Optional[float] = None) -> torch.Tensor:
     """Flash attention over [B, S, N, D] tensors.
 
     CUDA tensors go to the kernel (bf16, D = 128, any Sq/Sk), which reads
     them through their strides; CPU tensors go to `flash_attention_plain`.
-    Differentiable in q, k and v through `flash_attention_bwd`.
+    `softmax_cap` selects the cap mode (`FAST_SOFTMAX_CAP` on the "fast"
+    route). Differentiable in q, k and v through `flash_attention_bwd`.
     """
     if _needs_grad(q, k, v):
-        return _FlashLse.apply(q, k, v, kv_valid_len)[0]
-    return _forward(q, k, v, kv_valid_len, with_lse=False)[0]
+        return _FlashLse.apply(q, k, v, kv_valid_len, softmax_cap)[0]
+    return _forward(q, k, v, kv_valid_len, with_lse=False, softmax_cap=softmax_cap)[0]
 
 
 flash_attention.launches = 0
+flash_attention.cap_launches = 0
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             kv_valid_len: Optional[torch.Tensor] = None
+                             kv_valid_len: Optional[torch.Tensor] = None,
+                             softmax_cap: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B, Sq, N, D], lse [B, N, Sq] fp32, natural log), differentiable in
-    both outputs: the inner attention of sequence-parallel combines."""
+    both outputs: the inner attention of sequence-parallel combines.
+    `softmax_cap` as for `flash_attention`."""
     if _needs_grad(q, k, v):
-        return _FlashLse.apply(q, k, v, kv_valid_len)
-    return _forward(q, k, v, kv_valid_len, with_lse=True)
+        return _FlashLse.apply(q, k, v, kv_valid_len, softmax_cap)
+    return _forward(q, k, v, kv_valid_len, with_lse=True, softmax_cap=softmax_cap)
 

@@ -103,18 +103,20 @@ def build_audio_freqs(tables, length: int):
 
 
 # ---------------------------------------------------------------------------
-# application (fp32 rotation, cast back)
+# application (fp32 rotation unless asked otherwise, cast back)
 # ---------------------------------------------------------------------------
 
-def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
-                           sin: torch.Tensor) -> torch.Tensor:
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x: [B, S, N, D], adjacent channel pairs (2i, 2i+1) as complex numbers;
-    cos/sin: [S, D//2], broadcast over batch and heads."""
+    cos/sin: [S, D//2], broadcast over batch and heads. The rotation runs in
+    `compute_dtype`, x and the tables cast to it first; bf16 is the int8
+    (sage) attention path's, as in the JAX package."""
     b, s, n, d = x.shape
-    xf = x.float().reshape(b, s, n, d // 2, 2)
+    xf = x.to(compute_dtype).reshape(b, s, n, d // 2, 2)
     even, odd = xf[..., 0], xf[..., 1]
-    c = cos.float()[None, :, None, :]
-    si = sin.float()[None, :, None, :]
+    c = cos.to(compute_dtype)[None, :, None, :]
+    si = sin.to(compute_dtype)[None, :, None, :]
     out = torch.stack([even * c - odd * si, even * si + odd * c], dim=-1)
     return out.reshape(b, s, n, d).to(x.dtype)
 

@@ -71,13 +71,19 @@ def test_dispatcher_matches_jax(sq, d):
 
 
 def test_dispatcher_impl_hook_and_unported_modes():
+    """The callable hook; an impl the JAX package does not know is refused.
+    The JAX package's "fast", "sage" and "pallas" routes are ported: under
+    the gate (8 queries) "fast" and "sage" take the reference, "pallas"
+    takes the flash path regardless."""
     q, k, v = map(torch.from_numpy, _qkv(3, 1, 8, 8, 1, 128))
     seen = []
     out = tatt.attention(q, k, v, impl=lambda *a: seen.append(a) or a[0])
     assert out is q and len(seen) == 1 and seen[0][3] is None
-    for impl in ("fast", "sage", "pallas"):
-        with pytest.raises(NotImplementedError):
-            tatt.attention(q, k, v, impl=impl)
+    with pytest.raises(ValueError):
+        tatt.attention(q, k, v, impl="flash3")
+    for impl in ("fast", "sage"):
+        assert torch.equal(tatt.attention(q, k, v, impl=impl), tatt.attention_ref(q, k, v))
+    assert torch.equal(tatt.attention(q, k, v, impl="pallas"), flash_attention_plain(q, k, v))
 
 
 def test_wrapper_never_falls_back():

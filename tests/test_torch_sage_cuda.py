@@ -1,0 +1,127 @@
+"""The CUDA cap mode of the flash forward and the int8-QK sage kernel against
+their plain versions, and the int8 product of `nn.Int8Linear`, on the card.
+
+Skips where there is no CUDA device. It imports no JAX, so on a machine with
+the card it runs without the repository's JAX test configuration:
+`python -m pytest --noconftest tests/test_torch_sage_cuda.py`.
+Tolerances: bf16 output against the fp32 plain version on the same inputs
+(for sage, the same int8 quantization), relative L2 error <= 1e-2; the cap
+mode's LSE within 1e-3 absolute; rows with no valid key exactly 0.
+"""
+
+import pytest
+import torch
+
+from dualforce_tpu_torch import nn as tnn
+from dualforce_tpu_torch.ops import sage_attention as tsa
+from dualforce_tpu_torch.ops.flash_attention import (FAST_SOFTMAX_CAP, flash_attention,
+                                                     flash_attention_plain,
+                                                     flash_attention_with_lse)
+
+SHAPES = [
+    (1, 2, 300, 200, None),
+    (2, 3, 130, 520, (520, 0)),
+    (3, 4, 1000, 512, (512, 77, 0)),
+    (1, 12, 403, 4031, None),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _inputs(cuda, b, n, sq, sk, lens, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, 128, generator=g, device=cuda, dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, v, tl
+
+
+def _zero_rows(out, lens):
+    if lens is not None:
+        for i, length in enumerate(lens):
+            if length == 0:
+                assert torch.count_nonzero(out[i]) == 0
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens", SHAPES)
+def test_cap_kernel_matches_plain(cuda, b, n, sq, sk, lens):
+    q, k, v, tl = _inputs(cuda, b, n, sq, sk, lens, 0)
+    before = (flash_attention.launches, flash_attention.cap_launches)
+    out, lse = flash_attention_with_lse(q, k, v, tl, softmax_cap=FAST_SOFTMAX_CAP)
+    plain = flash_attention(q, k, v, tl, softmax_cap=FAST_SOFTMAX_CAP)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.cap_launches) == \
+        (before[0], before[1] + 2)
+    want, want_lse = flash_attention_plain(q.float(), k.float(), v.float(), tl,
+                                           return_lse=True, softmax_cap=FAST_SOFTMAX_CAP)
+    assert _rel(out, want) <= 1e-2 and torch.equal(out, plain)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    _zero_rows(out, lens)
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens", SHAPES)
+def test_sage_kernel_matches_plain(cuda, b, n, sq, sk, lens):
+    q, k, v, tl = _inputs(cuda, b, n, sq, sk, lens, 1)
+    qi, ki, qs, ks = tsa.sage_quantize(q, k, tl)
+    before = tsa.sage_attention.launches
+    out = tsa.sage_fwd(qi, ki, v, qs, ks, tl)
+    torch.cuda.synchronize()
+    assert tsa.sage_attention.launches == before + 1
+    want = tsa.sage_fwd_plain(qi, ki, v.float(), qs, ks, tl)
+    assert out.dtype == torch.bfloat16 and _rel(out, want) <= 1e-2
+    _zero_rows(out, lens)
+    exact = flash_attention_plain(q.float(), k.float(), v.float(), tl)
+    assert _rel(out, exact) <= 2.5e-2          # the int8 floor, JAX's own bound
+
+
+def test_sage_attention_reads_strided_v(cuda):
+    """v as a view into a packed [B, S, 3, N, D] tensor, through `sage_attention`."""
+    g = torch.Generator(cuda).manual_seed(2)
+    qkv = torch.randn(1, 257, 3, 2, 128, generator=g, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    with torch.no_grad():
+        out = tsa.sage_attention(q, k, v)
+    want = tsa.sage_attention_plain(q, k, v.float())
+    assert _rel(out, want) <= 1e-2
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 300, 1, 128, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(x, x, x, softmax_cap=FAST_SOFTMAX_CAP)     # fp32
+    qi = torch.zeros(1, 300, 1, 128, device=cuda, dtype=torch.int8)
+    s = torch.ones(1, 1, 300, device=cuda)
+    with pytest.raises(TypeError):
+        tsa.sage_fwd(qi, qi, x, s, s)                                # fp32 v
+    with pytest.raises(TypeError):
+        tsa.sage_fwd(qi.float(), qi, x.bfloat16(), s, s)             # fp32 q
+    y = torch.zeros(1, 300, 1, 64, device=cuda, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        tsa.sage_fwd(y, y, y.bfloat16(), s, s)                       # D = 64
+    with pytest.raises(ValueError):
+        tsa.sage_fwd(qi, qi, x.bfloat16(), s[:, :, :10], s)          # short scales
+    with pytest.raises(RuntimeError):
+        tsa.sage_attention(x.bfloat16().requires_grad_(), x.bfloat16(), x.bfloat16())
+
+
+@pytest.mark.parametrize("rows", [5, 300])
+def test_int8_linear_on_the_card(cuda, rows):
+    """`torch._int_mm` (few rows padded) against the same w8a8 arithmetic on
+    the CPU: the int32 products are exact, so the outputs agree to fp32
+    round-off."""
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(512, 256).requires_grad_(False)
+    q = tnn.Int8Linear.from_linear(lin)
+    x = torch.randn(1, rows, 512)
+    want = q(x)
+    got = q.to(cuda)(x.to(cuda))
+    assert _rel(got.cpu(), want) <= 1e-6
