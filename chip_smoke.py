@@ -45,8 +45,9 @@ Phases, each of which must pass:
    remat) for 4 optimizer steps on synthetic clips from a numpy seed. The
    experts must run 0, 1, 0, 1; loss and grad norm must be finite (the norm
    above 0); each micro-step must launch the forward kernel exactly 16 times
-   and the backward kernel 8 times; afterwards every module's LoRA `b` must
-   be nonzero, and the saved `lora_weights.npz` must load back equal.
+   and the (fused) backward kernel 8 times, the split one never; afterwards
+   every module's LoRA `b` must be nonzero, and the saved `lora_weights.npz`
+   must load back equal.
 9. precision kernels: at the six shapes of phase 3, the flash forward's cap
    mode (the "fast" route) against its plain version (relative L2 <= 1e-2)
    and the int8-QK sage kernel against its plain version on the same int8
@@ -67,7 +68,32 @@ Phases, each of which must pass:
    and the flash kernels never; the fast request the cap mode exactly 112
    times and nothing else. Prints the seconds spent quantizing and the
    device memory of the quantized towers against the bf16 ones.
+12. 720p backward kernels: at the six flash shapes of a 720p training
+   micro-step (B 1, D 128: video self 40 x 176,400 x 176,400, video text
+   cross 40 x 176,400 x 512 and a2v 40 x 176,400 x 403, which route the
+   backward to the split kernels; v2a 12 x 403 x 176,400, audio self
+   12 x 403 x 403 and audio text cross 12 x 403 x 512, which route it to the
+   fused one) the forward with its LSE and the routed backward, held on two
+   heads against their plain versions with phase 6's tolerances; at the
+   split shapes the fused kernel on the same inputs too (its time and its
+   gap to the split's results); times of the routed kernel, its bound, the
+   SDPA backward and the plain version on the two heads (at >= 100k tokens
+   one warm-up, the checked call, and two timed calls); a masked case with
+   an LSE cotangent through the split kernels (B 3, N 2, Sq 98,305, Sk 512,
+   kv_len [512, 77, 0]: the length-0 batch exactly zero dq, masked keys
+   exactly zero dk and dv); and phase 7 again with every backward routed to
+   the split kernels.
+13. 720p train path: `LoRATrainer` on the main path's modules with phase 8's
+   settings for 2 optimizer steps (experts 0, 1) on synthetic 1280x720
+   clips of 193 frames at 24 fps with 386,000 audio samples (176,400 video
+   and 403 audio tokens). Loss and grad norm must be finite (the norm above
+   0); each micro-step must launch the forward kernel exactly 28 times, the
+   split backward 8 times and the fused one 6 times; afterwards every
+   module's LoRA `b` must be nonzero. Prints encode, loss+backward and
+   optimizer seconds per step and the peak device memory.
 
+The run sets PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the
+environment sets it: phase 13 needs it to fit 193 frames on an 80 GB card.
 The line before the last is the card's name and power limit; the one
 before that lists each kernel as JSON. The last line of standard output is
 {"ok": true, "device": {...}}. Without CUDA, or outside a checkout, it
@@ -127,6 +153,27 @@ TRAIN_FLASH_CALLS = 2 * 3 + 1 * 2
 TRAIN_FWD_LAUNCHES = 2 * TRAIN_FLASH_CALLS
 TRAIN_BWD_LAUNCHES = TRAIN_FLASH_CALLS
 TRAIN_STEPS = 4
+# (name, heads, Sq, Sk) of each flash-attention call of a 720p training micro-step (B = 1):
+# 193 frames at 1280x720 give 49 x 45 x 80 = 176,400 video tokens, 386,000 audio samples 403
+# audio tokens. Sq >= 98,305 routes the backward to the split kernels, as in the JAX package.
+TRAIN_720P_SHAPES = [
+    ("video_self", 40, 176400, 176400),
+    ("video_text_cross", 40, 176400, 512),
+    ("a2v_bridge", 40, 176400, 403),
+    ("v2a_bridge", 12, 403, 176400),
+    ("audio_self", 12, 403, 403),
+    ("audio_text_cross", 12, 403, 512),
+]
+TRAIN_720P = dict(height=720, width=1280, num_frames=193, audio_samples=386000)
+TRAIN_720P_STEPS = 2
+# per 720p micro-step: all 6 attentions of each of 2 shared layers take the kernels (the
+# 403-token audio side passes the Sq >= 256 gate) and the 2 of the 1 tail layer: 14 calls,
+# each forward twice under remat; the 8 with Sq = 176,400 (video self, video text cross, a2v
+# in the shared layers; video self and text cross in the tail) take the split backward, the
+# 6 with Sq = 403 (v2a, audio self, audio text cross) the fused one
+TRAIN_720P_FWD_LAUNCHES = 2 * (2 * 6 + 1 * 2)
+TRAIN_720P_SPLIT_LAUNCHES = 2 * 3 + 1 * 2
+TRAIN_720P_FUSED_LAUNCHES = 2 * 3
 # the serving requests of phases 5 and 11: 360p, 193 frames at 24 fps, 4 steps, CFG 5, shift 5
 REQUEST = dict(height=352, width=640, num_frames=193, video_fps=24.0, num_inference_steps=4,
                sigma_shift=5.0, cfg_scale=5.0)
@@ -368,26 +415,34 @@ def _check_result(res, request) -> None:
                              f"{bool(np.isfinite(res.audio).all())}")
 
 
-def phase_main_path():
+def main_path_config():
+    """MOVA-360p widths with `bench.py`'s depth cut: video 3 layers per
+    expert, audio 2, bridge shared depth 2 (so the video-only tail runs),
+    UMT5 2."""
     import dataclasses
 
+    from dualforce_tpu_torch.config import mova_360p
+
+    base = mova_360p()
+    return dataclasses.replace(
+        base,
+        video_dit=dataclasses.replace(base.video_dit, num_layers=3),
+        audio_dit=dataclasses.replace(base.audio_dit, num_layers=2),
+        bridge=dataclasses.replace(base.bridge, visual_layers=3, audio_layers=2),
+        text_encoder=dataclasses.replace(base.text_encoder, num_layers=2))
+
+
+def phase_main_path():
     import numpy as np
     import torch
 
-    from dualforce_tpu_torch.config import mova_360p
     from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
     from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
     from dualforce_tpu_torch.diffusion.sampler import build_plan
     from dualforce_tpu_torch.models.factory import init_pipeline_params
     from dualforce_tpu_torch.ops.flash_attention import flash_attention
 
-    base = mova_360p()
-    cfg = dataclasses.replace(
-        base,
-        video_dit=dataclasses.replace(base.video_dit, num_layers=3),
-        audio_dit=dataclasses.replace(base.audio_dit, num_layers=2),
-        bridge=dataclasses.replace(base.bridge, visual_layers=3, audio_layers=2),
-        text_encoder=dataclasses.replace(base.text_encoder, num_layers=2))
+    cfg = main_path_config()
     request = REQUEST
     sched = FlowMatchPairScheduler(cfg.scheduler)
     sched.set_timesteps(request["num_inference_steps"], shift=request["sigma_shift"])
@@ -594,15 +649,17 @@ def _train_tables(cfg):
     return build_train_tables(sched, cfg.boundary_ratio)
 
 
-def phase_small_backward():
+def phase_small_backward(split: bool = False):
     """LoRA gradients of one training loss through the kernels against the
-    same through plain fp32 attention."""
+    same through plain fp32 attention. With `split`, every backward is routed
+    to the split kernels for this one run (the routing predicate replaced
+    here; the package has no switch)."""
     import torch
 
     from dualforce_tpu_torch.diffusion.training import lora_grads
     from dualforce_tpu_torch.engine import lora as lora_mod
     from dualforce_tpu_torch.models.factory import init_pipeline_params
-    from dualforce_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from dualforce_tpu_torch.ops import flash_attention as fa
 
     cfg = _small_config()
     mods = init_pipeline_params(cfg, device="cuda", dtype=torch.bfloat16, seed=3,
@@ -621,34 +678,49 @@ def phase_small_backward():
             p.copy_(torch.randn(p.shape, generator=host) * 1e-2)
     tables = _train_tables(cfg)
     flat = {}
-    for impl in ("auto", "ref"):
-        before = flash_attention_bwd.launches
-        grads, _ = lora_grads(lora, mods, cfg, tables, enc, None, 0,
-                              compute_dtype=torch.bfloat16, remat=True, attn_impl=impl,
-                              noise_override=noise, timestep_id=100, device="cuda")
-        flat[impl] = torch.cat([x.float().flatten() for x in grads])
-        launched = flash_attention_bwd.launches - before
-        if (launched > 0) != (impl == "auto"):
-            raise AssertionError(f"attn_impl={impl}: {launched} backward launches")
+    takes_split = fa.bwd_takes_split
+    if split:
+        fa.bwd_takes_split = lambda sq, d=HEAD_DIM: True
+    try:
+        for impl in ("auto", "ref"):
+            before = (fa.flash_attention_bwd.launches, fa.flash_attention_bwd.split_launches)
+            grads, _ = lora_grads(lora, mods, cfg, tables, enc, None, 0,
+                                  compute_dtype=torch.bfloat16, remat=True, attn_impl=impl,
+                                  noise_override=noise, timestep_id=100, device="cuda")
+            flat[impl] = torch.cat([x.float().flatten() for x in grads])
+            fused = fa.flash_attention_bwd.launches - before[0]
+            splits = fa.flash_attention_bwd.split_launches - before[1]
+            want_launch = impl == "auto"
+            if (fused > 0, splits > 0) != (want_launch and not split, want_launch and split):
+                raise AssertionError(f"attn_impl={impl}: {fused} fused and {splits} split "
+                                     f"backward launches")
+            if want_launch:
+                launched = splits if split else fused
+    finally:
+        fa.bwd_takes_split = takes_split
     err = rel_err(flat["auto"], flat["ref"])
     if not (torch.isfinite(flat["auto"]).all() and err <= LORA_GRAD_REL_TOL):
         raise AssertionError(f"small backward: LoRA grads rel err {err}")
+    route = "split" if split else "routed (fused at this size)"
     log(f"[small] training_loss LoRA grads ({flat['auto'].numel()} values) through the "
-        f"kernels vs plain attention: rel_err={err:.3e} (tolerance {LORA_GRAD_REL_TOL})")
+        f"kernels, backward {route}, vs plain attention: rel_err={err:.3e} (tolerance "
+        f"{LORA_GRAD_REL_TOL}); {launched} backward launches")
 
 
-def _synthetic_clips(count: int):
-    """Clips of the 360p training recipe from a numpy seed: uniform video
-    in [-1, 1], a tone plus noise for audio, a byte-tokenised caption."""
+def _synthetic_clips(count: int, height: int = 352, width: int = 640, num_frames: int = 49,
+                     audio_samples: int = int(48000 * 49 / 24)):
+    """Clips from a numpy seed (by default the 360p training recipe's):
+    uniform video in [-1, 1], a tone plus noise for audio, a byte-tokenised
+    caption."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     tok = ByteTokenizer()
-    t = np.arange(int(48000 * 49 / 24)) / 48000.0
+    t = np.arange(audio_samples) / 48000.0
     for i in range(count):
         ids = tok([f"clip {i}: a drummer on a rooftop at dusk"], max_length=512)
         audio = 0.3 * np.sin(2 * np.pi * 110.0 * (i + 2) * t) + 0.05 * rng.standard_normal(t.size)
-        yield {"video": rng.uniform(-1, 1, (1, 49, 352, 640, 3)).astype(np.float32),
+        yield {"video": rng.uniform(-1, 1, (1, num_frames, height, width, 3)).astype(np.float32),
                "audio": audio.astype(np.float32)[None, None],
                "text_ids": ids["input_ids"], "text_mask": ids["attention_mask"]}
 
@@ -676,11 +748,14 @@ def phase_train_path(cfg, modules, root: str):
 
     steps = []
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0   # the train path's count
+    # the train path's counts
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    flash_attention_bwd.split_launches = 0
     t0 = time.perf_counter()
     final = trainer.train(_synthetic_clips(TRAIN_STEPS), on_micro_step=steps.append)
     wall = time.perf_counter() - t0
-    launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches}
+    launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
+                "split": flash_attention_bwd.split_launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, st in enumerate(steps):
         log(f"[train] step {i + 1}: expert {st['expert']} timestep {st['timestep']:.1f} "
@@ -699,10 +774,11 @@ def phase_train_path(cfg, modules, root: str):
         values = [st[k] for k in ("loss", "video_loss", "audio_loss", "grad_norm")]
         if not all(math.isfinite(x) for x in values) or st["grad_norm"] <= 0:
             raise AssertionError(f"non-finite or zero metrics {st}")
-        if (st["flash_fwd"], st["flash_bwd"]) != (TRAIN_FWD_LAUNCHES, TRAIN_BWD_LAUNCHES):
+        if (st["flash_fwd"], st["flash_bwd"], st["flash_bwd_split"]) != (
+                TRAIN_FWD_LAUNCHES, TRAIN_BWD_LAUNCHES, 0):
             raise AssertionError(f"flash launches per micro-step fwd {st['flash_fwd']} bwd "
-                                 f"{st['flash_bwd']}, expected {TRAIN_FWD_LAUNCHES} and "
-                                 f"{TRAIN_BWD_LAUNCHES}")
+                                 f"{st['flash_bwd']} split {st['flash_bwd_split']}, expected "
+                                 f"{TRAIN_FWD_LAUNCHES}, {TRAIN_BWD_LAUNCHES} and 0")
     for mod, tree in trainer.lora.items():
         zero = [n for n, ab in tree.items() if not torch.count_nonzero(ab["b"])]
         if zero:
@@ -989,7 +1065,237 @@ def phase_precision_serving(cfg, modules):
     return launches
 
 
+def time_long_ms(fn, reps: int = 2, warmup: int = 1) -> float:
+    """Device ms per call for calls that last seconds: the mean of `reps`
+    calls, each between two CUDA events, after `warmup` calls (0 where the
+    caller's checked call has just warmed it)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def phase_720p_backward_kernels():
+    """The forward with its LSE output and the routed backward at the 720p
+    micro-step's six shapes against their plain versions on two heads, the
+    fused kernel beside the split pair at the split shapes, a masked case
+    with an LSE cotangent through the split kernels, and the phase-7 LoRA
+    backward with every backward routed to the split kernels; timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(11)
+    rows, max_abs = [], {"fwd": 0.0, "fused": 0.0, "split": 0.0}
+    for name, n, sq, sk in TRAIN_720P_SHAPES:
+        split = fa.bwd_takes_split(sq)
+        route = "split" if split else "fused"
+        q, k, v, do = (_rand(g, 1, s, n, HEAD_DIM) for s in (sq, sk, sk, sq))
+        o, lse = fa.flash_attention_with_lse(q, k, v)
+        before = (fa.flash_attention_bwd.launches, fa.flash_attention_bwd.split_launches)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        launched = (fa.flash_attention_bwd.launches - before[0],
+                    fa.flash_attention_bwd.split_launches - before[1])
+        if launched != ((0, 1) if split else (1, 0)):
+            raise AssertionError(f"{name}: backward launches (fused, split) {launched}, "
+                                 f"expected the {route} route")
+        heads = [0, n - 1]
+        sub = [x[:, :, heads].float() for x in (q, k, v, o, do)]
+        t0 = time.perf_counter()
+        want_o, want_lse = fa.flash_attention_plain(*sub[:3], return_lse=True)
+        want = fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4])
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        lse_err = float((lse[:, heads] - want_lse).abs().max())
+        o_err = rel_err(o[:, :, heads], want_o)
+        errs = {gn: rel_err(got[:, :, heads], w)
+                for gn, got, w in zip(("dq", "dk", "dv"), grads, want)}
+        mae = max(float((got[:, :, heads].float() - w).abs().max())
+                  for got, w in zip(grads, want))
+        max_abs["fwd"] = max(max_abs["fwd"], float((o[:, :, heads].float() - want_o)
+                                                   .abs().max()))
+        max_abs[route] = max(max_abs[route], mae)
+        if not (lse_err <= LSE_ABS_TOL and o_err <= KERNEL_REL_TOL
+                and all(e <= GRAD_REL_TOL for e in errs.values())):
+            raise AssertionError(f"720p {name}: lse abs err {lse_err}, o rel err {o_err}, "
+                                 f"grad rel errs {errs}")
+        del want_o, want_lse, want
+        long = max(sq, sk) >= 100_000
+        if long:     # the checked calls above were the warm-ups
+            fwd_ms = time_long_ms(lambda: fa.flash_attention_with_lse(q, k, v), warmup=0)
+            bwd_ms = time_long_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                  warmup=0)
+            plain_fwd_ms = time_long_ms(
+                lambda: fa.flash_attention_plain(*sub[:3], return_lse=True), warmup=0)
+            plain_bwd_ms = time_long_ms(
+                lambda: fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4]),
+                warmup=0)
+        else:
+            fwd_ms, _ = time_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps=7, warmup=2)
+            bwd_ms, _ = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                reps=7, warmup=2)
+            plain_fwd_ms, _ = time_ms(
+                lambda: fa.flash_attention_plain(*sub[:3], return_lse=True), reps=3, warmup=1)
+            plain_bwd_ms, _ = time_ms(
+                lambda: fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4]),
+                reps=3, warmup=1)
+        fused_note, fused_ms = "", None
+        if split:    # the fused kernel on the same inputs: its time and its gap to the split's
+            fused = fa.flash_attention_bwd_fused(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            gap = {gn: rel_err(a, b.float()) for gn, a, b in zip(("dq", "dk", "dv"), grads,
+                                                                  fused)}
+            equal_kv = bool(torch.equal(grads[1], fused[1]) and torch.equal(grads[2], fused[2]))
+            del fused
+            if long:
+                fused_ms = time_long_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse,
+                                                                             do), warmup=0)
+            else:
+                fused_ms, _ = time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do),
+                                      reps=7, warmup=2)
+            fused_note = (f" fused_ms={fused_ms:.4f} (the fused kernel on the same inputs; "
+                          f"split vs fused: " + " ".join(f"{gn}_rel={e:.3e}"
+                                                          for gn, e in gap.items())
+                          + f", dk/dv bit-equal {equal_kv})")
+        del grads
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+        lib_bwd_ms = (time_long_ms(sdpa_bwd) if long else
+                      time_ms(sdpa_bwd, reps=7, warmup=2)[0])
+        fwd_bound, fwd_by = attention_bound_ms(1, n, sq, sk, sk, lse=True)
+        bwd_bound, bwd_by = attention_bwd_bound_ms(1, n, sq, sk, sk)
+        rows.append(dict(shape=name, heads=n, sq=sq, sk=sk, route=route, fwd_ms=fwd_ms,
+                         fwd_plain_ms_2_heads=plain_fwd_ms, fwd_bound_ms=fwd_bound,
+                         bwd_ms=bwd_ms, bwd_plain_ms_2_heads=plain_bwd_ms,
+                         bwd_library_ms=lib_bwd_ms, bwd_bound_ms=bwd_bound,
+                         bwd_bound_by=bwd_by, fused_ms=fused_ms, max_abs_err=mae))
+        log(f"[720p] flash_fwd+lse {name} N={n} Sq={sq} Sk={sk}: kernel_ms={fwd_ms:.4f} "
+            f"bound_ms={fwd_bound:.4f} ({fwd_by}) plain_ms={plain_fwd_ms:.4f} (2 heads, not a "
+            f"yardstick) lse_abs_err={lse_err:.3e} o_rel_err={o_err:.3e}")
+        log(f"[720p] flash_bwd ({route}) {name} N={n} Sq={sq} Sk={sk}: kernel_ms={bwd_ms:.4f} "
+            f"bound_ms={bwd_bound:.4f} ({bwd_by}) library_ms={lib_bwd_ms:.4f} (sdpa backward) "
+            f"plain_ms={plain_bwd_ms:.4f} (2 heads, not a yardstick) "
+            + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
+            + f" max_abs_err={mae:.3e} check_s={check_s:.1f}" + fused_note)
+        del q, k, v, do, o, lse, sub, qt, kt, vt, out, dot
+        torch.cuda.empty_cache()
+
+    # per-batch kv lengths, one of them 0, and an LSE cotangent, through the split kernels
+    b, n, sq, sk, lens = 3, 2, 98305, 512, [512, 77, 0]
+    q, do = _rand(g, b, sq, n, HEAD_DIM), _rand(g, b, sq, n, HEAD_DIM)
+    k, v = _rand(g, b, sk, n, HEAD_DIM), _rand(g, b, sk, n, HEAD_DIM)
+    dlse = _rand(g, b, n, sq, dtype=torch.float32)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o, lse = fa.flash_attention_with_lse(q, k, v, kv_len)
+    before = fa.flash_attention_bwd.split_launches
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, kv_len, dlse)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float(), kv_len, dlse)
+    errs = {gn: rel_err(got, w) for gn, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    mae = max(float((got.float() - w).abs().max()) for got, w in zip((dq, dk, dv), want))
+    max_abs["split"] = max(max_abs["split"], mae)
+    nonzero = int(torch.count_nonzero(dq[2])) + sum(
+        int(torch.count_nonzero(x[i, length:])) for x in (dk, dv)
+        for i, length in enumerate(lens))
+    if (not all(e <= GRAD_REL_TOL for e in errs.values()) or nonzero
+            or fa.flash_attention_bwd.split_launches != before + 1):
+        raise AssertionError(f"masked split backward: rel errs {errs}, {nonzero} nonzero "
+                             f"where exact zeros are due")
+    log(f"[720p] flash_bwd (split) masked B={b} N={n} Sq={sq} Sk={sk} kv_len={lens} with "
+        "dlse: " + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
+        + f" max_abs_err={mae:.3e}; length-0 dq and masked dk/dv exactly 0")
+    del q, k, v, do, dlse, o, lse, dq, dk, dv, want
+    torch.cuda.empty_cache()
+    phase_small_backward(split=True)
+    return rows, max_abs
+
+
+def phase_train_720p(cfg, modules, root: str):
+    """`LoRATrainer` for TRAIN_720P_STEPS optimizer steps on 1280x720 clips
+    of 193 frames, on the main path's modules."""
+    import shutil
+
+    import torch
+
+    from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+
+    save_dir = os.path.join(root, "build", "chip_smoke_train_720p")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    tcfg = TrainerConfig(lr=1e-4, weight_decay=1e-2, warmup_steps=100,
+                         max_steps=TRAIN_720P_STEPS, lr_schedule="cosine", lora_rank=16,
+                         lora_alpha=16.0, log_interval=1, save_interval=1000,
+                         save_dir=save_dir, logger="jsonl", remat=True)
+    trainer = LoRATrainer(cfg, modules, tcfg, device="cuda")
+    clips = _synthetic_clips(TRAIN_720P_STEPS, TRAIN_720P["height"], TRAIN_720P["width"],
+                             TRAIN_720P["num_frames"], TRAIN_720P["audio_samples"])
+    steps = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the 720p train path's counts
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    flash_attention_bwd.split_launches = 0
+    t0 = time.perf_counter()
+    final = trainer.train(clips, on_micro_step=steps.append)
+    wall = time.perf_counter() - t0
+    launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
+                "split": flash_attention_bwd.split_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, st in enumerate(steps):
+        log(f"[train720] step {i + 1}: expert {st['expert']} timestep {st['timestep']:.1f} "
+            f"loss {st['loss']:.5f} (video {st['video_loss']:.5f}, audio "
+            f"{st['audio_loss']:.5f}) grad_norm {st['grad_norm']:.5f}; encode "
+            f"{st['encode_s']:.3f} s, loss+backward {st['loss_backward_s']:.3f} s, "
+            f"optimizer {st['optimizer_s']:.4f} s; flash launches fwd {st['flash_fwd']} "
+            f"fused bwd {st['flash_bwd']} split bwd {st['flash_bwd_split']}")
+    log(f"[train720] {final} steps at {TRAIN_720P['width']}x{TRAIN_720P['height']}, "
+        f"{TRAIN_720P['num_frames']} frames in {wall:.2f} s (clip synthesis and saves "
+        f"included); max_memory_allocated {peak:.2f} GiB; flash launches over the phase "
+        f"{launches}")
+    if final != TRAIN_720P_STEPS or [st["expert"] for st in steps] != [0, 1]:
+        raise AssertionError(f"{final} steps, experts {[st['expert'] for st in steps]}")
+    want = (TRAIN_720P_FWD_LAUNCHES, TRAIN_720P_FUSED_LAUNCHES, TRAIN_720P_SPLIT_LAUNCHES)
+    for st in steps:
+        values = [st[k] for k in ("loss", "video_loss", "audio_loss", "grad_norm")]
+        if not all(math.isfinite(x) for x in values) or st["grad_norm"] <= 0:
+            raise AssertionError(f"non-finite or zero metrics {st}")
+        got = (st["flash_fwd"], st["flash_bwd"], st["flash_bwd_split"])
+        if got != want:
+            raise AssertionError(f"flash launches per micro-step (fwd, fused, split) {got}, "
+                                 f"expected {want}")
+    for mod, tree in trainer.lora.items():
+        zero = [n for n, ab in tree.items() if not torch.count_nonzero(ab["b"])]
+        if zero:
+            raise AssertionError(f"{mod}: LoRA b still zero at {zero[:3]}")
+    log("[train720] experts 0, 1; every module's LoRA b nonzero")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, peak
+
+
 def main() -> int:
+    # Freed blocks of any size serve later requests of any size: without it the
+    # 720p training phase loses some 11 GiB of the card to fragmentation and
+    # does not fit 193 frames (set before PyTorch's CUDA allocator starts).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -1015,19 +1321,23 @@ def main() -> int:
     prec_rows, prec_max_abs = phase_precision_kernels()
     phase_precision_step()
     prec = phase_precision_serving(cfg, modules)
+    rows_720p, max_abs_720p = phase_720p_backward_kernels()
+    train720, peak_720p = phase_train_720p(cfg, modules, root)
 
     video_self, train_self = rows[0], bwd_rows[0]
     cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
+    split_self = rows_720p[0]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
-        "launches": serve_launches + train["fwd"],
+        "launches": serve_launches + train["fwd"] + train720["fwd"],
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
-                             "serve_fast_int4": prec["fast"]["exact"]},
-        "max_abs_err": max(max_abs, bwd_max_abs["fwd"]),
+                             "serve_fast_int4": prec["fast"]["exact"],
+                             "train_720p": train720["fwd"]},
+        "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),
         "ms": video_self["kernel_ms"],
         "plain_ms": video_self["plain_ms"],
         "plain_heads": 40,
@@ -1042,9 +1352,9 @@ def main() -> int:
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:365",
-        "launches": train["bwd"],
-        "launches_by_path": {"serve": 0, "train": train["bwd"]},
-        "max_abs_err": bwd_max_abs["bwd"],
+        "launches": train["bwd"] + train720["bwd"],
+        "launches_by_path": {"serve": 0, "train": train["bwd"], "train_720p": train720["bwd"]},
+        "max_abs_err": max(bwd_max_abs["bwd"], max_abs_720p["fused"]),
         "ms": train_self["bwd_ms"],
         "plain_ms": train_self["bwd_plain_ms"],
         "plain_heads": 40,
@@ -1053,7 +1363,30 @@ def main() -> int:
         "library_ms": train_self["bwd_library_ms"],
         "held_against_plain": True,
         "shape": "video_self at training: 40 heads, Sq = Sk = 11440, D 128; the other "
-                 "shapes are on the [kernel] lines",
+                 "shapes, 720p's fused ones and the fused kernel at the split shapes are on "
+                 "the [kernel] and [720p] lines",
+    }, {
+        "name": "flash_bwd_split",
+        "route": "cuda",
+        "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "dualforce_tpu/ops/flash_attention.py:284 and :321",
+        "mode": "split: the dq pass (_bwd_dq_kernel) and the dk/dv pass (_bwd_dkv_kernel), "
+                "one launch of each per backward, where Sq >= 98,305",
+        "launches": train720["split"],
+        "launches_by_path": {"serve": 0, "train": train["split"],
+                             "train_720p": train720["split"]},
+        "max_abs_err": max_abs_720p["split"],
+        "ms": split_self["bwd_ms"],
+        "plain_ms": split_self["bwd_plain_ms_2_heads"],
+        "plain_heads": 2,
+        "bound_ms": split_self["bwd_bound_ms"],
+        "bound_by": split_self["bwd_bound_by"],
+        "library_ms": split_self["bwd_library_ms"],
+        "fused_ms_same_shape": split_self["fused_ms"],
+        "held_against_plain": True,
+        "shape": "video_self at 720p training: 40 heads, Sq = Sk = 176400, D 128 (plain_ms on "
+                 "2 heads); the other shapes are on the [720p] lines",
+        "train_720p_peak_gib": peak_720p,
     }, {
         "name": "flash_fwd_cap",
         "route": "cuda",

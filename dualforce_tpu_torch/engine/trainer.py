@@ -12,6 +12,12 @@ restored with the checkpoint.
 
 Not ported, and refused: full fine-tuning (`mode="full"`), component offload,
 AdamW8bit, meshes and sequence parallelism.
+
+Clips of any length train; at 720p (1280x720, 193 frames, 176,400 video
+tokens) the attention backwards take the split kernels, and an 80 GB card
+holds the step only when PyTorch's allocator may reuse freed memory for any
+size (`PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`, set before the
+first CUDA allocation).
 """
 
 from __future__ import annotations
@@ -179,8 +185,9 @@ class LoRATrainer:
         `on_micro_step`, if given, is called after each micro-batch with a
         record of it: `expert`; `encode_s`, `loss_backward_s` and
         `optimizer_s` (0 when the micro-batch ends no optimizer step), each
-        timed with the device synchronised around it; `flash_fwd` and
-        `flash_bwd`, the flash kernel launches of its loss and backward; its
+        timed with the device synchronised around it; `flash_fwd`,
+        `flash_bwd` and `flash_bwd_split`, the flash kernel launches of its
+        loss and backward (forward, fused backward, split backward); its
         loss metrics as floats; and `grad_norm` when it ends a step. The
         synchronisation makes a measured run slower: pass it only to measure.
         """
@@ -198,10 +205,12 @@ class LoRATrainer:
                 expert = 0
             encoded, encode_s = self._timed(measure, self._encode, batch)
             fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+            split = flash_attention_bwd.split_launches
             (grads, metrics), grads_s = self._timed(measure, self._grads, encoded, expert)
             record = {"expert": expert, "encode_s": encode_s, "loss_backward_s": grads_s,
                       "optimizer_s": 0.0, "flash_fwd": flash_attention.launches - fwd,
-                      "flash_bwd": flash_attention_bwd.launches - bwd}
+                      "flash_bwd": flash_attention_bwd.launches - bwd,
+                      "flash_bwd_split": flash_attention_bwd.split_launches - split}
             if accum > 1:
                 grad_acc = accumulate(grad_acc, grads, accum)
                 micro += 1

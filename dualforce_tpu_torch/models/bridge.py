@@ -23,6 +23,13 @@ from dualforce_tpu_torch.ops.attention import attention
 from dualforce_tpu_torch.ops.rope import apply_rope_half
 
 
+def _rotation(freqs):
+    """The rotate-half RoPE with the tables `freqs` = (cos, sin), or None."""
+    if freqs is None:
+        return None
+    return lambda t: apply_rope_half(t, *freqs)
+
+
 class ConditionalCrossAttentionBlock(nn.Module):
     def __init__(self, dim: int, kv_dim: int, num_heads: int, eps: float = 1e-6,
                  device=None, dtype=None):
@@ -36,11 +43,8 @@ class ConditionalCrossAttentionBlock(nn.Module):
                 kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """LayerNorm(y), then cross-attention of x over y with per-side RoPE."""
         b, sx, dim = x.shape
-        q, k, v = self.inner.qkv(x, self.y_norm(y), self.num_heads)
-        if x_freqs is not None:
-            q = apply_rope_half(q, *x_freqs)
-        if y_freqs is not None:
-            k = apply_rope_half(k, *y_freqs)
+        q, k, v = self.inner.qkv(x, self.y_norm(y), self.num_heads, _rotation(x_freqs),
+                                 _rotation(y_freqs))
         out = attention(q, k, v, kv_valid_len=kv_valid_len, impl=attn_impl)
         return self.inner.o(out.reshape(b, sx, dim))
 

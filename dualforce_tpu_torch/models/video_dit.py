@@ -35,15 +35,30 @@ class Attention(nn.Module):
         self.norm_q = dnn.RMSNorm(dim, eps, **f)
         self.norm_k = dnn.RMSNorm(dim, eps, **f)
 
-    def qkv(self, x: torch.Tensor, ctx: torch.Tensor, num_heads: int):
-        """Projected, RMS-normed q [B, Sx, N, D] and k, v [B, Sc, N, D]."""
+    def qkv(self, x: torch.Tensor, ctx: torch.Tensor, num_heads: int,
+            q_rope=None, k_rope=None):
+        """Projected, RMS-normed q [B, Sx, N, D] and k, v [B, Sc, N, D].
+        `q_rope` and `k_rope`, if given, rotate the normed q and k (functions
+        of a [B, S, N, D] tensor): norm and rotation run as one chain whose
+        fp32 intermediates are recomputed in the backward."""
         b, s, dim = x.shape
         sc = ctx.shape[1]
         d = dim // num_heads
-        q = self.norm_q(self.q(x)).reshape(b, s, num_heads, d)
-        k = self.norm_k(self.k(ctx)).reshape(b, sc, num_heads, d)
+        q = dnn.recompute_in_backward(_norm_rope, self.q(x), self.norm_q.weight,
+                                      self.norm_q.eps, (b, s, num_heads, d), q_rope)
+        k = dnn.recompute_in_backward(_norm_rope, self.k(ctx), self.norm_k.weight,
+                                      self.norm_k.eps, (b, sc, num_heads, d), k_rope)
         v = self.v(ctx).reshape(b, sc, num_heads, d)
         return q, k, v
+
+
+def _norm_rope(x, weight, eps, shape, rope):
+    y = dnn.rms_norm(x, weight, eps).reshape(shape)
+    return y if rope is None else rope(y)
+
+
+def _gelu_linear(x, weight, bias):
+    return F.linear(dnn.gelu_tanh(x), weight, bias)
 
 
 def self_attention(attn: Attention, x: torch.Tensor, rope, num_heads: int,
@@ -52,11 +67,13 @@ def self_attention(attn: Attention, x: torch.Tensor, rope, num_heads: int,
     in fp32, but in bf16 on the "sage" route, whose int8 quantization of q
     and k lies far below bf16's precision (as in the JAX package)."""
     b, s, dim = x.shape
-    q, k, v = attn.qkv(x, x, num_heads)
     cos, sin = rope
     rope_dtype = torch.bfloat16 if attn_impl == "sage" else torch.float32
-    q = apply_rope_interleaved(q, cos, sin, rope_dtype)
-    k = apply_rope_interleaved(k, cos, sin, rope_dtype)
+
+    def rotate(t):
+        return apply_rope_interleaved(t, cos, sin, rope_dtype)
+
+    q, k, v = attn.qkv(x, x, num_heads, rotate, rotate)
     return attn.o(attention(q, k, v, impl=attn_impl).reshape(b, s, dim))
 
 
@@ -102,7 +119,16 @@ class DiTBlock(nn.Module):
         x = x + cross_attention(self.cross_attn, h, ctx, self.num_heads,
                                 cross_impl, ctx_valid_len)
         h = dnn.layer_norm(x, self.eps) * (1 + scale_mlp) + shift_mlp
-        return x + gate_mlp * self.ffn(h)
+        return x + gate_mlp * self.feed_forward(h)
+
+    def feed_forward(self, h: torch.Tensor) -> torch.Tensor:
+        """`self.ffn(h)`. With bf16 linears, the GELU and the product after
+        it run as one chain recomputed in the backward, so the GELU's output
+        ([B, S, ffn_dim], 4.5 GiB at 720p video) is not kept for it."""
+        up, down = self.ffn[0], self.ffn[2]
+        if not isinstance(down, nn.Linear):       # quantized serving towers
+            return self.ffn(h)
+        return dnn.recompute_in_backward(_gelu_linear, up(h), down.weight, down.bias)
 
 
 class Head(nn.Module):

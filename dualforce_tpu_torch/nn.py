@@ -25,12 +25,27 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
-def layer_norm(x: torch.Tensor, eps: float = 1e-6,
-               weight: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics; affine if given."""
+def recompute_in_backward(fn, *args):
+    """fn(*args) for a chain of elementwise work (the norms and RoPE, which
+    widen to fp32; the FFN's GELU with the product after it). Where autograd
+    records it, its intermediates are not kept for the backward but
+    recomputed there from `args` (a nested non-reentrant
+    `torch.utils.checkpoint`): the same arithmetic, so the same values and
+    gradients, in about the memory that the JAX package's fused remat holds.
+    Every tensor `fn` reads that needs a gradient or comes from a
+    `functional_call` must be in `args`: the recompute runs outside that
+    call. At 720p training one fp32 [176,400, 5120] intermediate is 3.4 GiB,
+    and a video block kept some fifteen of them."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _layer_norm(x, eps, weight, bias):
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
@@ -40,9 +55,18 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, eps: float = 1e-6,
+               weight: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics; affine if given."""
+    return recompute_in_backward(_layer_norm, x, eps, weight, bias)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
-    """RMSNorm over the last axis: normalise in fp32, scale, cast back."""
+    """RMSNorm over the last axis: normalise in fp32, scale, cast back. The
+    attention projections run it inside their own recomputed chain
+    (`models/video_dit.Attention.qkv`)."""
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (y * weight.float()).to(x.dtype)

@@ -2,23 +2,31 @@
 plain versions and the autograd glue.
 
 Counterpart of `dualforce_tpu/ops/flash_attention.py`: the Pallas kernels
-`_fwd_kernel` in its exact and cap modes (with or without the LSE output)
-and `_bwd_fused_kernel`, behind `flash_attention` and
-`flash_attention_with_lse`. The forward kernel (`csrc/flash_fwd.cu`)
-computes, per (batch, head), softmax(Q K^T / sqrt(D) + kv mask) V,
-non-causal, D = 128, bf16 in and out with fp32 accumulation, and optionally
-the natural-log LSE [B, N, Sq] in fp32; keys at positions >= kv_valid_len[b]
-are excluded, and a query row with no valid key returns zeros (LSE -1e4 *
-ln 2), not NaN. With `softmax_cap` (the "fast" route) the static shift cap
-replaces the running max: P = exp2(S log2(e) / sqrt(D) - cap), exact while a
-row's largest score lies in (cap - 126, cap + 127) in log2 units, and a
-keyless row's LSE is cap * ln 2. The backward kernel
-(`csrc/flash_bwd.cu`) computes dq, dk and dv from q, k, v, dO, the LSE and
-delta = rowsum(dO * O) - dlse in one pass.
+`_fwd_kernel` in its exact and cap modes (with or without the LSE output),
+`_bwd_fused_kernel`, and the split pair `_bwd_dq_kernel` + `_bwd_dkv_kernel`,
+behind `flash_attention` and `flash_attention_with_lse`. The forward kernel
+(`csrc/flash_fwd.cu`) computes, per (batch, head), softmax(Q K^T / sqrt(D) +
+kv mask) V, non-causal, D = 128, bf16 in and out with fp32 accumulation, and
+optionally the natural-log LSE [B, N, Sq] in fp32; keys at positions >=
+kv_valid_len[b] are excluded, and a query row with no valid key returns
+zeros (LSE -1e4 * ln 2), not NaN. With `softmax_cap` (the "fast" route) the
+static shift cap replaces the running max: P = exp2(S log2(e) / sqrt(D) -
+cap), exact while a row's largest score lies in (cap - 126, cap + 127) in
+log2 units, and a keyless row's LSE is cap * ln 2.
+
+The backward (`csrc/flash_bwd.cu`) computes dq, dk and dv from q, k, v, dO,
+the LSE and delta = rowsum(dO * O) - dlse, in one of two ways that compute
+the same function: the fused kernel (one pass; dq summed over key tiles by
+fp32 atomics into a [B, N, Sq, D] workspace) or the split pair (a dk/dv pass
+and a dq pass that sums over key tiles in registers: no workspace, a
+deterministic dq). So one plain version, `flash_attention_bwd_plain`, serves
+both. `flash_attention_bwd` routes by shape as the JAX package's `_bwd` does
+under its default mode (`bwd_takes_split`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; for CPU tensors it runs the plain PyTorch version of
-the same function. There is no fallback from one to the other.
+the same function. There is no fallback from one to the other, and the split
+route never gives way to the fused kernel.
 
 `flash_attention` and `flash_attention_with_lse` are differentiable through
 `torch.autograd.Function`s (the counterparts of the JAX package's
@@ -27,8 +35,10 @@ grad, the forward runs with the LSE output and saves q, k, v, o and the LSE,
 and the backward runs `flash_attention_bwd`. Without grad (serving, under
 `torch.no_grad()`) `flash_attention` runs the forward without the LSE.
 `flash_attention.launches` counts forward kernel launches in exact mode,
-`flash_attention.cap_launches` those in cap mode, and
-`flash_attention_bwd.launches` backward ones.
+`flash_attention.cap_launches` those in cap mode,
+`flash_attention_bwd.launches` fused backwards and
+`flash_attention_bwd.split_launches` split ones (each launches both of the
+pair's kernels once).
 """
 
 from __future__ import annotations
@@ -57,6 +67,8 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                  + [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p])
 _FINISH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                     + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p])
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_void_p])
 
 _KERNELS = {}
 
@@ -245,7 +257,9 @@ def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool, softmax_cap):
     return out, lse
 
 
-def _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse):
+def _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse, split: bool):
+    """The fused backward kernel, or with `split` the split pair: the dk/dv
+    pass (the fused kernel without its dQ product) and the dq pass."""
     shapes = (q.shape, k.shape, v.shape, do.shape)
     strides = (q.stride(), k.stride(), v.stride(), do.stride())
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
@@ -264,20 +278,34 @@ def _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse):
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = _delta(o, do, dlse)
-    dq_acc = torch.zeros((b, n, sq, d), dtype=torch.float32, device=q.device)
+    dq_acc = None if split else torch.zeros((b, n, sq, d), dtype=torch.float32,
+                                            device=q.device)
     lens = _lens(kv_valid_len)
+    lens_ptr = None if lens is None else lens.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = d ** -0.5
+    row = (sq * n * d, n * d, d)              # strides of the contiguous dq
+    krow = (sk * n * d, n * d, d)             # ... and of dk, dv
+    if split:
+        err = _kernel("flash_bwd", "dft_flash_bwd_dq_bf16", _DQ_ARGTYPES)(
+            *ptrs, lse.data_ptr(), delta.data_ptr(), lens_ptr, dq.data_ptr(), b, n, sq, sk,
+            *strides[0][:3], *strides[1][:3], *strides[2][:3], *strides[3][:3], *row,
+            scale, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd dq pass launch failed: CUDA error {err}")
     err = _kernel("flash_bwd", "dft_flash_bwd_bf16", _BWD_ARGTYPES)(
-        *ptrs, lse.data_ptr(), delta.data_ptr(),
-        None if lens is None else lens.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, n, sq, sk,
-        *strides[0][:3], *strides[1][:3], *strides[2][:3], *strides[3][:3],
-        sk * n * d, n * d, d, sk * n * d, n * d, d, scale, stream)
+        *ptrs, lse.data_ptr(), delta.data_ptr(), lens_ptr,
+        None if dq_acc is None else dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, n, sq, sk, *strides[0][:3], *strides[1][:3], *strides[2][:3], *strides[3][:3],
+        *krow, *krow, scale, stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd {'dk/dv pass' if split else 'kernel'} launch "
+                           f"failed: CUDA error {err}")
+    if split:
+        flash_attention_bwd.split_launches += 1
+        return dq, dk, dv
     err = _kernel("flash_bwd", "dft_flash_bwd_dq_finish", _FINISH_ARGTYPES)(
-        dq_acc.data_ptr(), dq.data_ptr(), b, n, sq, sq * n * d, n * d, d, scale, stream)
+        dq_acc.data_ptr(), dq.data_ptr(), b, n, sq, *row, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd dq finish launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
@@ -296,24 +324,71 @@ def _forward(q, k, v, kv_valid_len, with_lse: bool, softmax_cap=None):
     return flash_attention_plain(q, k, v, kv_valid_len, softmax_cap=softmax_cap), None
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        kv_valid_len: Optional[torch.Tensor] = None,
-                        dlse: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of flash attention from its saved LSE: the backward
-    kernel for CUDA tensors (bf16, D = 128; dq in bf16 after an fp32
-    accumulation whose summation order varies from run to run), the plain
-    version for CPU tensors. `flash_attention_bwd.launches` counts kernel
-    launches."""
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bwd_takes_split(sq: int, d: int = HEAD_DIM) -> bool:
+    """True where the JAX package's `_bwd` routes to `_bwd_split` under its
+    default "auto" mode: where the fused kernel's whole-row dq scratch,
+    ceil(Sq, bq) * D * 4 bytes with bq = min(1024, 512, ceil(Sq, 128)),
+    would pass 48 MiB, i.e. from 98,305 query rows at D = 128 (720p video
+    self-attention, 176,400 tokens). The three numbers are the reference's
+    routing (its DEFAULT_BQ, _BWD_BQ_CAP and _FUSED_DQ_SCRATCH_CAP), kept so
+    that the same shapes reach the same kernel in both packages; they are
+    not this card's tile sizes."""
+    bq = min(1024, 512, _ceil_to(max(sq, 1), 128))
+    return _ceil_to(sq, bq) * d * 4 > 48 * 2**20
+
+
+def _backward(split: bool, q, k, v, o, lse, do, kv_valid_len, dlse):
+    """(dq, dk, dv) from the kernels (CUDA) or the plain version (CPU)."""
     if q.is_cuda:
-        return _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse)
+        return _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse, split)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     return flash_attention_bwd_plain(q, k, v, o, lse, do, kv_valid_len, dlse)
 
 
+def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              kv_valid_len: Optional[torch.Tensor] = None,
+                              dlse: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the saved LSE through the fused backward kernel for
+    CUDA tensors (bf16, D = 128; dq in bf16 after an fp32 accumulation whose
+    summation order varies from run to run), the plain version for CPU
+    tensors. `flash_attention_bwd.launches` counts its launches."""
+    return _backward(False, q, k, v, o, lse, do, kv_valid_len, dlse)
+
+
+def flash_attention_bwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              kv_valid_len: Optional[torch.Tensor] = None,
+                              dlse: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the saved LSE through the split pair for CUDA
+    tensors (bf16, D = 128; deterministic, dk and dv bit-equal to the fused
+    kernel's), the plain version for CPU tensors.
+    `flash_attention_bwd.split_launches` counts its launches."""
+    return _backward(True, q, k, v, o, lse, do, kv_valid_len, dlse)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        kv_valid_len: Optional[torch.Tensor] = None,
+                        dlse: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash attention from its saved LSE, routed by Sq as
+    the JAX package's `_bwd` routes: `flash_attention_bwd_split` where
+    `bwd_takes_split`, `flash_attention_bwd_fused` elsewhere."""
+    if bwd_takes_split(q.shape[1], q.shape[3]):
+        return flash_attention_bwd_split(q, k, v, o, lse, do, kv_valid_len, dlse)
+    return flash_attention_bwd_fused(q, k, v, o, lse, do, kv_valid_len, dlse)
+
+
 flash_attention_bwd.launches = 0
+flash_attention_bwd.split_launches = 0
 
 
 # --- autograd ---------------------------------------------------------------

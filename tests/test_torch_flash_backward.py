@@ -2,14 +2,21 @@
 
 On the CPU the port's wrappers run the kernels' plain versions, and the
 backward is the port's own (`flash_attention_bwd` from the saved LSE, the
-formula of the CUDA kernel), never autograd through the plain forward. They
+formula of the CUDA kernels), never autograd through the plain forward. They
 are held against the JAX package's Pallas kernels run in interpret mode, as
 `tests/test_flash_attention.py` runs them: the forward with `save_lse`
-(`flash_attention_with_lse`) and `jax.grad` through `flash_attention`, which
-runs `_bwd_fused`. Everything in fp32; tolerance 2e-5 on outputs and LSE
-and 1e-4 on gradients (fp32 round-off over a few hundred keys). Shapes stay
-small (N 2, S <= 384, D 128): the Pallas backward is slow in interpret mode.
+(`flash_attention_with_lse`) and `jax.grad` through `flash_attention`, whose
+backward runs `_bwd_fused` or, with its `_BWD_MODE` set to "split",
+`_bwd_split`; the port's side then takes `flash_attention_bwd_fused` or
+`flash_attention_bwd_split` (one plain version serves both on the CPU).
+Everything in fp32; tolerance 2e-5 on outputs and LSE and 1e-4 on gradients
+(fp32 round-off over a few hundred keys). Shapes stay small (N 2, S <= 384,
+D 128): the Pallas backward is slow in interpret mode. The routing between
+the two backwards is held against JAX's `_bwd` at the sequence lengths of
+the 360p and 720p paths, abstractly (`jax.eval_shape`).
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +28,8 @@ from dualforce_tpu.ops.flash_attention import flash_attention as jax_flash
 from dualforce_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash_lse
 
 from dualforce_tpu_torch.ops import flash_attention as fa
+
+jax_fa = importlib.import_module("dualforce_tpu.ops.flash_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -61,19 +70,40 @@ def test_forward_lse_matches_pallas(sq, sk, lens):
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), **TOL)
 
 
+def _route_both(monkeypatch, mode):
+    """Force JAX's backward to `mode` ("fused" or "split") and the port's
+    routing to the same; returns the routes taken, ("jax", route) and
+    ("port", route) in call order."""
+    monkeypatch.setattr(jax_fa, "_BWD_MODE", mode)
+    monkeypatch.setattr(fa, "bwd_takes_split", lambda sq, d=128: mode == "split")
+    taken = []
+    for route in ("fused", "split"):
+        jax_bwd = getattr(jax_fa, f"_bwd_{route}")
+        monkeypatch.setattr(jax_fa, f"_bwd_{route}", lambda *a, _r=route, _f=jax_bwd, **kw:
+                            taken.append(("jax", _r)) or _f(*a, **kw))
+        wrapper = getattr(fa, f"flash_attention_bwd_{route}")
+        monkeypatch.setattr(fa, f"flash_attention_bwd_{route}",
+                            lambda *a, _r=route, _w=wrapper: taken.append(("port", _r))
+                            or _w(*a))
+    return taken
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
 @pytest.mark.parametrize("sq,sk,lens", [(300, 200, None), (257, 130, (130, 37))],
                          ids=["nomask", "mask"])
-def test_flash_grads_match_pallas_backward(sq, sk, lens, monkeypatch):
+def test_flash_grads_match_pallas_backward(sq, sk, lens, mode, monkeypatch):
     """dq, dk, dv of `flash_attention` against `jax.grad` of the JAX
-    package's `flash_attention` (its fused Pallas backward), and the port's
-    gradient comes from its own backward (`flash_attention_bwd_plain` on the
-    CPU, called once), not from autograd through the plain forward."""
+    package's `flash_attention` (its fused or its split Pallas backward), and
+    the port's gradient comes from its own backward of the same route
+    (`flash_attention_bwd_plain` on the CPU, called once), not from autograd
+    through the plain forward."""
     q, k, v, do, _ = _inputs(1, 2, sq, sk)
     jl = None if lens is None else jnp.asarray(lens, jnp.int32)
 
     def jloss(q, k, v):
         return jnp.sum(jax_flash(q, k, v, kv_valid_len=jl, **BLOCKS) * do)
 
+    taken = _route_both(monkeypatch, mode)
     want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
     calls = []
     plain_bwd = fa.flash_attention_bwd_plain
@@ -83,15 +113,17 @@ def test_flash_grads_match_pallas_backward(sq, sk, lens, monkeypatch):
     tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
     out = fa.flash_attention(tq, tk, tv, tl)
     out.backward(torch.from_numpy(do))
-    assert calls == [1]
+    assert calls == [1] and taken == [("jax", mode), ("port", mode)]
     for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=f"d{name}",
                                    **GRAD_TOL)
 
 
-def test_lse_cotangent_matches_pallas_backward():
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_lse_cotangent_matches_pallas_backward(mode, monkeypatch):
     """Gradients through both outputs of `flash_attention_with_lse`: the LSE
-    cotangent folds into delta, as `_bwd_prepare` folds it."""
+    cotangent folds into delta, as `_bwd_prepare` folds it for both of JAX's
+    backwards."""
     q, k, v, do, dlse = _inputs(2, 1, 300, 260)
     lens = np.array([201], np.int32)
 
@@ -99,13 +131,35 @@ def test_lse_cotangent_matches_pallas_backward():
         o, lse = jax_flash_lse(q, k, v, kv_valid_len=jnp.asarray(lens), **BLOCKS)
         return jnp.sum(o * do) + jnp.sum(lse * dlse)
 
+    taken = _route_both(monkeypatch, mode)
     want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
     tq, tk, tv = _grad_leaves(q, k, v)
     o, lse = fa.flash_attention_with_lse(tq, tk, tv, torch.from_numpy(lens))
     torch.autograd.backward((o, lse), (torch.from_numpy(do), torch.from_numpy(dlse)))
+    assert taken == [("jax", mode), ("port", mode)]
     for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=f"d{name}",
                                    **GRAD_TOL)
+
+
+@pytest.mark.parametrize("sq", [403, 11440, 43120, 98304, 98305, 100800, 111600, 176400])
+def test_bwd_routing_matches_jax(sq, monkeypatch):
+    """The port routes a backward to the split kernels exactly where JAX's
+    `_bwd` (default "auto" mode, default block_q) routes to `_bwd_split`:
+    from 98,305 query rows at D = 128. JAX's side is traced abstractly, with
+    `_bwd_fused` and `_bwd_split` replaced by recorders."""
+    monkeypatch.setattr(jax_fa, "_BWD_MODE", "auto")
+    taken = []
+    for route in ("fused", "split"):
+        monkeypatch.setattr(jax_fa, f"_bwd_{route}",
+                            lambda q, *a, _r=route, **kw: taken.append(_r) or (q, q, q))
+    x = jax.ShapeDtypeStruct((1, sq, 128), jnp.bfloat16)
+    lse = jax.ShapeDtypeStruct((1, sq), jnp.float32)
+    jax.eval_shape(lambda q, lse: jax_fa._bwd(q, q, q, q, lse, q, None, jax_fa.DEFAULT_BQ,
+                                               jax_fa.DEFAULT_BK), x, lse)
+    want = "split" if sq >= 98305 else "fused"
+    assert taken == [want]
+    assert fa.bwd_takes_split(sq) == (want == "split")
 
 
 def test_plain_backward_zeros_for_masked_keys_and_empty_rows():

@@ -1,5 +1,5 @@
-"""The CUDA flash-attention kernels (forward, its LSE output, backward)
-against their plain versions, on the card.
+"""The CUDA flash-attention kernels (forward, its LSE output, the fused and
+the split backward) against their plain versions, on the card.
 
 Skips where there is no CUDA device. It imports no JAX, so on a machine
 with the card it runs without the repository's JAX test configuration:
@@ -153,3 +153,100 @@ def test_autograd_goes_through_the_kernels(cuda):
         assert x.grad is not None and torch.count_nonzero(x.grad) > 0
     with torch.no_grad():
         assert flash_attention(q, k, v).grad_fn is None
+
+
+# --- the split backward (dq pass + dk/dv pass) ------------------------------
+# The same tolerance as the fused kernel's against the fp32 plain backward
+# (2e-2 relative L2). The dk/dv pass is the fused kernel without its dQ
+# product, so dk and dv must be bit-equal to the fused kernel's; the dq pass
+# sums over key tiles in registers, so two runs must be bit-equal, and its dq
+# differs from the fused kernel's (fp32 atomics, another summation order)
+# only by rounding: within 2e-2.
+
+def _split_and_fused(q, k, v, do, dlse, tl):
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_attention_with_lse(q, k, v, tl)
+    before = (fa.flash_attention_bwd.launches, fa.flash_attention_bwd.split_launches)
+    split = fa.flash_attention_bwd_split(q, k, v, o, lse, do, tl, dlse)
+    again = fa.flash_attention_bwd_split(q, k, v, o, lse, do, tl, dlse)
+    fused = fa.flash_attention_bwd_fused(q, k, v, o, lse, do, tl, dlse)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_bwd.launches, fa.flash_attention_bwd.split_launches)
+    assert after == (before[0] + 1, before[1] + 2)
+    return o, lse, split, again, fused
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens,with_dlse", [
+    (1, 2, 300, 200, None, False),
+    (1, 2, 257, 403, None, True),
+    (2, 3, 130, 520, (520, 0), True),
+    (3, 2, 1000, 512, (512, 77, 0), False),
+    (3, 2, 1000, 512, (512, 77, 0), True),
+])
+def test_split_bwd_matches_plain_and_fused(cuda, b, n, sq, sk, lens, with_dlse):
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+
+    q, k, v, do, dlse, tl = _bwd_inputs(cuda, b, n, sq, sk, lens, 5)
+    dlse = dlse if with_dlse else None
+    o, lse, split, again, fused = _split_and_fused(q, k, v, do, dlse, tl)
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), tl, dlse)
+    for name, x, w in zip(("dq", "dk", "dv"), split, want):
+        assert x.dtype == torch.bfloat16 and x.shape == w.shape
+        assert _rel(x, w) <= 2e-2, name
+    for x, y in zip(split, again):
+        assert torch.equal(x, y)                       # deterministic
+    assert torch.equal(split[1], fused[1]) and torch.equal(split[2], fused[2])
+    assert _rel(split[0], fused[0].float()) <= 2e-2
+    if lens is not None:
+        dq, dk, dv = split
+        for i, length in enumerate(lens):
+            if length == 0:
+                assert torch.count_nonzero(dq[i]) == 0
+            assert torch.count_nonzero(dk[i, length:]) == 0
+            assert torch.count_nonzero(dv[i, length:]) == 0
+
+
+@pytest.mark.parametrize("sq,route", [(98304, "fused"), (98305, "split")])
+def test_bwd_routes_at_the_boundary(cuda, sq, route):
+    """Sq 98,304 is the last length whose dq scratch fits the JAX package's
+    48 MiB cap: the fused kernel; one row more takes the split kernels."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, _, _ = _bwd_inputs(cuda, 1, 1, sq, 512, None, 6)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    before = (fa.flash_attention_bwd.launches, fa.flash_attention_bwd.split_launches)
+    fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    launched = (fa.flash_attention_bwd.launches - before[0],
+                fa.flash_attention_bwd.split_launches - before[1])
+    assert launched == ((1, 0) if route == "fused" else (0, 1))
+
+
+@pytest.mark.parametrize("sq,sk", [(450_000, 512), (403, 450_000)], ids=["long_q", "long_k"])
+def test_kernels_past_2_31_elements(cuda, sq, sk):
+    """One tensor of more than 2^31 elements (40 heads, 450,000 rows): the
+    forward with its LSE, the fused and the split backward, each held on two
+    heads against its plain version, so that an offset formed in 32 bits
+    shows."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    n = 40
+    q, k, v, do, dlse, _ = _bwd_inputs(cuda, 1, n, sq, sk, None, 7)
+    assert max(x.numel() for x in (q, k)) > 2**31
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    heads = [0, n - 1]
+    sub = [x[:, :, heads].float() for x in (q, k, v, do)]
+    want_o, want_lse = fa.flash_attention_plain(*sub[:3], return_lse=True)
+    assert _rel(o[:, :, heads], want_o) <= 1e-2
+    assert float((lse[:, heads] - want_lse).abs().max()) <= 1e-3
+    del want_o, want_lse
+    want = fa.flash_attention_bwd_plain(*sub[:3], o[:, :, heads].float(), lse[:, heads],
+                                        sub[3], None, dlse[:, heads])
+    for route in (fa.flash_attention_bwd_fused, fa.flash_attention_bwd_split):
+        got = route(q, k, v, o, lse, do, None, dlse)
+        torch.cuda.synchronize()
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel(x[:, :, heads], w) <= 2e-2, (route.__name__, name)
+        del got

@@ -272,7 +272,8 @@ def test_trainer_loop_save_and_resume(tiny, tmp_path):
     records = []
     assert full.train(iter(batches), on_micro_step=records.append) == 4
     assert [r["expert"] for r in records] == [0, 1, 0, 1]
-    assert all(r["flash_fwd"] == r["flash_bwd"] == 0 for r in records)   # attn_impl="ref"
+    assert all(r["flash_fwd"] == r["flash_bwd"] == r["flash_bwd_split"] == 0
+               for r in records)   # attn_impl="ref"
     assert all(r["encode_s"] > 0 and r["loss_backward_s"] > 0 and r["optimizer_s"] > 0
                and np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in records)
     lines = (tmp_path / "full" / "metrics.jsonl").read_text().splitlines()
