@@ -113,6 +113,7 @@ import time
 # H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12   # fp32 outside the tensor cores
 # above the H100's highest SM clock (1.98 GHz), so a spin of this many cycles
 # per second of wanted delay lasts at least that long
 SPIN_CYCLES_PER_S = 2.0e9
@@ -144,6 +145,7 @@ STEP_REL_TOL = 2e-2
 LSE_ABS_TOL = 1e-3
 GRAD_REL_TOL = 2e-2
 LORA_GRAD_REL_TOL = 5e-2
+PREP_REL_TOL = 1e-5     # the delta preprocess against `_delta`: fp32 sums in another order
 # per request: (2 shared layers x 6 attentions + 1 tail layer x 2) x 2 CFG passes x 4 steps
 LAUNCHES_PER_REQUEST = (2 * 6 + 1 * 2) * 2 * 4
 # per training micro-step: the 3 video-side attentions of each of 2 shared layers (video
@@ -259,6 +261,50 @@ def attention_bwd_bound_ms(b: int, n: int, sq: int, sk_valid: int, sk: int):
     return _bound(10 * b * n * sq * sk_valid * HEAD_DIM, nbytes)
 
 
+def split_pass_bounds_ms(b: int, n: int, sq: int, sk_valid: int, sk: int):
+    """Least times on an H100 SXM of the split pair's two passes, each
+    counting the products it does itself: the dq pass S, dP and dQ
+    (6*Sq*Sk*D flops; q, dO, k, v read, dq written), the dk/dv pass S, dP,
+    dV and dK (8*Sq*Sk*D flops; q, dO, k, v read, dk, dv written); both read
+    lse and delta (fp32)."""
+    stats = 2 * 4 * b * n * sq
+    dq = _bound(6 * b * n * sq * sk_valid * HEAD_DIM,
+                2 * b * n * HEAD_DIM * (3 * sq + 2 * sk) + stats)
+    dkv = _bound(8 * b * n * sq * sk_valid * HEAD_DIM,
+                 2 * b * n * HEAD_DIM * (2 * sq + 4 * sk) + stats)
+    return dq, dkv
+
+
+def preprocess_bound_ms(b: int, n: int, sq: int):
+    """Least time on an H100 SXM of the backward's preprocess: bf16 O and dO
+    and the fp32 LSE read, delta and lse * log2(e) written as fp32 rows
+    padded to 128, against 2*Sq*D fp32 flops at the CUDA cores' 67 TFLOP/s."""
+    sq_pad = -(-sq // 128) * 128
+    nbytes = 2 * 2 * b * n * sq * HEAD_DIM + 4 * b * n * sq + 2 * 4 * b * n * sq_pad
+    t_ops, t_bytes = 2 * b * n * sq * HEAD_DIM / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_preprocess(fa, o, do, lse, dlse=None):
+    """The preprocess kernel against `_delta` (relative L2 <= 1e-5) and its
+    padded rows (delta 0, lse +inf); returns the relative and the largest
+    absolute error of delta."""
+    import torch
+
+    sq = o.shape[1]
+    delta, lse2 = fa.flash_bwd_preprocess(o, do, lse, dlse)
+    torch.cuda.synchronize()
+    want = fa._delta(o, do, dlse)
+    err = rel_err(delta[..., :sq], want)
+    mae = float((delta[..., :sq] - want).abs().max())
+    lse_err = float((lse2[..., :sq] - lse * fa.LOG2E).abs().max())
+    pad_ok = bool((delta[..., sq:] == 0).all() and torch.isposinf(lse2[..., sq:]).all())
+    if not (err <= PREP_REL_TOL and lse_err <= 1e-6 * float(lse.abs().max()) and pad_ok):
+        raise AssertionError(f"preprocess: delta rel err {err}, lse abs err {lse_err}, "
+                             f"padded rows as due {pad_ok}")
+    return err, mae
+
+
 def phase_device():
     import torch
 
@@ -276,8 +322,42 @@ def phase_device():
     return smi
 
 
+# SASS opcodes counted in phase 2: warpgroup products, TMA tile loads, bulk copies, bulk
+# reductions, and global atomics (ATOMG, RED; a bulk reduction is UBLKRED)
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "UBLKRED", "ATOMG", "RED")
+# each backward kernel (mangled-name fragment) and the opcodes it must issue
+BWD_SASS_WANT = {"flash_bwd_dkv_kernelILb1E": ("HGMMA", "UTMALDG", "UBLKRED"),
+                 "flash_bwd_dkv_kernelILb0E": ("HGMMA", "UTMALDG"),
+                 "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")}
+
+
+def sass_counts(lib: str, nvcc: str):
+    """{kernel name: {opcode: count}} from `cuobjdump -sass` of a built library."""
+    import re
+    from pathlib import Path
+
+    tool = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if func and m:
+            op = m.group(1)
+            if op in counts[func]:
+                counts[func][op] += 1
+    return counts
+
+
 def phase_build():
-    """Every kernel source, one nvcc each, all started together."""
+    """Every kernel source, one nvcc each, all started together; the backward's
+    SASS must show wgmma (HGMMA) and TMA loads (UTMALDG) in all three of its
+    kernels, the fused kernel's bulk reduction of dQ, and no global atomics."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dualforce_tpu_torch.ops import _build
@@ -290,8 +370,22 @@ def phase_build():
     for name, built in builds.items():
         log(f"[build] {name}: {built.path.name} nvcc {built.seconds:.2f} s")
         for line in built.log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if ("Compiling entry" in line or "registers" in line or "spill" in line
+                    or "Performance Loss" in line):
                 log(f"[build]   {line.strip()}")
+    counts = sass_counts(str(builds["flash_bwd"].path), _build.nvcc())
+    for func, ops in counts.items():
+        log(f"[build] sass flash_bwd {func}: " + " ".join(f"{op}={n}" for op, n in ops.items()))
+    for frag, want in BWD_SASS_WANT.items():
+        found = [ops for func, ops in counts.items() if frag in func]
+        if len(found) != 1 or any(found[0][op] == 0 for op in want):
+            raise AssertionError(f"flash_bwd {frag}: SASS lacks one of {want}: {found}")
+    atomics = {func: ops["ATOMG"] + ops["RED"] for func, ops in counts.items()
+               if ops["ATOMG"] + ops["RED"]}
+    if atomics:
+        raise AssertionError(f"flash_bwd issues global atomics: {atomics}")
+    log("[build] flash_bwd: HGMMA and UTMALDG in the fused kernel, the dk/dv pass and the dq "
+        "pass; the fused kernel's dQ by UBLKRED; no global atomics")
 
 
 def phase_kernels():
@@ -535,6 +629,7 @@ def phase_backward_kernels():
     import torch
     import torch.nn.functional as F
 
+    from dualforce_tpu_torch.ops import flash_attention as fa
     from dualforce_tpu_torch.ops.flash_attention import (flash_attention,
                                                          flash_attention_bwd,
                                                          flash_attention_bwd_plain,
@@ -542,7 +637,7 @@ def phase_backward_kernels():
                                                          flash_attention_with_lse)
 
     g = torch.Generator("cuda").manual_seed(1)
-    rows, max_abs = [], {"fwd": 0.0, "bwd": 0.0}
+    rows, max_abs = [], {"fwd": 0.0, "bwd": 0.0, "prep": 0.0}
     for name, n, sq, sk in TRAIN_PATH_SHAPES:
         q, k, v, do = (_rand(g, 1, s, n, HEAD_DIM) for s in (sq, sk, sk, sq))
         o, lse = flash_attention_with_lse(q, k, v)
@@ -583,10 +678,25 @@ def phase_backward_kernels():
                                 reps=7, warmup=2)
         fwd_bound, fwd_by = attention_bound_ms(1, n, sq, sk, sk, lse=True)
         bwd_bound, bwd_by = attention_bwd_bound_ms(1, n, sq, sk, sk)
+        # the delta preprocess against `_delta`, and the split pair's passes one by one
+        prep_err, prep_mae = check_preprocess(fa, o, do, lse)
+        max_abs["prep"] = max(max_abs["prep"], prep_mae)
+        prep_ms, _ = time_ms(lambda: fa.flash_bwd_preprocess(o, do, lse), reps=7, warmup=2)
+        prep_plain_ms, _ = time_ms(lambda: fa._delta(o, do, None), reps=3, warmup=1)
+        prep_bound, prep_by = preprocess_bound_ms(1, n, sq)
+        passes = fa._Bwd(q, k, v, o, lse, do, None, None, split=True)
+        dq_pass_ms, _ = time_ms(passes.dq_pass, reps=7, warmup=2)
+        dkv_pass_ms, _ = time_ms(passes.dkv_pass, reps=7, warmup=2)
+        del passes
+        (dq_bound, _), (dkv_bound, _) = split_pass_bounds_ms(1, n, sq, sk, sk)
         row = dict(shape=name, heads=n, sq=sq, sk=sk, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
                    fwd_library_ms=lib_fwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
                    bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_library_ms=lib_bwd_ms,
-                   bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, max_abs_err=mae)
+                   bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, max_abs_err=mae,
+                   prep_ms=prep_ms, prep_plain_ms=prep_plain_ms, prep_bound_ms=prep_bound,
+                   prep_bound_by=prep_by, prep_rel_err=prep_err, split_dq_pass_ms=dq_pass_ms,
+                   split_dq_pass_bound_ms=dq_bound, split_dkv_pass_ms=dkv_pass_ms,
+                   split_dkv_pass_bound_ms=dkv_bound)
         rows.append(row)
         log(f"[kernel] flash_fwd+lse {name} N={n} Sq={sq} Sk={sk}: kernel_ms={fwd_ms:.4f} "
             f"bound_ms={fwd_bound:.4f} ({fwd_by}) library_ms={lib_fwd_ms:.4f} "
@@ -597,6 +707,12 @@ def phase_backward_kernels():
             f"(sdpa backward) plain_ms={bwd_plain_ms:.4f} (not a yardstick) "
             + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
             + f" max_abs_err={mae:.3e} host_us={bwd_host_us:.1f}")
+        log(f"[kernel] flash_bwd_preprocess {name} N={n} Sq={sq}: kernel_ms={prep_ms:.4f} "
+            f"bound_ms={prep_bound:.4f} ({prep_by}) plain_ms={prep_plain_ms:.4f} (`_delta`, not "
+            f"a yardstick) delta_rel_err={prep_err:.3e}")
+        log(f"[kernel] flash_bwd split passes {name} N={n} Sq={sq} Sk={sk}: dq_pass_ms="
+            f"{dq_pass_ms:.4f} (bound {dq_bound:.4f}, 6 units) dkv_pass_ms={dkv_pass_ms:.4f} "
+            f"(bound {dkv_bound:.4f}, 8 units); not this path's route, timed for the split pair")
         del q, k, v, do, o, lse, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
 
@@ -620,9 +736,12 @@ def phase_backward_kernels():
     if not all(e <= GRAD_REL_TOL for e in errs.values()) or nonzero:
         raise AssertionError(f"masked backward: rel errs {errs}, {nonzero} nonzero where "
                              f"exact zeros are due")
+    prep_err, prep_mae = check_preprocess(fa, o, do, lse, dlse)
+    max_abs["prep"] = max(max_abs["prep"], prep_mae)
     log(f"[kernel] flash_bwd masked B={b} N={n} Sq={sq} Sk={sk} kv_len={lens} with dlse: "
         + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
-        + f" max_abs_err={mae:.3e}; length-0 dq and masked dk/dv exactly 0")
+        + f" max_abs_err={mae:.3e}; length-0 dq and masked dk/dv exactly 0; preprocess "
+        f"delta_rel_err={prep_err:.3e}")
 
     # autograd: a backward through `flash_attention` reaches q, k and v through the kernels
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
@@ -733,7 +852,8 @@ def phase_train_path(cfg, modules, root: str):
 
     from dualforce_tpu_torch.engine import lora as lora_mod
     from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
-    from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                         flash_bwd_preprocess)
 
     save_dir = os.path.join(root, "build", "chip_smoke_train")
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -750,12 +870,13 @@ def phase_train_path(cfg, modules, root: str):
     torch.cuda.reset_peak_memory_stats()
     # the train path's counts
     flash_attention.launches = flash_attention_bwd.launches = 0
-    flash_attention_bwd.split_launches = 0
+    flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
     t0 = time.perf_counter()
     final = trainer.train(_synthetic_clips(TRAIN_STEPS), on_micro_step=steps.append)
     wall = time.perf_counter() - t0
     launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
-                "split": flash_attention_bwd.split_launches}
+                "split": flash_attention_bwd.split_launches,
+                "prep": flash_bwd_preprocess.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, st in enumerate(steps):
         log(f"[train] step {i + 1}: expert {st['expert']} timestep {st['timestep']:.1f} "
@@ -766,7 +887,9 @@ def phase_train_path(cfg, modules, root: str):
             f"bwd {st['flash_bwd']}")
     log(f"[train] {final} steps in {wall:.2f} s (saves included); max_memory_allocated "
         f"{peak:.2f} GiB; flash launches over the phase fwd {launches['fwd']} "
-        f"bwd {launches['bwd']}")
+        f"bwd {launches['bwd']} preprocess {launches['prep']}")
+    if launches["prep"] != launches["bwd"] + launches["split"]:
+        raise AssertionError(f"preprocess launches {launches['prep']}, one per backward due")
 
     if final != TRAIN_STEPS or [st["expert"] for st in steps] != [0, 1, 0, 1]:
         raise AssertionError(f"{final} steps, experts {[st['expert'] for st in steps]}")
@@ -1097,7 +1220,7 @@ def phase_720p_backward_kernels():
     from dualforce_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator("cuda").manual_seed(11)
-    rows, max_abs = [], {"fwd": 0.0, "fused": 0.0, "split": 0.0}
+    rows, max_abs = [], {"fwd": 0.0, "fused": 0.0, "split": 0.0, "prep": 0.0}
     for name, n, sq, sk in TRAIN_720P_SHAPES:
         split = fa.bwd_takes_split(sq)
         route = "split" if split else "fused"
@@ -1170,7 +1293,30 @@ def phase_720p_backward_kernels():
                                                           for gn, e in gap.items())
                           + f", dk/dv bit-equal {equal_kv})")
         del grads
+        timer = ((lambda fn: time_long_ms(fn, warmup=1)) if long else
+                 (lambda fn: time_ms(fn, reps=7, warmup=2)[0]))
+        pass_note, dq_pass_ms, dkv_pass_ms, dq_bound, dkv_bound = "", None, None, None, None
+        if split:    # the split pair's passes one by one, each beside its own bound
+            passes = fa._Bwd(q, k, v, o, lse, do, None, None, split=True)
+            dq_pass_ms, dkv_pass_ms = timer(passes.dq_pass), timer(passes.dkv_pass)
+            del passes
+            (dq_bound, _), (dkv_bound, _) = split_pass_bounds_ms(1, n, sq, sk, sk)
+            pass_note = (f" dq_pass_ms={dq_pass_ms:.4f} (bound {dq_bound:.4f}, 6 units) "
+                         f"dkv_pass_ms={dkv_pass_ms:.4f} (bound {dkv_bound:.4f}, 8 units)")
+        prep_note, prep = "", None
+        if name == "video_self":   # the delta preprocess at the path's largest query length
+            prep_err, prep_mae = check_preprocess(fa, o, do, lse)
+            prep_ms = timer(lambda: fa.flash_bwd_preprocess(o, do, lse))
+            prep_plain_ms = timer(lambda: fa._delta(o, do, None))
+            prep_bound, prep_by = preprocess_bound_ms(1, n, sq)
+            max_abs["prep"] = max(max_abs["prep"], prep_mae)
+            prep = dict(ms=prep_ms, plain_ms=prep_plain_ms, bound_ms=prep_bound,
+                        bound_by=prep_by)
+            prep_note = (f" preprocess_ms={prep_ms:.4f} (bound {prep_bound:.4f}, {prep_by}; "
+                         f"`_delta` {prep_plain_ms:.4f}, not a yardstick; "
+                         f"delta_rel_err={prep_err:.3e})")
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_fwd_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
 
@@ -1183,17 +1329,22 @@ def phase_720p_backward_kernels():
         bwd_bound, bwd_by = attention_bwd_bound_ms(1, n, sq, sk, sk)
         rows.append(dict(shape=name, heads=n, sq=sq, sk=sk, route=route, fwd_ms=fwd_ms,
                          fwd_plain_ms_2_heads=plain_fwd_ms, fwd_bound_ms=fwd_bound,
-                         bwd_ms=bwd_ms, bwd_plain_ms_2_heads=plain_bwd_ms,
-                         bwd_library_ms=lib_bwd_ms, bwd_bound_ms=bwd_bound,
-                         bwd_bound_by=bwd_by, fused_ms=fused_ms, max_abs_err=mae))
+                         fwd_library_ms=lib_fwd_ms, bwd_ms=bwd_ms,
+                         bwd_plain_ms_2_heads=plain_bwd_ms, bwd_library_ms=lib_bwd_ms,
+                         bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, fused_ms=fused_ms,
+                         split_dq_pass_ms=dq_pass_ms, split_dq_pass_bound_ms=dq_bound,
+                         split_dkv_pass_ms=dkv_pass_ms, split_dkv_pass_bound_ms=dkv_bound,
+                         preprocess=prep, max_abs_err=mae))
         log(f"[720p] flash_fwd+lse {name} N={n} Sq={sq} Sk={sk}: kernel_ms={fwd_ms:.4f} "
-            f"bound_ms={fwd_bound:.4f} ({fwd_by}) plain_ms={plain_fwd_ms:.4f} (2 heads, not a "
-            f"yardstick) lse_abs_err={lse_err:.3e} o_rel_err={o_err:.3e}")
+            f"bound_ms={fwd_bound:.4f} ({fwd_by}) library_ms={lib_fwd_ms:.4f} (sdpa forward) "
+            f"plain_ms={plain_fwd_ms:.4f} (2 heads, not a yardstick) lse_abs_err={lse_err:.3e} "
+            f"o_rel_err={o_err:.3e}")
         log(f"[720p] flash_bwd ({route}) {name} N={n} Sq={sq} Sk={sk}: kernel_ms={bwd_ms:.4f} "
             f"bound_ms={bwd_bound:.4f} ({bwd_by}) library_ms={lib_bwd_ms:.4f} (sdpa backward) "
             f"plain_ms={plain_bwd_ms:.4f} (2 heads, not a yardstick) "
             + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
-            + f" max_abs_err={mae:.3e} check_s={check_s:.1f}" + fused_note)
+            + f" max_abs_err={mae:.3e} check_s={check_s:.1f}" + fused_note + pass_note
+            + prep_note)
         del q, k, v, do, o, lse, sub, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
 
@@ -1236,7 +1387,8 @@ def phase_train_720p(cfg, modules, root: str):
     import torch
 
     from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
-    from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                         flash_bwd_preprocess)
 
     save_dir = os.path.join(root, "build", "chip_smoke_train_720p")
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -1252,12 +1404,13 @@ def phase_train_720p(cfg, modules, root: str):
     torch.cuda.reset_peak_memory_stats()
     # the 720p train path's counts
     flash_attention.launches = flash_attention_bwd.launches = 0
-    flash_attention_bwd.split_launches = 0
+    flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
     t0 = time.perf_counter()
     final = trainer.train(clips, on_micro_step=steps.append)
     wall = time.perf_counter() - t0
     launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
-                "split": flash_attention_bwd.split_launches}
+                "split": flash_attention_bwd.split_launches,
+                "prep": flash_bwd_preprocess.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, st in enumerate(steps):
         log(f"[train720] step {i + 1}: expert {st['expert']} timestep {st['timestep']:.1f} "
@@ -1270,6 +1423,8 @@ def phase_train_720p(cfg, modules, root: str):
         f"{TRAIN_720P['num_frames']} frames in {wall:.2f} s (clip synthesis and saves "
         f"included); max_memory_allocated {peak:.2f} GiB; flash launches over the phase "
         f"{launches}")
+    if launches["prep"] != launches["bwd"] + launches["split"]:
+        raise AssertionError(f"preprocess launches {launches['prep']}, one per backward due")
     if final != TRAIN_720P_STEPS or [st["expert"] for st in steps] != [0, 1]:
         raise AssertionError(f"{final} steps, experts {[st['expert'] for st in steps]}")
     want = (TRAIN_720P_FWD_LAUNCHES, TRAIN_720P_FUSED_LAUNCHES, TRAIN_720P_SPLIT_LAUNCHES)
@@ -1383,10 +1538,33 @@ def main() -> int:
         "bound_by": split_self["bwd_bound_by"],
         "library_ms": split_self["bwd_library_ms"],
         "fused_ms_same_shape": split_self["fused_ms"],
+        "dq_pass_ms": split_self["split_dq_pass_ms"],
+        "dq_pass_bound_ms": split_self["split_dq_pass_bound_ms"],
+        "dkv_pass_ms": split_self["split_dkv_pass_ms"],
+        "dkv_pass_bound_ms": split_self["split_dkv_pass_bound_ms"],
         "held_against_plain": True,
         "shape": "video_self at 720p training: 40 heads, Sq = Sk = 176400, D 128 (plain_ms on "
                  "2 heads); the other shapes are on the [720p] lines",
         "train_720p_peak_gib": peak_720p,
+    }, {
+        "name": "flash_bwd_preprocess",
+        "route": "cuda",
+        "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "dualforce_tpu/ops/flash_attention.py:484 (delta in `_bwd_prepare`, jnp "
+                    "code beside the Pallas kernels)",
+        "launches": train["prep"] + train720["prep"],
+        "launches_by_path": {"serve": 0, "train": train["prep"],
+                             "train_720p": train720["prep"]},
+        "max_abs_err": max(bwd_max_abs["prep"], max_abs_720p["prep"]),
+        "ms": split_self["preprocess"]["ms"],
+        "plain_ms": split_self["preprocess"]["plain_ms"],
+        "plain_heads": 40,
+        "bound_ms": split_self["preprocess"]["bound_ms"],
+        "bound_by": split_self["preprocess"]["bound_by"],
+        "library_ms": None,
+        "held_against_plain": True,
+        "shape": "video_self at 720p training: 40 heads, Sq = 176400, D 128 (delta and lse "
+                 "padded to 176512 rows); the training shapes are on the [kernel] lines",
     }, {
         "name": "flash_fwd_cap",
         "route": "cuda",

@@ -17,11 +17,15 @@ log2 units, and a keyless row's LSE is cap * ln 2.
 The backward (`csrc/flash_bwd.cu`) computes dq, dk and dv from q, k, v, dO,
 the LSE and delta = rowsum(dO * O) - dlse, in one of two ways that compute
 the same function: the fused kernel (one pass; dq summed over key tiles by
-fp32 atomics into a [B, N, Sq, D] workspace) or the split pair (a dk/dv pass
-and a dq pass that sums over key tiles in registers: no workspace, a
-deterministic dq). So one plain version, `flash_attention_bwd_plain`, serves
-both. `flash_attention_bwd` routes by shape as the JAX package's `_bwd` does
-under its default mode (`bwd_takes_split`).
+bulk fp32 reductions into a workspace of whole 64-row tiles) or the split
+pair (a dk/dv pass and a dq pass that sums over key tiles in registers: no
+workspace, a deterministic dq). So one plain version,
+`flash_attention_bwd_plain`, serves both. Both first run the preprocess
+kernel (`flash_bwd_preprocess`), which computes delta and lse * log2(e) from
+bf16 O and dO into rows padded to whole 128-row tiles; its plain version is
+`_delta`. The kernels read q, k, v and dO through 4-D tensor maps
+(`tma_geometry`). `flash_attention_bwd` routes by shape as the JAX package's
+`_bwd` does under its default mode (`bwd_takes_split`).
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; for CPU tensors it runs the plain PyTorch version of
@@ -36,9 +40,10 @@ and the backward runs `flash_attention_bwd`. Without grad (serving, under
 `torch.no_grad()`) `flash_attention` runs the forward without the LSE.
 `flash_attention.launches` counts forward kernel launches in exact mode,
 `flash_attention.cap_launches` those in cap mode,
-`flash_attention_bwd.launches` fused backwards and
+`flash_attention_bwd.launches` fused backwards,
 `flash_attention_bwd.split_launches` split ones (each launches both of the
-pair's kernels once).
+pair's kernels once) and `flash_bwd_preprocess.launches` the preprocess
+(once per backward).
 """
 
 from __future__ import annotations
@@ -63,12 +68,18 @@ _MAX_GRID_Y = 65535           # batch * heads rides on the grid's y dimension
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.c_longlong] * 12
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 18 + [ctypes.c_float, ctypes.c_void_p])
-_FINISH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+# the backward's C launchers: q, k, v, dO, then their tensor-map geometry (`tma_geometry`)
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p])
+_FINISH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                     + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p])
-_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 15 + [ctypes.c_float, ctypes.c_void_p])
+_PREP_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                  + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+# the backward kernels' lse and delta rows (csrc/flash_bwd.cu `kRowPad`): whole 128-row
+# tiles, the dq pass's CTA, which the fused kernel's 64-row dQ tiles divide
+BWD_ROW_PAD = 128
 
 _KERNELS = {}
 
@@ -257,59 +268,177 @@ def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool, softmax_cap):
     return out, lse
 
 
-def _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse, split: bool):
-    """The fused backward kernel, or with `split` the split pair: the dk/dv
-    pass (the fused kernel without its dQ product) and the dq pass."""
-    shapes = (q.shape, k.shape, v.shape, do.shape)
-    strides = (q.stride(), k.stride(), v.stride(), do.stride())
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
-    _check_cuda_inputs(("q", "k", "v", "do"), (q, k, v, do), shapes, strides, ptrs)
-    _check_qkv(q, k, v, kv_valid_len, shapes[:3])
-    b, sq, n, d = shapes[0]
-    sk = shapes[1][1]
-    if shapes[3] != shapes[0] or o.shape != shapes[0]:
-        raise ValueError(f"do {tuple(shapes[3])} and o {tuple(o.shape)} must match "
-                         f"q {tuple(shapes[0])}")
-    if lse.shape != (b, n, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"lse must be a contiguous fp32 [{b}, {n}, {sq}] tensor")
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = _delta(o, do, dlse)
-    dq_acc = None if split else torch.zeros((b, n, sq, d), dtype=torch.float32,
-                                            device=q.device)
-    lens = _lens(kv_valid_len)
-    lens_ptr = None if lens is None else lens.data_ptr()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    scale = d ** -0.5
-    row = (sq * n * d, n * d, d)              # strides of the contiguous dq
-    krow = (sk * n * d, n * d, d)             # ... and of dk, dv
-    if split:
+def _rows_padded(sq: int) -> int:
+    """Query rows of the backward's lse and delta buffers (`BWD_ROW_PAD`)."""
+    return _ceil_to(max(sq, 1), BWD_ROW_PAD)
+
+
+def bwd_workspace_floats(b: int, n: int, sq: int) -> int:
+    """fp32 elements of the fused kernel's dQ workspace: [B*N, Sq_pad, 128],
+    whole 64-row tiles, each in the kernel's register order."""
+    return b * n * _rows_padded(sq) * HEAD_DIM
+
+
+def tma_geometry(shape, stride):
+    """The seven values the kernels build a [B, S, N, 128] bf16 tensor map
+    from: the dims innermost first (128, N, S, B) and the byte strides of N, S
+    and B. A dim of size 1 is never stepped, so its stride is given as 256
+    bytes whatever the view says. Raises unless each stride is a positive
+    multiple of 16 bytes below 2^40 and S fits an int32 coordinate."""
+    b, s, n, d = shape
+    if s >= 2**31:
+        raise ValueError(f"{s} rows pass the tensor map's int32 coordinates")
+    strides = []
+    for size, st in ((n, stride[2]), (s, stride[1]), (b, stride[0])):
+        nbytes = 2 * st if size > 1 else 2 * HEAD_DIM
+        if nbytes <= 0 or nbytes % 16 or nbytes >= 2**40:
+            raise ValueError(f"byte stride {nbytes} of a dim of size {size}: the tensor maps "
+                             f"take positive multiples of 16 below 2^40")
+        strides.append(nbytes)
+    return (d, n, s, b, *strides)
+
+
+def _geometry(shapes, strides):
+    vals = [x for shape, stride in zip(shapes, strides) for x in tma_geometry(shape, stride)]
+    return (ctypes.c_ulonglong * len(vals))(*vals)
+
+
+def _check_lse(name, x, b, n, sq) -> None:
+    if x.shape != (b, n, sq) or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous fp32 [{b}, {n}, {sq}] tensor")
+
+
+def _launch_preprocess(o, do, lse, dlse, shapes, strides, workspace=None):
+    """delta = rowsum(dO * O) - dlse and lse * log2(e), each [B, N, Sq_pad]
+    fp32 (rows past Sq: 0 and +inf), from the preprocess kernel, which also
+    zeroes `workspace` when given."""
+    b, sq, n, _ = shapes[0]
+    sq_pad = _rows_padded(sq)
+    delta = torch.empty((b, n, sq_pad), dtype=torch.float32, device=o.device)
+    lse2 = torch.empty_like(delta)
+    err = _kernel("flash_bwd", "dft_flash_bwd_preprocess", _PREP_ARGTYPES)(
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), None if dlse is None else dlse.data_ptr(),
+        delta.data_ptr(), lse2.data_ptr(), None if workspace is None else workspace.data_ptr(),
+        0 if workspace is None else workspace.numel(), b, n, sq, sq_pad, *strides[0][:3],
+        *strides[1][:3], torch.cuda.current_stream(o.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd preprocess launch failed: CUDA error {err}")
+    flash_bwd_preprocess.launches += 1
+    return delta, lse2
+
+
+def flash_bwd_preprocess(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                         dlse: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(delta, lse * log2(e)) as the backward kernels read them: [B, N,
+    Sq_pad] fp32, Sq_pad = Sq rounded up to 128; rows past Sq hold 0 and
+    +inf. CUDA tensors only: the plain version of delta is `_delta`.
+    `flash_bwd_preprocess.launches` counts its launches (each backward makes
+    one)."""
+    if not o.is_cuda:
+        raise ValueError("the preprocess kernel takes CUDA tensors; `_delta` is its plain "
+                         "version")
+    shapes, strides = (o.shape, do.shape), (o.stride(), do.stride())
+    _check_cuda_inputs(("o", "do"), (o, do), shapes, strides, (o.data_ptr(), do.data_ptr()))
+    b, sq, n, _ = shapes[0]
+    if shapes[1] != shapes[0]:
+        raise ValueError(f"do {tuple(shapes[1])} must match o {tuple(shapes[0])}")
+    _check_lse("lse", lse, b, n, sq)
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+        _check_lse("dlse", dlse, b, n, sq)
+    return _launch_preprocess(o, do, lse, dlse, shapes, strides)
+
+
+flash_bwd_preprocess.launches = 0
+
+
+class _Bwd:
+    """One backward's arguments, checked, with its outputs allocated and its
+    preprocess launched: the passes below launch the kernels on them."""
+
+    def __init__(self, q, k, v, o, lse, do, kv_valid_len, dlse, split: bool):
+        shapes = (q.shape, k.shape, v.shape, do.shape, o.shape)
+        strides = (q.stride(), k.stride(), v.stride(), do.stride(), o.stride())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr())
+        _check_cuda_inputs(("q", "k", "v", "do", "o"), (q, k, v, do, o), shapes, strides, ptrs)
+        _check_qkv(q, k, v, kv_valid_len, shapes[:3])
+        b, sq, n, d = shapes[0]
+        sk = shapes[1][1]
+        if shapes[3] != shapes[0] or shapes[4] != shapes[0]:
+            raise ValueError(f"do {tuple(shapes[3])} and o {tuple(shapes[4])} must match "
+                             f"q {tuple(shapes[0])}")
+        _check_lse("lse", lse, b, n, sq)
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+            _check_lse("dlse", dlse, b, n, sq)
+        self.dims = (b, n, sq, sk)
+        self.dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+        self.dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+        self.dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+        self.empty = self.dq.numel() == 0 or self.dk.numel() == 0
+        if self.empty:
+            return
+        self.ptrs = ptrs[:4]
+        self.geom = _geometry(shapes[:4], strides[:4])
+        self.dq_acc = None if split else torch.empty(bwd_workspace_floats(b, n, sq),
+                                                     dtype=torch.float32, device=q.device)
+        self.delta, self.lse2 = _launch_preprocess(o, do, lse, dlse, (shapes[4], shapes[3]),
+                                                   (strides[4], strides[3]), self.dq_acc)
+        lens = _lens(kv_valid_len)
+        self.lens = lens
+        self.lens_ptr = None if lens is None else lens.data_ptr()
+        self.stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def dq_pass(self) -> None:
+        """The split's dq pass: dq written once, deterministic."""
+        b, n, sq, sk = self.dims
         err = _kernel("flash_bwd", "dft_flash_bwd_dq_bf16", _DQ_ARGTYPES)(
-            *ptrs, lse.data_ptr(), delta.data_ptr(), lens_ptr, dq.data_ptr(), b, n, sq, sk,
-            *strides[0][:3], *strides[1][:3], *strides[2][:3], *strides[3][:3], *row,
-            scale, stream)
+            *self.ptrs, self.geom, self.lse2.data_ptr(), self.delta.data_ptr(), self.lens_ptr,
+            self.dq.data_ptr(), b, n, sq, _rows_padded(sq), sk, *self.dq.stride()[:3],
+            HEAD_DIM ** -0.5, self.stream)
         if err != 0:
-            raise RuntimeError(f"flash_bwd dq pass launch failed: CUDA error {err}")
-    err = _kernel("flash_bwd", "dft_flash_bwd_bf16", _BWD_ARGTYPES)(
-        *ptrs, lse.data_ptr(), delta.data_ptr(), lens_ptr,
-        None if dq_acc is None else dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, n, sq, sk, *strides[0][:3], *strides[1][:3], *strides[2][:3], *strides[3][:3],
-        *krow, *krow, scale, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd {'dk/dv pass' if split else 'kernel'} launch "
-                           f"failed: CUDA error {err}")
+            raise RuntimeError(f"flash_bwd dq pass launch failed: error {err}")
+
+    def dkv_pass(self) -> None:
+        """The dk/dv core: the fused kernel with a workspace, else the split's
+        dk/dv pass."""
+        b, n, sq, sk = self.dims
+        err = _kernel("flash_bwd", "dft_flash_bwd_bf16", _BWD_ARGTYPES)(
+            *self.ptrs, self.geom, self.lse2.data_ptr(), self.delta.data_ptr(), self.lens_ptr,
+            None if self.dq_acc is None else self.dq_acc.data_ptr(), self.dk.data_ptr(),
+            self.dv.data_ptr(), b, n, sq, _rows_padded(sq), sk, *self.dk.stride()[:3],
+            *self.dv.stride()[:3], HEAD_DIM ** -0.5, self.stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd {'kernel' if self.dq_acc is not None else 'dk/dv pass'}"
+                               f" launch failed: error {err}")
+
+    def dq_finish(self) -> None:
+        """The fused kernel's dq = bf16(workspace / sqrt(D))."""
+        b, n, sq, _ = self.dims
+        err = _kernel("flash_bwd", "dft_flash_bwd_dq_finish", _FINISH_ARGTYPES)(
+            self.dq_acc.data_ptr(), self.dq.data_ptr(), b, n, sq, _rows_padded(sq),
+            *self.dq.stride()[:3], HEAD_DIM ** -0.5, self.stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd dq finish launch failed: error {err}")
+
+
+def _launch_bwd(q, k, v, o, lse, do, kv_valid_len, dlse, split: bool):
+    """The preprocess, then the fused backward kernel and its dq finish, or
+    with `split` the split pair: the dq pass and the dk/dv pass (the fused
+    kernel without its dQ product)."""
+    bwd = _Bwd(q, k, v, o, lse, do, kv_valid_len, dlse, split)
+    if bwd.empty:
+        return bwd.dq.zero_(), bwd.dk.zero_(), bwd.dv.zero_()
     if split:
+        bwd.dq_pass()
+        bwd.dkv_pass()
         flash_attention_bwd.split_launches += 1
-        return dq, dk, dv
-    err = _kernel("flash_bwd", "dft_flash_bwd_dq_finish", _FINISH_ARGTYPES)(
-        dq_acc.data_ptr(), dq.data_ptr(), b, n, sq, *row, scale, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd dq finish launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    else:
+        bwd.dkv_pass()
+        bwd.dq_finish()
+        flash_attention_bwd.launches += 1
+    return bwd.dq, bwd.dk, bwd.dv
 
 
 def _forward(q, k, v, kv_valid_len, with_lse: bool, softmax_cap=None):

@@ -205,3 +205,58 @@ def test_lse_only_cotangent_matches_pallas_backward():
     for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=f"d{name}",
                                    **GRAD_TOL)
+
+
+# --- host-side geometry of the CUDA backward (csrc/flash_bwd.cu) -------------
+# The kernels cannot run here; what the wrappers compute for them can.
+
+@pytest.mark.parametrize("sq,padded", [(1, 128), (103, 128), (128, 128), (129, 256),
+                                       (11440, 11520), (98305, 98432), (176400, 176512)])
+def test_bwd_rows_pad_to_whole_tiles(sq, padded):
+    """lse and delta rows, and the fused kernel's dQ workspace, cover whole
+    128-row tiles (the dq pass's CTA) and so whole 64-row dQ tiles."""
+    assert fa._rows_padded(sq) == padded
+    floats = fa.bwd_workspace_floats(2, 3, sq)
+    assert floats == 2 * 3 * padded * 128 and floats % (64 * 128) == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "packed_qkv", "heads_major"])
+def test_tma_geometry_follows_the_view(layout):
+    """The tensor-map arguments are the dims innermost first (128, N, S, B)
+    and the byte strides of N, S and B, read from the view as it is: no copy."""
+    b, s, n = 2, 300, 3
+    if layout == "contiguous":
+        x = torch.zeros(b, s, n, 128)
+    elif layout == "packed_qkv":
+        x = torch.zeros(b, s, 3, n, 128).unbind(2)[1]
+    else:
+        x = torch.zeros(b, n, s, 128).transpose(1, 2)
+    dims_strides = fa.tma_geometry(x.shape, x.stride())
+    assert dims_strides[:4] == (128, n, s, b)
+    assert dims_strides[4:] == tuple(2 * x.stride(i) for i in (2, 1, 0))
+
+
+def test_tma_geometry_of_size_one_dims():
+    """A dim of size 1 is never stepped: its stride, whatever the view says,
+    is handed over as 256 bytes."""
+    x = torch.zeros(1, 5, 1, 128).as_strided((1, 5, 1, 128), (7, 128, 3, 1))
+    assert fa.tma_geometry(x.shape, x.stride()) == (128, 1, 5, 1, 256, 256, 256)
+
+
+@pytest.mark.parametrize("shape,stride", [
+    ((1, 10, 2, 128), (2560, 256, 4, 1)),                  # 8-byte head stride
+    ((1, 10, 2, 128), (2560, 0, 128, 1)),                  # rows broadcast
+    ((2, 10, 1, 128), (2**39, 128, 128, 1)),               # 2^40-byte batch stride
+    ((1, 2**31, 1, 128), (2**38, 128, 128, 1)),            # rows past int32 coordinates
+], ids=["unaligned", "zero", "too_far", "too_long"])
+def test_tma_geometry_refuses_what_a_tensor_map_cannot_take(shape, stride):
+    with pytest.raises(ValueError):
+        fa.tma_geometry(shape, stride)
+
+
+def test_preprocess_kernel_takes_cuda_tensors_only():
+    """The delta preprocess is a CUDA kernel; on the CPU `_delta` is its plain
+    version and the backward uses it."""
+    o, do = torch.zeros(1, 4, 1, 128), torch.zeros(1, 4, 1, 128)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_preprocess(o, do, torch.zeros(1, 1, 4))

@@ -70,9 +70,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 # --- forward LSE output and the backward kernel -----------------------------
 # Tolerances: the LSE within 1e-3 absolute of the fp32 plain version; dq, dk
-# and dv (bf16, dq through an fp32 atomicAdd workspace whose summation order
-# varies between runs) within 2e-2 relative L2 of the fp32 plain backward on
-# the same bf16 q, k, v, o, dO and the kernel's own LSE.
+# and dv (bf16, dq through an fp32 workspace that bulk reductions add into in
+# an order that varies between runs) within 2e-2 relative L2 of the fp32 plain
+# backward on the same bf16 q, k, v, o, dO and the kernel's own LSE.
 
 def _bwd_inputs(cuda, b, n, sq, sk, lens, seed):
     g = torch.Generator(cuda).manual_seed(seed)
@@ -183,6 +183,11 @@ def _split_and_fused(q, k, v, do, dlse, tl):
     (2, 3, 130, 520, (520, 0), True),
     (3, 2, 1000, 512, (512, 77, 0), False),
     (3, 2, 1000, 512, (512, 77, 0), True),
+    (1, 2, 103, 403, None, True),
+    (1, 2, 403, 103, None, False),
+    (1, 2, 1000, 1000, None, True),
+    (1, 1, 98304, 403, None, False),
+    (1, 1, 98305, 403, None, True),
 ])
 def test_split_bwd_matches_plain_and_fused(cuda, b, n, sq, sk, lens, with_dlse):
     from dualforce_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
@@ -206,6 +211,49 @@ def test_split_bwd_matches_plain_and_fused(cuda, b, n, sq, sk, lens, with_dlse):
                 assert torch.count_nonzero(dq[i]) == 0
             assert torch.count_nonzero(dk[i, length:]) == 0
             assert torch.count_nonzero(dv[i, length:]) == 0
+
+
+def test_bwd_reads_strided_views(cuda):
+    """q, k, v as views into one packed [B, S, 3, N, D] tensor and dO as a
+    heads-major view: the tensor maps read them through their strides, in
+    both backwards."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(cuda).manual_seed(8)
+    qkv = torch.randn(2, 333, 3, 2, 128, generator=g, device=cuda, dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 2, 333, 128, generator=g, device=cuda,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    assert not (q.is_contiguous() or do.is_contiguous())
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                        do.float())
+    for route in (fa.flash_attention_bwd_fused, fa.flash_attention_bwd_split):
+        got = route(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel(x, w) <= 2e-2, (route.__name__, name)
+
+
+@pytest.mark.parametrize("sq,with_dlse", [(403, False), (1000, True), (98305, True)])
+def test_preprocess_matches_delta(cuda, sq, with_dlse):
+    """The preprocess kernel's delta within 1e-5 relative L2 of `_delta`
+    (fp32 sums in another order), its lse * log2(e) within fp32 rounding of
+    the LSE's, and the rows padded to 128 holding delta 0 and lse +inf."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, dlse, _ = _bwd_inputs(cuda, 2, 2, sq, 200, None, 9)
+    dlse = dlse if with_dlse else None
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    before = fa.flash_bwd_preprocess.launches
+    delta, lse2 = fa.flash_bwd_preprocess(o, do, lse, dlse)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_preprocess.launches == before + 1
+    pad = -(-sq // 128) * 128
+    assert delta.shape == lse2.shape == (2, 2, pad)
+    assert _rel(delta[..., :sq], fa._delta(o, do, dlse)) <= 1e-5
+    assert torch.allclose(lse2[..., :sq], lse * fa.LOG2E, rtol=1e-6, atol=0)
+    assert torch.all(delta[..., sq:] == 0) and torch.all(torch.isposinf(lse2[..., sq:]))
 
 
 @pytest.mark.parametrize("sq,route", [(98304, "fused"), (98305, "split")])
