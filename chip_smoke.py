@@ -8,14 +8,21 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which must pass:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: every CUDA kernel of the port, from the sources in the checkout.
+2. build: every CUDA kernel of the port, from the sources in the checkout,
+   with ptxas's registers, spills and C7512 lines; the SASS of the forward
+   and the backward must show wgmma (HGMMA) and TMA loads (UTMALDG) in
+   every flash kernel, and the forward no mma.sync (HMMA).
 3. kernels: each kernel's wrapper at the main path's shapes, held against
    its plain PyTorch version on the same inputs (two heads per shape, bf16
    output against the fp32 plain version, relative L2 error <= 1e-2), plus
-   a per-batch kv-length case whose length-0 row must be exactly 0; times of
-   the kernel, its plain version, its bound on an H100 SXM and the one
-   PyTorch call that computes the same function (a yardstick only: the port
-   never calls it).
+   a per-batch kv-length case whose length-0 row must be exactly 0 and a
+   ragged case (Sq and Sk not multiples of 128, kv_len ending mid-tile, a
+   length-0 batch) in exact and cap mode with the LSE (within 1e-3
+   absolute; a keyless row's LSE -1e4 * ln 2 or cap * ln 2); times of the
+   kernel, its plain version, its bound on an H100 SXM and the one PyTorch
+   call that computes the same function (a yardstick only: the port never
+   calls it); where a call splits its key range, the time of the same call
+   unsplit beside it.
 4. small input: one dual-tower step at a small head_dim-128 geometry
    through the kernel, against the same step through the plain fp32
    attention (relative L2 error <= 2e-2 on bf16 outputs).
@@ -74,7 +81,8 @@ Phases, each of which must pass:
    backward to the split kernels; v2a 12 x 403 x 176,400, audio self
    12 x 403 x 403 and audio text cross 12 x 403 x 512, which route it to the
    fused one) the forward with its LSE and the routed backward, held on two
-   heads against their plain versions with phase 6's tolerances; at the
+   heads against their plain versions with phase 6's tolerances, and the
+   forward without the LSE (its o bit-equal to the LSE forward's); at the
    split shapes the fused kernel on the same inputs too (its time and its
    gap to the split's results); times of the routed kernel, its bound, the
    SDPA backward and the plain version on the two heads (at >= 100k tokens
@@ -324,7 +332,10 @@ def phase_device():
 
 # SASS opcodes counted in phase 2: warpgroup products, TMA tile loads, bulk copies, bulk
 # reductions, and global atomics (ATOMG, RED; a bulk reduction is UBLKRED)
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "UBLKRED", "ATOMG", "RED")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "UBLKRED", "ATOMG", "RED")
+# each forward kernel variant (exact, cap) and the opcodes it must issue; HMMA (mma.sync) none
+FWD_SASS_WANT = {"flash_fwd_kernelILb0E": ("HGMMA", "UTMALDG"),
+                 "flash_fwd_kernelILb1E": ("HGMMA", "UTMALDG")}
 # each backward kernel (mangled-name fragment) and the opcodes it must issue
 BWD_SASS_WANT = {"flash_bwd_dkv_kernelILb1E": ("HGMMA", "UTMALDG", "UBLKRED"),
                  "flash_bwd_dkv_kernelILb0E": ("HGMMA", "UTMALDG"),
@@ -354,10 +365,18 @@ def sass_counts(lib: str, nvcc: str):
     return counts
 
 
+def _check_sass(lib: str, counts, want) -> None:
+    for frag, ops in want.items():
+        found = [c for func, c in counts.items() if frag in func]
+        if len(found) != 1 or any(found[0][op] == 0 for op in ops):
+            raise AssertionError(f"{lib} {frag}: SASS lacks one of {ops}: {found}")
+
+
 def phase_build():
-    """Every kernel source, one nvcc each, all started together; the backward's
-    SASS must show wgmma (HGMMA) and TMA loads (UTMALDG) in all three of its
-    kernels, the fused kernel's bulk reduction of dQ, and no global atomics."""
+    """Every kernel source, one nvcc each, all started together; the SASS
+    must show wgmma (HGMMA) and TMA loads (UTMALDG) in both forward variants
+    (and no mma.sync, HMMA) and in all three backward kernels, the fused
+    kernel's bulk reduction of dQ, and no global atomics."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dualforce_tpu_torch.ops import _build
@@ -371,15 +390,20 @@ def phase_build():
         log(f"[build] {name}: {built.path.name} nvcc {built.seconds:.2f} s")
         for line in built.log.splitlines():
             if ("Compiling entry" in line or "registers" in line or "spill" in line
-                    or "Performance Loss" in line):
+                    or "Performance Loss" in line or "C7512" in line):
                 log(f"[build]   {line.strip()}")
-    counts = sass_counts(str(builds["flash_bwd"].path), _build.nvcc())
-    for func, ops in counts.items():
-        log(f"[build] sass flash_bwd {func}: " + " ".join(f"{op}={n}" for op, n in ops.items()))
-    for frag, want in BWD_SASS_WANT.items():
-        found = [ops for func, ops in counts.items() if frag in func]
-        if len(found) != 1 or any(found[0][op] == 0 for op in want):
-            raise AssertionError(f"flash_bwd {frag}: SASS lacks one of {want}: {found}")
+    sass = {name: sass_counts(str(builds[name].path), _build.nvcc())
+            for name in ("flash_fwd", "flash_bwd")}
+    for name, counts in sass.items():
+        for func, ops in counts.items():
+            log(f"[build] sass {name} {func}: " + " ".join(f"{op}={n}" for op, n in ops.items()))
+    _check_sass("flash_fwd", sass["flash_fwd"], FWD_SASS_WANT)
+    mma_sync = {func: ops["HMMA"] for func, ops in sass["flash_fwd"].items() if ops["HMMA"]}
+    if mma_sync:
+        raise AssertionError(f"flash_fwd issues mma.sync (HMMA): {mma_sync}")
+    log("[build] flash_fwd: HGMMA and UTMALDG in both variants (exact, cap), no HMMA")
+    counts = sass["flash_bwd"]
+    _check_sass("flash_bwd", counts, BWD_SASS_WANT)
     atomics = {func: ops["ATOMG"] + ops["RED"] for func, ops in counts.items()
                if ops["ATOMG"] + ops["RED"]}
     if atomics:
@@ -388,12 +412,25 @@ def phase_build():
         "pass; the fused kernel's dQ by UBLKRED; no global atomics")
 
 
+def time_unsplit_ms(fa, fn):
+    """`fn` timed with every forward call left whole (`fwd_splits` replaced
+    by 1 for these calls only; the package has no switch)."""
+    splits = fa.fwd_splits
+    fa.fwd_splits = lambda ctas, sk, sms: 1
+    try:
+        return time_ms(fn, reps=7, warmup=2)[0]
+    finally:
+        fa.fwd_splits = splits
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
 
+    from dualforce_tpu_torch.ops import flash_attention as fa
     from dualforce_tpu_torch.ops.flash_attention import (flash_attention,
-                                                         flash_attention_plain)
+                                                         flash_attention_plain,
+                                                         flash_attention_with_lse)
 
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
@@ -420,15 +457,21 @@ def phase_kernels():
             lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=7, warmup=2)
         plain_ms, _ = time_ms(lambda: flash_attention_plain(q, k, v), reps=3, warmup=1)
         bound_ms, bound_by = attention_bound_ms(1, n, sq, sk, sk)
+        splits = fa.fwd_splits(n * -(-sq // fa.FWD_BLOCK_M), sk, fa._sm_count(dev))
+        unsplit_ms = (time_unsplit_ms(fa, lambda: flash_attention(q, k, v)) if splits > 1
+                      else None)
         row = dict(shape=name, heads=n, sq=sq, sk=sk, kernel_ms=kernel_ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, rel_err=err, max_abs_err=mae)
+                   bound_by=bound_by, rel_err=err, max_abs_err=mae, splits=splits,
+                   unsplit_ms=unsplit_ms, host_us=host_us)
         rows.append(row)
+        split_note = (f" splits={splits} (unsplit_ms={unsplit_ms:.4f})" if splits > 1
+                      else " splits=1")
         log(f"[kernel] flash_fwd {name} N={n} Sq={sq} Sk={sk}: kernel_ms={kernel_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) library_ms={library_ms:.4f} "
             f"plain_ms={plain_ms:.4f} (not a yardstick) rel_err={err:.3e} "
             f"max_abs_err={mae:.3e} host_us={host_us:.1f} "
-            f"library_host_us={library_host_us:.1f}")
+            f"library_host_us={library_host_us:.1f}" + split_note)
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
@@ -450,6 +493,33 @@ def phase_kernels():
                              f"length-0 row")
     log(f"[kernel] flash_fwd masked B={b} N={n} Sq={sq} Sk={sk} kv_len={lens}: "
         f"rel_err={err:.3e} max_abs_err={mae:.3e} length-0 row exactly 0")
+
+    # ragged: Sq and Sk not multiples of 128, kv_len ending inside a key tile, a length-0
+    # batch; exact and cap mode, with the LSE
+    b, n, sq, sk, lens = 3, 4, 1000, 1100, [1100, 300, 0]
+    q, k, v = (_rand(g, b, s, n, HEAD_DIM) for s in (sq, sk, sk))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for cap in (None, FAST_SOFTMAX_CAP):
+        out, lse = flash_attention_with_lse(q, k, v, kv_len, softmax_cap=cap)
+        torch.cuda.synchronize()
+        want, want_lse = flash_attention_plain(q.float(), k.float(), v.float(), kv_len,
+                                               return_lse=True, softmax_cap=cap)
+        err = rel_err(out, want)
+        mae = float((out.float() - want).abs().max())
+        max_abs = max(max_abs, mae)
+        lse_err = float((lse - want_lse).abs().max())
+        keyless = (fa._MAX_FLOOR if cap is None else cap) * math.log(2.0)
+        keyless_err = float((lse[2] - keyless).abs().max())
+        zeros = int(torch.count_nonzero(out[2]))
+        if not (err <= KERNEL_REL_TOL and lse_err <= LSE_ABS_TOL and zeros == 0
+                and keyless_err <= LSE_ABS_TOL):
+            raise AssertionError(f"ragged case (cap {cap}): rel err {err}, lse abs err "
+                                 f"{lse_err}, {zeros} nonzero in the length-0 batch, keyless "
+                                 f"LSE off by {keyless_err}")
+        log(f"[kernel] flash_fwd{'' if cap is None else ' cap'} ragged B={b} N={n} Sq={sq} "
+            f"Sk={sk} kv_len={lens} with LSE: rel_err={err:.3e} max_abs_err={mae:.3e} "
+            f"lse_abs_err={lse_err:.3e}; length-0 batch exactly 0, its LSE "
+            f"{'-1e4' if cap is None else 'cap'} * ln 2")
     return rows, max_abs
 
 
@@ -1303,6 +1373,16 @@ def phase_720p_backward_kernels():
             (dq_bound, _), (dkv_bound, _) = split_pass_bounds_ms(1, n, sq, sk, sk)
             pass_note = (f" dq_pass_ms={dq_pass_ms:.4f} (bound {dq_bound:.4f}, 6 units) "
                          f"dkv_pass_ms={dkv_pass_ms:.4f} (bound {dkv_bound:.4f}, 8 units)")
+        nolse_note, nolse_ms = "", None
+        if name == "video_self":   # the forward without the LSE: the LSE's cost apart
+            o_nolse = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if not torch.equal(o_nolse, o):
+                raise AssertionError("720p video_self: the forward without the LSE differs from "
+                                     "the forward with it")
+            del o_nolse
+            nolse_ms = time_long_ms(lambda: fa.flash_attention(q, k, v), warmup=0)
+            nolse_note = f" nolse_ms={nolse_ms:.4f} (the forward without the LSE, o bit-equal)"
         prep_note, prep = "", None
         if name == "video_self":   # the delta preprocess at the path's largest query length
             prep_err, prep_mae = check_preprocess(fa, o, do, lse)
@@ -1334,11 +1414,11 @@ def phase_720p_backward_kernels():
                          bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, fused_ms=fused_ms,
                          split_dq_pass_ms=dq_pass_ms, split_dq_pass_bound_ms=dq_bound,
                          split_dkv_pass_ms=dkv_pass_ms, split_dkv_pass_bound_ms=dkv_bound,
-                         preprocess=prep, max_abs_err=mae))
+                         preprocess=prep, max_abs_err=mae, fwd_nolse_ms=nolse_ms))
         log(f"[720p] flash_fwd+lse {name} N={n} Sq={sq} Sk={sk}: kernel_ms={fwd_ms:.4f} "
             f"bound_ms={fwd_bound:.4f} ({fwd_by}) library_ms={lib_fwd_ms:.4f} (sdpa forward) "
             f"plain_ms={plain_fwd_ms:.4f} (2 heads, not a yardstick) lse_abs_err={lse_err:.3e} "
-            f"o_rel_err={o_err:.3e}")
+            f"o_rel_err={o_err:.3e}" + nolse_note)
         log(f"[720p] flash_bwd ({route}) {name} N={n} Sq={sq} Sk={sk}: kernel_ms={bwd_ms:.4f} "
             f"bound_ms={bwd_bound:.4f} ({bwd_by}) library_ms={lib_bwd_ms:.4f} (sdpa backward) "
             f"plain_ms={plain_bwd_ms:.4f} (2 heads, not a yardstick) "
@@ -1500,8 +1580,14 @@ def main() -> int:
         "bound_by": video_self["bound_by"],
         "library_ms": video_self["library_ms"],
         "held_against_plain": True,
-        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128, no LSE; the other shapes "
-                 "and the LSE output at the training shapes are on the [kernel] lines",
+        "fwd_lse_720p_ms": split_self["fwd_ms"],
+        "fwd_nolse_720p_ms": split_self["fwd_nolse_ms"],
+        "v2a_ms": rows[3]["kernel_ms"],
+        "v2a_splits": rows[3]["splits"],
+        "v2a_unsplit_ms": rows[3]["unsplit_ms"],
+        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128, no LSE (the 720p times: 40 "
+                 "heads, Sq = Sk = 176400, with and without the LSE; v2a: 12 heads, Sq 403, Sk "
+                 "43120, split over keys); the other shapes are on the [kernel] and [720p] lines",
     }, {
         "name": "flash_bwd",
         "route": "cuda",

@@ -8,7 +8,8 @@
 // (every key masked) writes zeros instead of NaN. When `lse` is given it also writes the
 // natural-log LSE of each row, [B, N, Sq] fp32: (m + log2 l) * ln 2 in the kernel's log2
 // units, with l = 0 taken as 1, so a row with no valid key gets -1e4 * ln 2 (the backward
-// kernel's input; serving passes no `lse` and writes nothing more).
+// kernel's input; serving passes no `lse` and writes nothing more). Scores are scaled by
+// D^-1/2 * log2(e) in fp32 before exp2, and P is rounded to bf16 before P V.
 //
 // Cap mode (the TPU kernel's `cap` branch, :166-173, and its LSE epilogue, :200; the
 // dispatcher's "fast" route): softmax is shift-invariant, so a static shift `cap` (log2
@@ -22,319 +23,407 @@
 // operations, not bytes. Video self-attention at 43,120 tokens does 4*Sq*Sk*D flops against
 // 2*(2*Sq + 2*Sk)*D bytes, ~21,000 flops per byte, far above the card's ~295 (989 TF/s bf16
 // over 3.35 TB/s). Only the short audio-side calls (403 queries over 403 or 512 keys) are
-// bound by bytes and launch latency.
+// bound by bytes and launch latency. Besides the two products, each score costs an exp2 on
+// the SM's 16-a-clock MUFU unit: about half of the products' tensor-core time, which the
+// design runs beside them.
 //
-// Design, simple first: each CTA (4 warps) owns 64 query rows of one (batch, head); each
-// warp owns 16 of them. Q is loaded once into shared memory and then held in registers as
-// mma fragments. K and V stream through shared memory in 64-key tiles with cp.async; the
-// next K tile loads while P.V runs and V loads while Q.K^T runs. Q.K^T and P.V run on bf16
-// mma.sync m16n8k16 with fp32 accumulators; the online softmax state (row max, row sum)
-// stays in registers, and scores are scaled by D^-1/2 * log2(e) in fp32 before exp2.
-// Tensors are read as [B, S, N, D] through their strides (no transpose copy), and ragged
-// q and k tiles are masked in the kernel (no padding copy): 43,120 and 403 are not
-// multiples of 64. Work stops at the last key tile that holds a valid key, so a short
-// kv_len costs only the tiles it needs. wgmma/TMA and warp specialisation are later work.
+// Design (FlashAttention-3's forward for head dim 128, on the machinery of hopper.cuh): each
+// CTA owns one (batch, head) and 128 query rows and is warp-specialised. A producer warp (its
+// first thread) loads Q once, as two 64-column boxes in the 128-byte swizzle, and streams K
+// and V through a ring of kStages stages of 128 keys by TMA. Each stage has a full and an
+// empty barrier for K and the same for V, so that K_j is reloaded once S_j is computed,
+// before P_j V_j has read V_j. Two consumer warpgroups own 64 query rows each. Per key tile a
+// consumer computes S = Q K^T with `wgmma` m64n128k16 (both operands in shared memory,
+// K-major), runs the masked online softmax on the 64 fp32 registers of S, stores P as bf16 in
+// the same swizzled K-major layout (a 16 KiB buffer per warpgroup) and adds O += P V with
+// `wgmma` (V read MN-major through the descriptor's transpose bit); O stays in 64 fp32
+// registers a thread. The two consumers take turns on the tensor cores (ping-pong): each turn
+// issues the previous tile's P V and the next tile's S together, and two named barriers pass
+// the turn, so that one warpgroup's softmax runs while the other's products are in flight.
+// P goes through shared memory, not registers, because ptxas keeps every thread within the
+// launch's 168 registers (see kFwdThreads): S and O in flight with P as a register operand
+// need ~186, and spill.
+// Tensors are read as [B, S, N, D] through 4-D tensor maps over their strides (no transpose
+// copy); rows past S are zero-filled by TMA, keys past kv_len are masked in the kernel, and
+// rows past Sq are never written. Work stops at the last key tile that holds a valid key, so a
+// short kv_len costs only the tiles it needs.
+//
+// Split over keys: where B * N * ceil(Sq / 128) CTAs would leave SMs idle (the 403-query
+// calls), the host splits the key tiles into `splits` ranges (grid z); each CTA then writes
+// its unnormalised fp32 O and its row state (shift m, sum l) to a workspace, and
+// `flash_fwd_combine_kernel` merges the ranges: m = max m_i, l = sum l_i 2^(m_i - m),
+// o = sum acc_i 2^(m_i - m) / l. In cap mode every m_i is cap.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 128;
-constexpr int kBlockM = 64;
-constexpr int kBlockN = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-// Padded shared-memory row (bf16 elements): a 272-byte stride puts the 8 rows that one
-// ldmatrix phase reads on 8 distinct 16-byte bank groups.
-constexpr int kSmemLd = kHeadDim + 8;
-constexpr int kSmemBytes = (kBlockM + 2 * kBlockN) * kSmemLd * 2;
-constexpr float kMaxFloor = -1.0e4f;  // running-max floor, log2 units (the TPU kernel's)
+// Two consumer warpgroups and one producer warp. ptxas (CUDA 12.9) allocates every thread
+// within the register count the launch leaves it, 168 at one CTA an SM (the 9 warps count as
+// 12), and does not raise that for code after `setmaxnreg.inc`: the kernel takes none.
+constexpr int kFwdThreads = kConsumerThreads + 32;
+constexpr int kBlockM = 128;               // query rows per CTA, 64 per consumer warpgroup
+constexpr int kBlockN = 128;               // keys per stage
+constexpr int kStages = 2;
+constexpr float kMaxFloor = -1.0e4f;       // running-max floor, log2 units (the TPU kernel's)
 constexpr float kLn2 = 0.6931471805599453f;
 
-static_assert(kBlockM == kWarps * 16, "one 16-row mma tile per warp");
+// shared memory (offsets from a 1024-byte aligned base)
+constexpr int kOffQ = 0;
+constexpr int kOffKv = kOffQ + tile_bytes(kBlockM);      // stage s at + s * kStageBytes: K, V
+constexpr int kStageBytes = 2 * tile_bytes(kBlockN);
+constexpr int kOffP = kOffKv + kStages * kStageBytes;    // warpgroup c's P at + c * kPBytes
+constexpr int kPBytes = tile_bytes(64);
+constexpr int kOffBar = kOffP + 2 * kPBytes;             // q_full, then per stage 4 barriers
+constexpr int kSmem = kOffBar + 8 * (1 + 4 * kStages) + 1024;  // + slack for the alignment
+constexpr uint32_t kQTx = tile_bytes(kBlockM);
+constexpr uint32_t kKvTx = tile_bytes(kBlockN);
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+static_assert(kSmem <= 232448, "fits one SM's shared memory");
+
+// Named barriers (0 is __syncthreads): kTurnBar + c completes when consumer warpgroup c may
+// issue its products.
+constexpr int kTurnBar = 4;
+
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(kTurnBar + c), "n"(kConsumerThreads) : "memory");
 }
 
-// 16-byte asynchronous copy from global to shared memory; zero-fills when !valid.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void turn_pass(int c) {  // to the other consumer warpgroup
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(kTurnBar + 1 - c), "n"(kConsumerThreads)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// exp2 on the MUFU unit alone (no scaling for results below 2^-126: they flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a * b for one m16n8k16 tile: a is 16x16 row-major, b is 16x8 column-major.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats to a bf16 pair; the lower-indexed element goes in the low half.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [row0, row0 + 64) of a [rows, 128] strided view into shared memory; rows at or
-// past `rows_valid` are zero-filled (never read from global memory).
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
-                                          int64_t row_stride, int row0, int rows_valid,
-                                          int tid) {
-  constexpr int kChunksPerRow = kHeadDim / 8;  // 16-byte chunks
+// P (this thread's rows r0 and r0 + 8 of the warpgroup's 64, in the 64 x 128 fp32 accumulator
+// layout) to shared memory as bf16, K-major in two 64-key boxes with the 128-byte swizzle:
+// 16-byte chunk j of row r lands at chunk j ^ (r % 8) of its box.
+__device__ __forceinline__ void store_p(unsigned char* buf, int r0, int cq, const float (&x)[64]) {
 #pragma unroll
-  for (int i = 0; i < kBlockN * kChunksPerRow / kThreads; ++i) {
-    const int chunk = tid + i * kThreads;
-    const int r = chunk / kChunksPerRow;
-    const int c = (chunk % kChunksPerRow) * 8;
-    const int row = row0 + r;
-    const bool valid = row < rows_valid;
-    const __nv_bfloat16* src = gmem + static_cast<int64_t>(valid ? row : 0) * row_stride + c;
-    cp_async_16(smem + r * kSmemLd + c, src, valid);
-  }
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int r = r0 + 8 * hi;
+      *reinterpret_cast<uint32_t*>(buf + (j / 8) * box_bytes(64) + r * 128 +
+                                   (((j % 8) ^ (r % 8)) << 4) + 2 * cq) =
+          pack_bf16x2(x[4 * j + 2 * hi], x[4 * j + 2 * hi + 1]);
+    }
+}
+
+// O[64 x 128] += P[64 x 128 keys] V[128 keys x 128]: P K-major (K step kk at box kk / 4, byte
+// 32 * (kk % 4) of each row), V MN-major (16 keys, 2,048 bytes, per K step).
+template <int kk = 0>
+__device__ __forceinline__ void gemm_pv(float (&d)[64], uint64_t p, uint64_t v) {
+  wgmma_ss_m64n128<0, 1, (kk / 4) * box_bytes(64) + (kk % 4) * 32, kk * 2048, true>(d, p, v);
+  if constexpr (kk + 1 < kBlockN / 16) gemm_pv<kk + 1>(d, p, v);
 }
 
 template <bool kCap>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, const int* __restrict__ kv_len, int heads,
-                     int sq, int sk, int64_t q_sb,
-                     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
-                     int64_t o_sh, float scale_log2, float cap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_k = s_q + kBlockM * kSmemLd;
-  __nv_bfloat16* s_v = s_k + kBlockN * kSmemLd;
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, const int* __restrict__ kv_len,
+                     float* __restrict__ part_o, float* __restrict__ part_ml, int heads, int sq,
+                     int sk, int tiles_per_split, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                     float scale_log2, float cap) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
   const int m0 = blockIdx.x * kBlockM;
-
   int n_keys = sk;
   if (kv_len != nullptr) n_keys = max(0, min(kv_len[b], sk));
-  const int n_blocks = (n_keys + kBlockN - 1) / kBlockN;
+  // this CTA's key tiles: [j0, j0 + n_blocks) of those that hold a valid key
+  const int j0 = blockIdx.z * tiles_per_split;
+  const int n_blocks = max(0, min(tiles_per_split, (n_keys + kBlockN - 1) / kBlockN - j0));
 
-  q += b * q_sb + h * q_sh;
-  k += b * k_sb + h * k_sh;
-  v += b * v_sb + h * v_sh;
-  o += b * o_sb + h * o_sh;
+  const uint32_t q_full = base + kOffBar;
+  auto full_k = [&](int s) { return q_full + 8 * (1 + s); };
+  auto full_v = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return q_full + 8 * (1 + 3 * kStages + s); };
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), kConsumerThreads);
+      mbar_init(empty_v(s), kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[kHeadDim / 8][4];
+  // the warpgroup index, broadcast so that the compiler knows it is warp-uniform: consumer
+  // warpgroups 0 and 1, the producer warp 2
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 2) {
+    // Producer: Q once, then K and V per key tile into the ring.
+    if (tid == kConsumerThreads && n_blocks > 0) {
+      mbar_expect_tx(q_full, kQTx);
+      for (int half = 0; half < 2; ++half)
+        tma_load(base + kOffQ + half * box_bytes(kBlockM), &tm_q, q_full, half * kHalf, h, m0, b);
+      for (int i = 0; i < n_blocks; ++i) {
+        const int s = i % kStages;
+        const int row = (j0 + i) * kBlockN;
+        const uint32_t k_s = base + kOffKv + s * kStageBytes;
+        const uint32_t v_s = k_s + tile_bytes(kBlockN);
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        mbar_wait(empty_k(s), parity);
+        mbar_expect_tx(full_k(s), kKvTx);
+        for (int half = 0; half < 2; ++half)
+          tma_load(k_s + half * box_bytes(kBlockN), &tm_k, full_k(s), half * kHalf, h, row, b);
+        mbar_wait(empty_v(s), parity);
+        mbar_expect_tx(full_v(s), kKvTx);
+        for (int half = 0; half < 2; ++half)
+          tma_load(v_s + half * box_bytes(kBlockN), &tm_v, full_v(s), half * kHalf, h, row, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup c owns query rows m0 + 64c .. m0 + 64c + 63.
+  const int c = wg;
+  const int t = tid % 128;
+  const int lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;     // this thread's rows of the warpgroup's: r0, +8
+  const int row0 = m0 + 64 * c + r0;
+  const int cq = 2 * (lane % 4);               // ... and its first column in each 8
+  const uint32_t q_c = base + kOffQ + 64 * c * 128;         // this warpgroup's rows of box 0
+  const uint32_t p_c = base + kOffP + c * kPBytes;
+
+  float acc[64];
 #pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
-  // Per thread: rows (lane / 4) and (lane / 4 + 8) of the warp's 16-row tile.
-  float row_max[2] = {-1.0e30f, -1.0e30f};
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float row_max[2] = {-1.0e30f, -1.0e30f};  // log2 units; unused in cap mode
   float row_sum[2] = {0.f, 0.f};  // this thread's partial sums; reduced over the quad at the end
-  uint32_t q_frag[kHeadDim / 16][4];
 
   if (n_blocks > 0) {
-    load_tile(s_q, q, q_ss, m0, sq, tid);
-    load_tile(s_k, k, k_ss, 0, n_keys, tid);
+    mbar_wait(q_full, 0);
+    if (c == 1) turn_pass(c);  // warpgroup 0 takes the first turn
+    // Turn i issues P_{i-1} V_{i-1} (i > 0) and S_i = Q K_i^T (i < n_blocks), then runs the
+    // softmax of S_i while the other warpgroup's turn is on the tensor cores. Each warpgroup
+    // takes n_blocks + 1 turns; warpgroup 1 passes none on after its last, so that every
+    // arrival on a turn barrier meets a wait.
+    for (int i = 0; i <= n_blocks; ++i) {
+      const int s = i % kStages;
+      const int sp = (i + kStages - 1) % kStages;  // the previous tile's stage
+      if (i < n_blocks) mbar_wait(full_k(s), (i / kStages) & 1);
+      if (i > 0) mbar_wait(full_v(sp), ((i - 1) / kStages) & 1);
+      float sc[64];
+      turn_wait(c);
+      wgmma_fence();
+      if (i > 0)
+        gemm_pv(acc, smem_desc(p_c, 16),
+                smem_desc(base + kOffKv + sp * kStageBytes + tile_bytes(kBlockN),
+                          box_bytes(kBlockN)));
+      if (i < n_blocks)
+        gemm_kmajor_d128_n128<box_bytes(kBlockM), box_bytes(kBlockN)>(
+            sc, smem_desc(q_c, 16), smem_desc(base + kOffKv + s * kStageBytes, 16));
+      wgmma_commit();
+      if (c == 0 || i < n_blocks) turn_pass(c);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (i > 0) mbar_arrive(empty_v(sp));  // V_{i-1} is read
+      if (i == n_blocks) break;
+      mbar_arrive(empty_k(s));              // K_i is read
+      fence_regs(sc);
+
+      // Online softmax in exp2 units: keys past n_keys (only in the last tile) get -inf.
+      const int key0 = (j0 + i) * kBlockN + cq;
+      if ((j0 + i + 1) * kBlockN > n_keys) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (key0 + 8 * j + (e % 2) >= n_keys) sc[4 * j + e] = -INFINITY;
+      }
+      if constexpr (kCap) {
+        // static shift: masked keys are -inf and give exact zeros
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], scale_log2, -cap));
+            row_sum[e / 2] += sc[4 * j + e];
+          }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          // max(s) * scale is max(s * scale): the scale is positive and rounding monotonic
+          const float m_new = fmaxf(fmaxf(row_max[r], mx * scale_log2), kMaxFloor);
+          const float alpha = exp2_approx(row_max[r] - m_new);
+          row_max[r] = m_new;
+          row_sum[r] *= alpha;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            acc[4 * j + 2 * r] *= alpha;
+            acc[4 * j + 2 * r + 1] *= alpha;
+          }
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], scale_log2, -m_new));
+              row_sum[r] += sc[4 * j + e];
+            }
+        }
+      }
+      // P to shared memory, visible to the async proxy before the next turn's P V reads it
+      // (the previous P V has completed: this warpgroup waited for it above)
+      store_p(smem + kOffP + c * kPBytes, r0, cq, sc);
+      fence_async_smem();
+      warpgroup_sync(c);
+    }
   }
-  cp_async_commit();
 
-  for (int j = 0; j < n_blocks; ++j) {
-    load_tile(s_v, v, v_ss, j * kBlockN, n_keys, tid);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q (first pass) and K_j have landed; V_j may still be in flight
-    __syncthreads();
-
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < kHeadDim / 16; ++ks)
-        ldsm_x4(q_frag[ks], s_q + (warp * 16 + (lane % 16)) * kSmemLd + ks * 16 + (lane / 16) * 8);
-    }
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        uint32_t kb[4];
-        ldsm_x4(kb, s_k + (np * 16 + (lane % 8) + (lane / 16) * 8) * kSmemLd + ks * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma_16816(s[2 * np], q_frag[ks], kb[0], kb[1]);
-        mma_16816(s[2 * np + 1], q_frag[ks], kb[2], kb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with s_k
-    if (j + 1 < n_blocks) load_tile(s_k, k, k_ss, (j + 1) * kBlockN, n_keys, tid);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-
-    // Online softmax in exp2 units.
-    const bool ragged = (j + 1) * kBlockN > n_keys;
-    const int key0 = j * kBlockN + (lane % 4) * 2;
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[nt][c] * scale_log2;
-        if (ragged && key0 + nt * 8 + (c % 2) >= n_keys) x = -INFINITY;
-        s[nt][c] = x;
-      }
-    }
-    if constexpr (kCap) {
-      // static shift: masked keys are -inf and give exact zeros
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[nt][c] = exp2f(s[nt][c] - cap);
-          row_sum[c / 2] += s[nt][c];
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(fmaxf(row_max[r], mx), kMaxFloor);
-        const float alpha = exp2f(row_max[r] - m_new);
-        row_max[r] = m_new;
-        row_sum[r] *= alpha;
-#pragma unroll
-        for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-          acc[dt][2 * r] *= alpha;
-          acc[dt][2 * r + 1] *= alpha;
-        }
-#pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt) {
-          s[nt][2 * r] = exp2f(s[nt][2 * r] - m_new);
-          s[nt][2 * r + 1] = exp2f(s[nt][2 * r + 1] - m_new);
-          row_sum[r] += s[nt][2 * r] + s[nt][2 * r + 1];
-        }
-      }
-    }
-
-    cp_async_wait<1>();  // V_j has landed; K_{j+1} may still be in flight
-    __syncthreads();
-
-    // O += P V: P (bf16) comes straight from the score accumulators.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < kHeadDim / 16; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, s_v + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kSmemLd +
-                              dp * 16 + (lane / 16) * 8);
-        mma_16816(acc[2 * dp], pa, vb[0], vb[1]);
-        mma_16816(acc[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with s_v before the next V tile lands there
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: normalise and store; a row with no valid key (sum 0) stores zeros.
-  const int row_a = m0 + warp * 16 + lane / 4;
-  const int row_b = row_a + 8;
-  float inv[2];
+  // Epilogue: a row with no valid key (sum 0) stores zeros; the floor also covers a row that
+  // saw no key tile at all.
+  float total[2], inv[2], shift[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    float total = row_sum[r];
-    total += __shfl_xor_sync(0xffffffffu, total, 1);
-    total += __shfl_xor_sync(0xffffffffu, total, 2);
-    const float safe = total == 0.f ? 1.f : total;
-    inv[r] = 1.f / safe;
-    const int row = r == 0 ? row_a : row_b;
-    // the floor also covers a row that saw no key tile at all (kv_len 0)
-    const float shift = kCap ? cap : fmaxf(row_max[r], kMaxFloor);
-    if (lse != nullptr && lane % 4 == 0 && row < sq)
-      lse[static_cast<int64_t>(blockIdx.y) * sq + row] = (shift + log2f(safe)) * kLn2;
+    total[r] = row_sum[r];
+    total[r] += __shfl_xor_sync(0xffffffffu, total[r], 1);
+    total[r] += __shfl_xor_sync(0xffffffffu, total[r], 2);
+    inv[r] = 1.f / (total[r] == 0.f ? 1.f : total[r]);
+    shift[r] = kCap ? cap : fmaxf(row_max[r], kMaxFloor);
   }
+  if (part_o != nullptr) {
+    // one key range of a split call: unnormalised O and (m, l) per row, for the combine
+    const int64_t rows = static_cast<int64_t>(gridDim.y) * sq;
+    const int64_t first = blockIdx.z * rows + static_cast<int64_t>(bh) * sq;
 #pragma unroll
-  for (int dt = 0; dt < kHeadDim / 8; ++dt) {
-    const int col = dt * 8 + (lane % 4) * 2;
-    if (row_a < sq)
-      *reinterpret_cast<uint32_t*>(o + row_a * o_ss + col) =
-          pack_bf16x2(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
-    if (row_b < sq)
-      *reinterpret_cast<uint32_t*>(o + row_b * o_ss + col) =
-          pack_bf16x2(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = row0 + 8 * hi;
+      if (row >= sq) continue;
+      float* dst = part_o + (first + row) * kHeadDim;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j + cq) =
+            make_float2(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+      if (lane % 4 == 0)
+        *reinterpret_cast<float2*>(part_ml + (first + row) * 2) = make_float2(shift[hi], total[hi]);
+    }
+    return;
+  }
+  o += b * o_sb + h * o_sh;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = row0 + 8 * hi;
+    if (row >= sq) continue;
+    if (lse != nullptr && lane % 4 == 0)
+      lse[static_cast<int64_t>(bh) * sq + row] =
+          (shift[hi] + log2f(total[hi] == 0.f ? 1.f : total[hi])) * kLn2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(o + row * o_ss + 8 * j + cq) =
+          pack_bf16x2(acc[4 * j + 2 * hi] * inv[hi], acc[4 * j + 2 * hi + 1] * inv[hi]);
   }
 }
 
-// The opt-in to more than 48 KiB of dynamic shared memory, made once per device and kernel
-// variant, not on every launch (two threads racing here both set the same value).
-template <bool kCap>
-cudaError_t smem_opt_in() {
-  constexpr int kMaxDevices = 64;
-  static bool done[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && done[device]) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
-  return err;
+// Merges the key ranges of a split call: one warp per row of [B * N * Sq], 4 columns a lane.
+__global__ void flash_fwd_combine_kernel(const float* __restrict__ part_o,
+                                         const float* __restrict__ part_ml,
+                                         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                         int heads, int sq, int splits, int64_t rows,
+                                         int64_t o_sb, int64_t o_ss, int64_t o_sh) {
+  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x / 32) + threadIdx.x / 32;
+  if (r >= rows) return;
+  const int lane = threadIdx.x % 32;
+  float m = -INFINITY;
+  for (int z = 0; z < splits; ++z) m = fmaxf(m, part_ml[(z * rows + r) * 2]);
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float2 ml = *reinterpret_cast<const float2*>(part_ml + (z * rows + r) * 2);
+    const float w = exp2f(ml.x - m);
+    const float4 x = *reinterpret_cast<const float4*>(part_o + (z * rows + r) * kHeadDim + 4 * lane);
+    l += w * ml.y;
+    a.x += w * x.x;
+    a.y += w * x.y;
+    a.z += w * x.z;
+    a.w += w * x.w;
+  }
+  const float safe = l == 0.f ? 1.f : l;
+  const float inv = 1.f / safe;
+  const int64_t bh = r / sq;
+  const int row = static_cast<int>(r % sq);
+  __nv_bfloat16* dst =
+      o + (bh / heads) * o_sb + row * o_ss + (bh % heads) * o_sh + 4 * lane;
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(pack_bf16x2(a.x * inv, a.y * inv), pack_bf16x2(a.z * inv, a.w * inv));
+  if (lse != nullptr && lane == 0) lse[r] = (m + log2f(safe)) * kLn2;
 }
+
+bool g_opt_in[2][kMaxDevices];  // per kernel variant (kCap) and device
 
 }  // namespace
 
-// Launches the kernel on `stream`. Strides are in elements, for [B, S, N, D] views with a
-// unit D stride. lse is a device pointer to [B, N, Sq] fp32, or null for no LSE output.
-// kv_len is a device pointer to [B] int32, or null for no key mask. A nonzero cap_mode runs
-// the cap-mode variant with the static shift `cap` (log2 units); cap is unused otherwise.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int dft_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, const void* kv_len, int batch, int heads, int sq,
-                                  int sk, long long q_sb, long long q_ss, long long q_sh,
-                                  long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-                                  long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-                                  long long o_sh, float scale_log2, int cap_mode, float cap,
-                                  void* stream) {
-  const cudaError_t err = cap_mode ? smem_opt_in<true>() : smem_opt_in<false>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * heads);
+// Launches the forward on `stream`. `geom` holds, for q, k and v in that order, seven values
+// each: the dims innermost first (128, N, S, B) and the byte strides of N, S and B (see
+// `make_map`). o is written through its strides (in elements, a unit D stride). lse is a device
+// pointer to [B, N, Sq] fp32, or null for no LSE output. kv_len is a device pointer to [B]
+// int32, or null for no key mask. A nonzero cap_mode runs the cap-mode variant with the static
+// shift `cap` (log2 units); cap is unused otherwise. With splits > 1 the key tiles are cut
+// into `splits` ranges, and part_o ([splits, B*N*Sq, 128] fp32) and part_ml ([splits, B*N*Sq,
+// 2] fp32) receive each range's unnormalised O and row state instead of o and lse:
+// `dft_flash_fwd_combine` then writes o and lse. Returns the cudaError_t of the launch (0 on
+// success), or -1 if a tensor map could not be encoded.
+extern "C" int dft_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                  const unsigned long long* geom, void* o, void* lse,
+                                  const void* kv_len, void* part_o, void* part_ml, int batch,
+                                  int heads, int sq, int sk, int splits, long long o_sb,
+                                  long long o_ss, long long o_sh, float scale_log2, int cap_mode,
+                                  float cap, void* stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(&tm_q, q, geom, kBlockM) || !make_map(&tm_k, k, geom + 7, kBlockN) ||
+      !make_map(&tm_v, v, geom + 14, kBlockN))
+    return kEncodeFailed;
   auto kernel = cap_mode ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), static_cast<const int*>(kv_len), heads, sq, sk, q_sb, q_ss,
-      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale_log2, cap);
+  const cudaError_t err = smem_opt_in(kernel, kSmem, g_opt_in[cap_mode ? 1 : 0]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (sk + kBlockN - 1) / kBlockN;
+  const int per_split = (n_tiles + splits - 1) / splits;
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, batch * heads, splits);
+  const bool split = splits > 1;
+  kernel<<<grid, kFwdThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(kv_len), split ? static_cast<float*>(part_o) : nullptr,
+      split ? static_cast<float*>(part_ml) : nullptr, heads, sq, sk, per_split, o_sb, o_ss, o_sh,
+      scale_log2, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the combine of a split forward on `stream`: from part_o and part_ml (see
+// `dft_flash_fwd_bf16`) it writes o through its strides and, when lse is not null, the LSE.
+// Returns the cudaError_t of the launch.
+extern "C" int dft_flash_fwd_combine(const void* part_o, const void* part_ml, void* o, void* lse,
+                                     int batch, int heads, int sq, int splits, long long o_sb,
+                                     long long o_ss, long long o_sh, void* stream) {
+  const int64_t rows = static_cast<int64_t>(batch) * heads * sq;
+  const int warps = 8;
+  const int64_t blocks = (rows + warps - 1) / warps;
+  flash_fwd_combine_kernel<<<static_cast<unsigned>(blocks), 32 * warps, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, sq, splits, rows, o_sb,
+      o_ss, o_sh);
   return static_cast<int>(cudaGetLastError());
 }

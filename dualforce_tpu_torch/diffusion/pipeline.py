@@ -32,8 +32,20 @@ QUANTIZE_MODES = ("none", "int8", "int4")
 QUANTIZED_TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")
 
 
+def basic_clean(text: str) -> str:
+    """`ftfy.fix_text` where ftfy is installed (optional), then HTML entities
+    unescaped twice, then outer whitespace stripped."""
+    try:
+        import ftfy
+    except ImportError:
+        pass
+    else:
+        text = ftfy.fix_text(text)
+    return html.unescape(html.unescape(text)).strip()
+
+
 def prompt_clean(text: str) -> str:
-    return re.sub(r"\s+", " ", html.unescape(html.unescape(text)).strip()).strip()
+    return re.sub(r"\s+", " ", basic_clean(text)).strip()
 
 
 def _to_device(x, device) -> torch.Tensor:

@@ -3,7 +3,8 @@
 `dualforce_tpu_torch/csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into
 one shared library with a plain C interface, loaded with `ctypes`. The
 library goes to `build/dualforce_tpu_torch/` at the root of the checkout,
-named by a hash of the source and the flags: an edited source or flag builds
+named by a hash of the source, every header under `csrc/` (which the sources
+include) and the flags (`build_key`): an edited source, header or flag builds
 anew, an unchanged one is reused. Importing this module builds nothing.
 """
 
@@ -17,7 +18,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dualforce_tpu_torch"
@@ -41,12 +42,23 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def build_key(name: str, csrc: Optional[Path] = None) -> str:
+    """The hash that names `<csrc>/<name>.cu`'s library (`csrc` defaults to
+    `CSRC`): the flags, the source and every `*.cuh` header beside it (by name
+    and bytes, in name order), so that an edited header builds every source
+    anew."""
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
     """Build `csrc/<name>.cu` unless it is built already. Raises on a failed
     build."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
-    lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"lib{name}-{build_key(name)}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         return Built(lib, 0.0, log_path.read_text() if log_path.is_file() else "")

@@ -7,7 +7,10 @@ Counterpart of `dualforce_tpu/ops/flash_attention.py`: the Pallas kernels
 behind `flash_attention` and `flash_attention_with_lse`. The forward kernel
 (`csrc/flash_fwd.cu`) computes, per (batch, head), softmax(Q K^T / sqrt(D) +
 kv mask) V, non-causal, D = 128, bf16 in and out with fp32 accumulation, and
-optionally the natural-log LSE [B, N, Sq] in fp32; keys at positions >=
+optionally the natural-log LSE [B, N, Sq] in fp32. It reads q, k and v
+through 4-D tensor maps (`tma_geometry`); where its 128-row CTAs would leave
+SMs idle it splits the key range (`fwd_splits`) and a combine kernel merges
+the ranges, both launched by one call. Keys at positions >=
 kv_valid_len[b] are excluded, and a query row with no valid key returns
 zeros (LSE -1e4 * ln 2), not NaN. With `softmax_cap` (the "fast" route) the
 static shift cap replaces the running max: P = exp2(S log2(e) / sqrt(D) -
@@ -49,6 +52,7 @@ pair's kernels once) and `flash_bwd_preprocess.launches` the preprocess
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -65,9 +69,17 @@ _MAX_FLOOR = -1.0e4          # running-max floor, in log2 units (the kernel's)
 _PLAIN_SCORE_BYTES = 1 << 28  # fp32 score bytes the plain versions hold per q chunk
 _MAX_GRID_Y = 65535           # batch * heads rides on the grid's y dimension
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 12
+# the forward's C launchers: q, k, v, their tensor-map geometry, o, lse, kv_len, the split
+# workspace; then the combine of a split call
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_COMBINE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+                     + [ctypes.c_void_p])
+# the forward kernel's tiles (csrc/flash_fwd.cu `kBlockM`, `kBlockN`): 128 query rows per CTA,
+# 128 keys per stage; a split call gives each key range at least FWD_MIN_SPLIT_TILES tiles
+FWD_BLOCK_M = 128
+FWD_BLOCK_N = 128
+FWD_MIN_SPLIT_TILES = 8
 # the backward's C launchers: q, k, v, dO, then their tensor-map geometry (`tma_geometry`)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
@@ -239,6 +251,36 @@ def _lens(kv_valid_len):
     return None if kv_valid_len is None else kv_valid_len.to(torch.int32).contiguous()
 
 
+def fwd_splits(ctas: int, sk: int, sms: int) -> int:
+    """Key ranges a forward call is cut into: 1 where its `ctas` CTAs (B * N
+    * ceil(Sq / 128)) fill the `sms` SMs; else the count, among those that
+    leave every range at least FWD_MIN_SPLIT_TILES key tiles, whose CTAs
+    best fill whole waves of `sms` (the smallest such count)."""
+    if ctas >= sms:
+        return 1
+    tiles = -(-sk // FWD_BLOCK_N)
+    best, best_fill = 1, ctas / sms
+    # sms ranges always fill whole waves: no count past it can do better
+    for splits in range(2, min(tiles // FWD_MIN_SPLIT_TILES, sms) + 1):
+        waves = ctas * splits / sms
+        fill = waves / math.ceil(waves)
+        if fill > best_fill + 1e-9:
+            best, best_fill = splits, fill
+            if fill >= 1.0:
+                break
+    return best
+
+
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
 def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool, softmax_cap):
     shapes = (q.shape, k.shape, v.shape)
     strides = (q.stride(), k.stride(), v.stride())
@@ -246,21 +288,39 @@ def _launch_fwd(q, k, v, kv_valid_len, with_lse: bool, softmax_cap):
     _check_cuda_inputs("qkv", (q, k, v), shapes, strides, ptrs)
     _check_qkv(q, k, v, kv_valid_len, shapes)
     b, sq, n, d = shapes[0]
+    sk = shapes[1][1]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
+    if sk == 0:     # no key at all: the kernel's keyless rows, without a launch
+        if lse is not None:
+            lse.fill_((_MAX_FLOOR if softmax_cap is None else softmax_cap) * LN2)
+        return out.zero_(), lse
     lens = _lens(kv_valid_len)
+    splits = fwd_splits(b * n * -(-sq // FWD_BLOCK_M), sk, _sm_count(q.device))
+    part_o = part_ml = None
+    if splits > 1:
+        part_o = torch.empty((splits, b * n * sq, d), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((splits, b * n * sq, 2), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    o_strides = (sq * n * d, n * d, d)
     err = _kernel("flash_fwd", "dft_flash_fwd_bf16", _FWD_ARGTYPES)(
-        *ptrs, out.data_ptr(), None if lse is None else lse.data_ptr(),
-        None if lens is None else lens.data_ptr(), b, n, sq, shapes[1][1],
-        *strides[0][:3], *strides[1][:3], *strides[2][:3], sq * n * d, n * d, d,
-        d ** -0.5 * LOG2E, softmax_cap is not None,
-        0.0 if softmax_cap is None else softmax_cap,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, _geometry(shapes, strides), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if lens is None else lens.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), b, n, sq, sk, splits, *o_strides,
+        d ** -0.5 * LOG2E, softmax_cap is not None, 0.0 if softmax_cap is None else softmax_cap,
+        stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed: error {err}")
+    if splits > 1:
+        err = _kernel("flash_fwd", "dft_flash_fwd_combine", _COMBINE_ARGTYPES)(
+            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, n, sq, splits, *o_strides, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_fwd combine launch failed: CUDA error {err}")
     if softmax_cap is None:
         flash_attention.launches += 1
     else:

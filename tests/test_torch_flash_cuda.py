@@ -68,6 +68,101 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         flash_attention(y, y, y)                       # D = 64
 
 
+# --- the forward at its tile edges, keyless rows, views, the split over keys --
+# The kernel's tiles are 128 query rows and 128 keys: lengths on both sides of
+# them, with and without the LSE (within 1e-3 absolute of the fp32 plain one).
+
+def _fwd_inputs(cuda, b, n, sq, sk, lens, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, 128, generator=g, device=cuda, dtype=torch.bfloat16)
+               for s in (sq, sk, sk))
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, v, tl
+
+
+def _check_fwd(q, k, v, tl, cap=None):
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention_with_lse
+
+    before = (flash_attention.launches, flash_attention.cap_launches)
+    out, lse = flash_attention_with_lse(q, k, v, tl, softmax_cap=cap)
+    plain = flash_attention(q, k, v, tl, softmax_cap=cap)
+    torch.cuda.synchronize()
+    after = (flash_attention.launches, flash_attention.cap_launches)
+    assert after == ((before[0] + 2, before[1]) if cap is None else (before[0], before[1] + 2))
+    want, want_lse = flash_attention_plain(q.float(), k.float(), v.float(), tl,
+                                           return_lse=True, softmax_cap=cap)
+    assert _rel(out, want) <= 1e-2
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    assert torch.equal(out, plain)                     # the LSE output changes nothing else
+    return out, lse
+
+
+@pytest.mark.parametrize("sk", [1, 127, 128, 129, 257, 512])
+@pytest.mark.parametrize("sq", [1, 63, 127, 128, 129, 403])
+def test_forward_at_tile_edges(cuda, sq, sk):
+    _check_fwd(*_fwd_inputs(cuda, 1, 2, sq, sk, None, 10))
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens", [
+    (3, 2, 300, 700, (700, 200, 0)),      # kv_len ends inside a key tile; a keyless batch
+    (2, 3, 129, 129, (129, 0)),
+    (3, 2, 403, 4031, (4031, 1000, 0)),   # a split call whose later ranges hold no key
+])
+def test_forward_keyless_rows(cuda, b, n, sq, sk, lens):
+    from dualforce_tpu_torch.ops.flash_attention import LN2
+
+    out, lse = _check_fwd(*_fwd_inputs(cuda, b, n, sq, sk, lens, 11))
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert torch.count_nonzero(out[i]) == 0
+            assert float((lse[i] - (-1.0e4 * LN2)).abs().max()) <= 1e-3
+
+
+def test_forward_without_keys(cuda):
+    """Sk = 0: every row is keyless (zeros; the LSE -1e4 * ln 2, or cap * ln
+    2 in cap mode), and no kernel is launched, there being no key to load."""
+    from dualforce_tpu_torch.ops.flash_attention import LN2, flash_attention_with_lse
+
+    q = torch.randn(1, 130, 2, 128, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 0, 2, 128, device=cuda, dtype=torch.bfloat16)
+    for cap, shift in ((None, -1.0e4), (30.0, 30.0)):
+        before = (flash_attention.launches, flash_attention.cap_launches)
+        out, lse = flash_attention_with_lse(q, k, k, softmax_cap=cap)
+        assert (flash_attention.launches, flash_attention.cap_launches) == before
+        assert out.shape == q.shape and torch.count_nonzero(out) == 0
+        assert lse.shape == (1, 2, 130)
+        assert float((lse - shift * LN2).abs().max()) <= 1e-3
+
+
+def test_forward_reads_heads_major_views(cuda):
+    """q, k, v as [B, S, N, D] views of heads-major [B, N, S, D] tensors."""
+    g = torch.Generator(cuda).manual_seed(12)
+    q, k, v = (torch.randn(2, 3, s, 128, generator=g, device=cuda,
+                           dtype=torch.bfloat16).transpose(1, 2) for s in (333, 517, 517))
+    assert not q.is_contiguous()
+    _check_fwd(q, k, v, None)
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens", [
+    (1, 2, 403, 4031, None),
+    (3, 2, 403, 4031, (4031, 1000, 0)),
+    (1, 12, 403, 43120, None),
+])
+def test_split_forward_matches_whole(cuda, b, n, sq, sk, lens, monkeypatch):
+    """A call whose key range is split (`fwd_splits` > 1) against the same call
+    left whole and the plain version; one launch each."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, tl = _fwd_inputs(cuda, b, n, sq, sk, lens, 13)
+    ctas = b * n * -(-sq // fa.FWD_BLOCK_M)
+    assert fa.fwd_splits(ctas, sk, fa._sm_count(q.device)) > 1
+    split, split_lse = _check_fwd(q, k, v, tl)
+    monkeypatch.setattr(fa, "fwd_splits", lambda ctas, sk, sms: 1)
+    whole, whole_lse = _check_fwd(q, k, v, tl)
+    assert _rel(split, whole.float()) <= 1e-2
+    assert float((split_lse - whole_lse).abs().max()) <= 1e-3
+
+
 # --- forward LSE output and the backward kernel -----------------------------
 # Tolerances: the LSE within 1e-3 absolute of the fp32 plain version; dq, dk
 # and dv (bf16, dq through an fp32 workspace that bulk reductions add into in

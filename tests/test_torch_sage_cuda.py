@@ -68,6 +68,42 @@ def test_cap_kernel_matches_plain(cuda, b, n, sq, sk, lens):
     _zero_rows(out, lens)
 
 
+def _check_cap(q, k, v, tl):
+    before = (flash_attention.launches, flash_attention.cap_launches)
+    out, lse = flash_attention_with_lse(q, k, v, tl, softmax_cap=FAST_SOFTMAX_CAP)
+    plain = flash_attention(q, k, v, tl, softmax_cap=FAST_SOFTMAX_CAP)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.cap_launches) == \
+        (before[0], before[1] + 2)
+    want, want_lse = flash_attention_plain(q.float(), k.float(), v.float(), tl,
+                                           return_lse=True, softmax_cap=FAST_SOFTMAX_CAP)
+    assert _rel(out, want) <= 1e-2 and torch.equal(out, plain)
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    return out, lse
+
+
+@pytest.mark.parametrize("sk", [1, 127, 128, 129, 257, 512])
+@pytest.mark.parametrize("sq", [1, 63, 127, 128, 129, 403])
+def test_cap_kernel_at_tile_edges(cuda, sq, sk):
+    """The cap mode on both sides of the kernel's 128-row and 128-key tiles."""
+    _check_cap(*_inputs(cuda, 1, 2, sq, sk, None, 3))
+
+
+@pytest.mark.parametrize("b,n,sq,sk,lens", [
+    (3, 2, 300, 700, (700, 200, 0)),      # kv_len ends inside a key tile; a keyless batch
+    (3, 2, 403, 4031, (4031, 1000, 0)),   # a split call whose later ranges hold no key
+])
+def test_cap_kernel_keyless_rows(cuda, b, n, sq, sk, lens):
+    """A keyless batch gets exact zeros and the LSE cap * ln 2."""
+    from dualforce_tpu_torch.ops.flash_attention import LN2
+
+    out, lse = _check_cap(*_inputs(cuda, b, n, sq, sk, lens, 4))
+    _zero_rows(out, lens)
+    for i, length in enumerate(lens):
+        if length == 0:
+            assert float((lse[i] - FAST_SOFTMAX_CAP * LN2).abs().max()) <= 1e-3
+
+
 @pytest.mark.parametrize("b,n,sq,sk,lens", SHAPES)
 def test_sage_kernel_matches_plain(cuda, b, n, sq, sk, lens):
     q, k, v, tl = _inputs(cuda, b, n, sq, sk, lens, 1)
