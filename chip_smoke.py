@@ -11,7 +11,9 @@ Phases, each of which must pass:
 2. build: every CUDA kernel of the port, from the sources in the checkout,
    with ptxas's registers, spills and C7512 lines; the SASS of the forward
    and the backward must show wgmma (HGMMA) and TMA loads (UTMALDG) in
-   every flash kernel, and the forward no mma.sync (HMMA).
+   every flash kernel, and the forward no mma.sync (HMMA); the sage kernel
+   integer wgmma (IGMMA) beside HGMMA and UTMALDG, and no mma.sync (HMMA,
+   IMMA).
 3. kernels: each kernel's wrapper at the main path's shapes, held against
    its plain PyTorch version on the same inputs (two heads per shape, bf16
    output against the fp32 plain version, relative L2 error <= 1e-2), plus
@@ -56,24 +58,28 @@ Phases, each of which must pass:
    every module's LoRA `b` must be nonzero, and the saved `lora_weights.npz`
    must load back equal.
 9. precision kernels: at the six shapes of phase 3, the flash forward's cap
-   mode (the "fast" route) against its plain version (relative L2 <= 1e-2)
-   and the int8-QK sage kernel against its plain version on the same int8
-   quantization (<= 1e-2; its error against exact fp32 attention printed
-   beside JAX's bound of 2.5e-2, for information), two heads each; the
-   masked case for both (the length-0 batch exactly 0) and a cap-mode
-   forward with its LSE (<= 1e-3 absolute; a keyless row's LSE cap * ln 2);
-   times of each kernel, of sage's quantization prologue, of the plain
-   versions on the two checked heads (no yardstick), the bound and the
-   library call (SDPA for the cap mode; none computes int8-QK attention).
+   mode (the "fast" route) against its plain version (relative L2 <= 1e-2),
+   sage's CUDA quantization prologue against its plain version (Q's codes
+   and scales bit-equal; K's codes at most 1 apart in at most 1e-4 of them,
+   its scales within 1e-6 relative) and the int8-QK sage kernel against its
+   plain version on the same int8 quantization (<= 1e-2; its error against
+   exact fp32 attention printed beside JAX's bound of 2.5e-2, for
+   information), two heads each; the masked case for all three (the
+   length-0 batch exactly 0) and a cap-mode forward with its LSE (<= 1e-3
+   absolute; a keyless row's LSE cap * ln 2); times of each kernel beside
+   the cap mode's at the same shape (the yardstick sage exists to beat), of
+   the prologue beside its byte bound, of the plain
+   versions (no yardstick), the bound and the library call (SDPA for the
+   cap mode; none computes int8-QK attention or the prologue).
 10. precision step: the phase-4 step with "fast" against "ref" and with
    "sage" through the kernel against "sage" through its plain version
    (relative L2 <= 2e-2), the latter also with int8 towers.
 11. precision serving: on the main path's modules, which stay as they are,
    one request through `MOVAPipeline(attn_impl="sage", quantize="int8")`
    and one through `MOVAPipeline(attn_impl="fast", quantize="int4")`, as in
-   phase 5. The sage request must launch the sage kernel exactly 112 times
-   and the flash kernels never; the fast request the cap mode exactly 112
-   times and nothing else. Prints the seconds spent quantizing and the
+   phase 5. The sage request must launch the sage kernel and its prologue
+   exactly 112 times each and the flash kernels never; the fast request the
+   cap mode exactly 112 times and nothing else. Prints the seconds spent quantizing and the
    device memory of the quantized towers against the bf16 ones.
 12. 720p backward kernels: at the six flash shapes of a 720p training
    micro-step (B 1, D 128: video self 40 x 176,400 x 176,400, video text
@@ -154,6 +160,10 @@ LSE_ABS_TOL = 1e-3
 GRAD_REL_TOL = 2e-2
 LORA_GRAD_REL_TOL = 5e-2
 PREP_REL_TOL = 1e-5     # the delta preprocess against `_delta`: fp32 sums in another order
+# sage's CUDA prologue against its plain version: K codes that may differ by one (K's mean is
+# summed in another order), as a share of the elements, and the K scales' relative error
+PROLOGUE_CODE_SHARE = 1e-4
+PROLOGUE_SCALE_TOL = 1e-6
 # per request: (2 shared layers x 6 attentions + 1 tail layer x 2) x 2 CFG passes x 4 steps
 LAUNCHES_PER_REQUEST = (2 * 6 + 1 * 2) * 2 * 4
 # per training micro-step: the 3 video-side attentions of each of 2 shared layers (video
@@ -330,9 +340,11 @@ def phase_device():
     return smi
 
 
-# SASS opcodes counted in phase 2: warpgroup products, TMA tile loads, bulk copies, bulk
-# reductions, and global atomics (ATOMG, RED; a bulk reduction is UBLKRED)
-SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "UBLKRED", "ATOMG", "RED")
+# SASS opcodes counted in phase 2: warpgroup products (bf16 HGMMA, integer IGMMA), mma.sync
+# (HMMA, IMMA), TMA tile loads, bulk copies, bulk reductions, global atomics (ATOMG, RED; a
+# bulk reduction is UBLKRED), and the int-to-float conversions and MUFU ops of the sage kernel
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "UTMALDG", "UBLKCP", "UBLKRED", "ATOMG", "RED",
+            "I2F", "I2FP", "MUFU")
 # each forward kernel variant (exact, cap) and the opcodes it must issue; HMMA (mma.sync) none
 FWD_SASS_WANT = {"flash_fwd_kernelILb0E": ("HGMMA", "UTMALDG"),
                  "flash_fwd_kernelILb1E": ("HGMMA", "UTMALDG")}
@@ -340,6 +352,9 @@ FWD_SASS_WANT = {"flash_fwd_kernelILb0E": ("HGMMA", "UTMALDG"),
 BWD_SASS_WANT = {"flash_bwd_dkv_kernelILb1E": ("HGMMA", "UTMALDG", "UBLKRED"),
                  "flash_bwd_dkv_kernelILb0E": ("HGMMA", "UTMALDG"),
                  "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")}
+# the sage kernel: integer wgmma for Q.K^T, bf16 wgmma for P.V, TMA loads; no mma.sync (HMMA,
+# IMMA)
+SAGE_SASS_WANT = {"sage_fwd_kernel": ("IGMMA", "HGMMA", "UTMALDG")}
 
 
 def sass_counts(lib: str, nvcc: str):
@@ -376,7 +391,9 @@ def phase_build():
     """Every kernel source, one nvcc each, all started together; the SASS
     must show wgmma (HGMMA) and TMA loads (UTMALDG) in both forward variants
     (and no mma.sync, HMMA) and in all three backward kernels, the fused
-    kernel's bulk reduction of dQ, and no global atomics."""
+    kernel's bulk reduction of dQ, and no global atomics; and integer wgmma
+    (IGMMA) beside HGMMA and UTMALDG in the sage kernel, with no mma.sync
+    (HMMA, IMMA)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dualforce_tpu_torch.ops import _build
@@ -392,8 +409,7 @@ def phase_build():
             if ("Compiling entry" in line or "registers" in line or "spill" in line
                     or "Performance Loss" in line or "C7512" in line):
                 log(f"[build]   {line.strip()}")
-    sass = {name: sass_counts(str(builds[name].path), _build.nvcc())
-            for name in ("flash_fwd", "flash_bwd")}
+    sass = {name: sass_counts(str(builds[name].path), _build.nvcc()) for name in names}
     for name, counts in sass.items():
         for func, ops in counts.items():
             log(f"[build] sass {name} {func}: " + " ".join(f"{op}={n}" for op, n in ops.items()))
@@ -410,6 +426,18 @@ def phase_build():
         raise AssertionError(f"flash_bwd issues global atomics: {atomics}")
     log("[build] flash_bwd: HGMMA and UTMALDG in the fused kernel, the dk/dv pass and the dq "
         "pass; the fused kernel's dQ by UBLKRED; no global atomics")
+    _check_sage_sass(sass["sage_fwd"])
+
+
+def _check_sage_sass(counts) -> None:
+    """Integer and bf16 wgmma and TMA loads in the sage kernel, and no
+    mma.sync anywhere in the library."""
+    _check_sass("sage_fwd", counts, SAGE_SASS_WANT)
+    mma_sync = {func: (ops["HMMA"], ops["IMMA"]) for func, ops in counts.items()
+                if ops["HMMA"] or ops["IMMA"]}
+    if mma_sync:
+        raise AssertionError(f"sage_fwd issues mma.sync (HMMA, IMMA): {mma_sync}")
+    log("[build] sage_fwd: IGMMA, HGMMA and UTMALDG in the sage kernel, no HMMA or IMMA")
 
 
 def time_unsplit_ms(fa, fn):
@@ -1000,6 +1028,38 @@ def sage_bound_ms(b: int, n: int, sq: int, sk_valid: int, sk: int):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def sage_prologue_bound_ms(b: int, n: int, sq: int, sk: int):
+    """Least time on an H100 SXM for sage's quantization prologue: bf16 q
+    and k read once, int8 q and k and the fp32 per-row and per-key scales
+    written once; its arithmetic (a subtract, a max, a divide and a round
+    per element) is far below the bytes' time at the fp32 rate."""
+    nbytes = b * n * (sq + sk) * (2 * HEAD_DIM + HEAD_DIM + 4)
+    t_ops, t_bytes = 4 * b * n * (sq + sk) * HEAD_DIM / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_prologue(sa, q, k, kv_len=None):
+    """The CUDA prologue against `sage_quantize_plain`: Q's codes and scales
+    bit-equal; K's codes at most 1 apart in at most 1e-4 of the elements,
+    its scales within 1e-6 relative (K's mean summed in another order).
+    Returns (K codes that differ, the K scales' relative error)."""
+    import torch
+
+    got = sa.sage_quantize(q, k, kv_len)
+    torch.cuda.synchronize()
+    want = sa.sage_quantize_plain(q, k, kv_len)
+    diff = (got[1].int() - want[1].int()).abs()
+    k_codes, k_max = int(torch.count_nonzero(diff)), int(diff.max())
+    k_scale_err = float(((got[3] - want[3]).abs() / want[3]).max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]) and k_max <= 1
+            and k_codes <= PROLOGUE_CODE_SHARE * diff.numel()
+            and k_scale_err <= PROLOGUE_SCALE_TOL):
+        raise AssertionError(f"sage prologue: q codes equal {torch.equal(got[0], want[0])}, "
+                             f"q scales equal {torch.equal(got[2], want[2])}, k codes "
+                             f"{k_codes} differ (max {k_max}), k scales rel err {k_scale_err}")
+    return k_codes, k_scale_err
+
+
 def _check(name: str, err: float, tol: float) -> None:
     if not err <= tol:
         raise AssertionError(f"{name}: relative L2 error {err} > {tol}")
@@ -1018,7 +1078,8 @@ def phase_precision_kernels():
 
     cap = FAST_SOFTMAX_CAP
     g = torch.Generator("cuda").manual_seed(7)
-    rows, max_abs = {"cap": [], "sage": []}, {"cap": 0.0, "sage": 0.0}
+    rows = {"cap": [], "sage": [], "prologue": []}
+    max_abs = {"cap": 0.0, "sage": 0.0, "prologue": 0.0}
     for name, n, sq, sk in MAIN_PATH_SHAPES:
         q, k, v = (_rand(g, 1, s, n, HEAD_DIM) for s in (sq, sk, sk))
         heads = [0, n - 1]
@@ -1031,7 +1092,10 @@ def phase_precision_kernels():
         cap_err, cap_mae = rel_err(got, want), float((got.float() - want).abs().max())
         _check(f"cap {name}", cap_err, KERNEL_REL_TOL)
         exact = flash_attention_plain(*(x.float() for x in sub))
-        # sage, on the wrapper's own quantization of all heads
+        # sage, on the CUDA prologue's quantization of all heads, held to the plain
+        # prologue first
+        k_codes, k_scale_err = check_prologue(sa, q, k)
+        max_abs["prologue"] = max(max_abs["prologue"], 1.0 if k_codes else 0.0)
         qi, ki, qs, ks = sa.sage_quantize(q, k)
         sout = sa.sage_fwd(qi, ki, v, qs, ks)
         torch.cuda.synchronize()
@@ -1055,32 +1119,44 @@ def phase_precision_kernels():
                                   reps=3, warmup=1)
         sage_ms, sage_host_us = time_ms(lambda: sa.sage_fwd(qi, ki, v, qs, ks),
                                         reps=7, warmup=2)
-        prologue_ms, _ = time_ms(lambda: sa.sage_quantize(q, k), reps=3, warmup=1)
+        prologue_ms, prologue_host_us = time_ms(lambda: sa.sage_quantize(q, k), reps=7, warmup=2)
+        prologue_plain_ms, _ = time_ms(lambda: sa.sage_quantize_plain(q, k), reps=3, warmup=1)
+        prologue_bound, prologue_by = sage_prologue_bound_ms(1, n, sq, sk)
         ssub = (qi[:, :, heads].contiguous(), ki[:, :, heads].contiguous(), sub_f[2],
                 qs[:, heads].contiguous(), ks[:, heads].contiguous())
         sage_plain_ms, _ = time_ms(lambda: sa.sage_fwd_plain(*ssub), reps=3, warmup=1)
         cap_bound, cap_by = attention_bound_ms(1, n, sq, sk, sk)
         sage_bound, sage_by = sage_bound_ms(1, n, sq, sk, sk)
         bq, bk = sa.sage_blocks(sq, sk, False)
+        splits = sa.fwd_splits(n * -(-sq // sa.FWD_BLOCK_M), sk, sa._sm_count(q.device))
         rows["cap"].append(dict(shape=name, heads=n, sq=sq, sk=sk, kernel_ms=cap_ms,
                                 plain_ms_2_heads=cap_plain_ms, library_ms=library_ms,
                                 bound_ms=cap_bound, bound_by=cap_by, rel_err=cap_err,
                                 max_abs_err=cap_mae))
         rows["sage"].append(dict(shape=name, heads=n, sq=sq, sk=sk, kernel_ms=sage_ms,
-                                 prologue_ms=prologue_ms, plain_ms_2_heads=sage_plain_ms,
-                                 library_ms=None, bound_ms=sage_bound, bound_by=sage_by,
-                                 rel_err=sage_err, exact_rel_err=sage_exact_err,
-                                 max_abs_err=sage_mae, blocks=(bq, bk)))
+                                 plain_ms_2_heads=sage_plain_ms, library_ms=None,
+                                 bound_ms=sage_bound, bound_by=sage_by, rel_err=sage_err,
+                                 exact_rel_err=sage_exact_err, max_abs_err=sage_mae,
+                                 blocks=(bq, bk), splits=splits, cap_ms=cap_ms))
+        rows["prologue"].append(dict(shape=name, heads=n, sq=sq, sk=sk, kernel_ms=prologue_ms,
+                                     plain_ms=prologue_plain_ms, bound_ms=prologue_bound,
+                                     bound_by=prologue_by, k_codes_differing=k_codes,
+                                     k_scale_rel_err=k_scale_err))
         log(f"[kernel] flash_fwd cap {name} N={n} Sq={sq} Sk={sk}: kernel_ms={cap_ms:.4f} "
             f"bound_ms={cap_bound:.4f} ({cap_by}) library_ms={library_ms:.4f} "
             f"plain_ms={cap_plain_ms:.4f} (2 heads, not a yardstick) rel_err={cap_err:.3e} "
             f"max_abs_err={cap_mae:.3e} host_us={cap_host_us:.1f}")
-        log(f"[kernel] sage_fwd {name} N={n} Sq={sq} Sk={sk} blocks {bq}/{bk}: "
-            f"kernel_ms={sage_ms:.4f} prologue_ms={prologue_ms:.4f} bound_ms={sage_bound:.4f} "
-            f"({sage_by}) library_ms=none plain_ms={sage_plain_ms:.4f} (2 heads, not a "
-            f"yardstick) rel_err={sage_err:.3e} max_abs_err={sage_mae:.3e} "
-            f"vs exact fp32 {sage_exact_err:.3e} (JAX's bound {SAGE_EXACT_REL_TOL}, "
-            f"informative) host_us={sage_host_us:.1f}")
+        log(f"[kernel] sage_fwd {name} N={n} Sq={sq} Sk={sk} blocks {bq}/{bk} splits={splits}: "
+            f"kernel_ms={sage_ms:.4f} cap_mode_ms={cap_ms:.4f} (the yardstick) "
+            f"bound_ms={sage_bound:.4f} ({sage_by}) library_ms=none plain_ms="
+            f"{sage_plain_ms:.4f} (2 heads, not a yardstick) rel_err={sage_err:.3e} "
+            f"max_abs_err={sage_mae:.3e} vs exact fp32 {sage_exact_err:.3e} (JAX's bound "
+            f"{SAGE_EXACT_REL_TOL}, informative) host_us={sage_host_us:.1f}")
+        log(f"[kernel] sage_quantize {name} N={n} Sq={sq} Sk={sk}: kernel_ms={prologue_ms:.4f} "
+            f"bound_ms={prologue_bound:.4f} ({prologue_by}) plain_ms={prologue_plain_ms:.4f} "
+            f"(`sage_quantize_plain`, not a yardstick) host_us={prologue_host_us:.1f}; q codes "
+            f"and scales bit-equal to plain, {k_codes} k codes differ by 1, k scales rel err "
+            f"{k_scale_err:.3e}")
         del q, k, v, qt, kt, vt, sub, sub_f, qi, ki, qs, ks, ssub
         torch.cuda.empty_cache()
 
@@ -1089,6 +1165,7 @@ def phase_precision_kernels():
     q, k, v = (_rand(g, b, s, n, HEAD_DIM) for s in (sq, sk, sk))
     kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
     out, lse = flash_attention_with_lse(q, k, v, kv_len, softmax_cap=cap)
+    check_prologue(sa, q, k, kv_len)
     qi, ki, qs, ks = sa.sage_quantize(q, k, kv_len)
     sout = sa.sage_fwd(qi, ki, v, qs, ks, kv_len)
     torch.cuda.synchronize()
@@ -1108,7 +1185,8 @@ def phase_precision_kernels():
                              f"LSE off by {keyless_lse}")
     log(f"[kernel] masked B={b} N={n} Sq={sq} Sk={sk} kv_len={lens}: cap (with LSE) "
         f"rel_err={errs['cap']:.3e} lse_abs_err={lse_err:.3e} (keyless rows cap*ln2); sage "
-        f"rel_err={errs['sage']:.3e}; the length-0 batch exactly 0 in both")
+        f"rel_err={errs['sage']:.3e} (its prologue held to plain); the length-0 batch exactly "
+        f"0 in both")
     return rows, max_abs
 
 
@@ -1215,7 +1293,7 @@ def phase_precision_serving(cfg, modules):
         image = rng.uniform(-1, 1, (request["height"], request["width"], 3)).astype(np.float32)
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = flash_attention.cap_launches = 0   # this path's counts
-        sa.sage_attention.launches = 0
+        sa.sage_attention.launches = sa.sage_quantize.launches = 0
         t0 = time.perf_counter()
         state = pipe.prepare_state([prompt], [image], negative_prompts=["blurry"],
                                    seeds=[seed], **request)
@@ -1228,7 +1306,7 @@ def phase_precision_serving(cfg, modules):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         counts = {"exact": flash_attention.launches, "cap": flash_attention.cap_launches,
-                  "sage": sa.sage_attention.launches}
+                  "sage": sa.sage_attention.launches, "prologue": sa.sage_quantize.launches}
         launches[impl] = counts
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[precision] attn_impl={impl} quantize={mode}: quantized the towers in "
@@ -1238,8 +1316,9 @@ def phase_precision_serving(cfg, modules):
             f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {decode_s:.2f} s; peak "
             f"{peak:.2f} GiB; launches {counts}")
         _check_result(res, request)
-        want = ({"exact": 0, "cap": 0, "sage": LAUNCHES_PER_REQUEST} if impl == "sage" else
-                {"exact": 0, "cap": LAUNCHES_PER_REQUEST, "sage": 0})
+        want = ({"exact": 0, "cap": 0, "sage": LAUNCHES_PER_REQUEST,
+                 "prologue": LAUNCHES_PER_REQUEST} if impl == "sage" else
+                {"exact": 0, "cap": LAUNCHES_PER_REQUEST, "sage": 0, "prologue": 0})
         if counts != want:
             raise AssertionError(f"attn_impl={impl}: launches {counts}, expected {want}")
         log(f"[precision] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
@@ -1561,6 +1640,7 @@ def main() -> int:
 
     video_self, train_self = rows[0], bwd_rows[0]
     cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
+    prologue_self = prec_rows["prologue"][0]
     split_self = rows_720p[0]
     kernels = [{
         "name": "flash_fwd",
@@ -1680,16 +1760,37 @@ def main() -> int:
                              "serve_fast_int4": prec["fast"]["sage"]},
         "max_abs_err": prec_max_abs["sage"],
         "ms": sage_self["kernel_ms"],
-        "prologue_ms": sage_self["prologue_ms"],
         "plain_ms": sage_self["plain_ms_2_heads"],
         "plain_heads": 2,
         "bound_ms": sage_self["bound_ms"],
         "bound_by": sage_self["bound_by"],
         "library_ms": None,
+        "cap_mode_ms_same_shape": sage_self["cap_ms"],
         "held_against_plain": True,
         "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128, quantization blocks "
-                 "1232/1960 (plain_ms on 2 heads; prologue_ms is the plain-PyTorch int8 "
-                 "quantization before the kernel); the other shapes are on the [kernel] lines",
+                 "1232/1960 (plain_ms on 2 heads); the other shapes are on the [kernel] lines",
+    }, {
+        "name": "sage_quantize",
+        "route": "cuda",
+        "source": "dualforce_tpu_torch/csrc/sage_fwd.cu",
+        "replaces": "dualforce_tpu/ops/flash_attention.py:800-813 (the jnp prologue of "
+                    "`_sage_fwd`: K's mean-centring, `_block_quant_int8` :778 on Q and K, the "
+                    "scale fold)",
+        "launches": prec["sage"]["prologue"],
+        "launches_by_path": {"serve_sage_int8": prec["sage"]["prologue"],
+                             "serve_fast_int4": prec["fast"]["prologue"]},
+        "max_abs_err": prec_max_abs["prologue"],
+        "ms": prologue_self["kernel_ms"],
+        "plain_ms": prologue_self["plain_ms"],
+        "plain_heads": 40,
+        "bound_ms": prologue_self["bound_ms"],
+        "bound_by": prologue_self["bound_by"],
+        "library_ms": None,
+        "held_against_plain": True,
+        "shape": "video_self: 40 heads, Sq = Sk = 43120, D 128, blocks 1232/1960 (one call: the "
+                 "K sums and the quantization kernel; max_abs_err is the largest gap between "
+                 "its int8 codes and the plain version's); the other shapes are on the "
+                 "[kernel] lines",
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -51,10 +51,11 @@
 // Split over keys: where B * N * ceil(Sq / 128) CTAs would leave SMs idle (the 403-query
 // calls), the host splits the key tiles into `splits` ranges (grid z); each CTA then writes
 // its unnormalised fp32 O and its row state (shift m, sum l) to a workspace, and
-// `flash_fwd_combine_kernel` merges the ranges: m = max m_i, l = sum l_i 2^(m_i - m),
+// `split_combine_kernel` (fwd_combine.cuh) merges the ranges: m = max m_i, l = sum l_i 2^(m_i - m),
 // o = sum acc_i 2^(m_i - m) / l. In cap mode every m_i is cap.
 
 #include "hopper.cuh"
+#include "fwd_combine.cuh"
 
 namespace {
 
@@ -66,7 +67,6 @@ constexpr int kBlockM = 128;               // query rows per CTA, 64 per consume
 constexpr int kBlockN = 128;               // keys per stage
 constexpr int kStages = 2;
 constexpr float kMaxFloor = -1.0e4f;       // running-max floor, log2 units (the TPU kernel's)
-constexpr float kLn2 = 0.6931471805599453f;
 
 // shared memory (offsets from a 1024-byte aligned base)
 constexpr int kOffQ = 0;
@@ -80,49 +80,6 @@ constexpr uint32_t kQTx = tile_bytes(kBlockM);
 constexpr uint32_t kKvTx = tile_bytes(kBlockN);
 
 static_assert(kSmem <= 232448, "fits one SM's shared memory");
-
-// Named barriers (0 is __syncthreads): kTurnBar + c completes when consumer warpgroup c may
-// issue its products.
-constexpr int kTurnBar = 4;
-
-__device__ __forceinline__ void turn_wait(int c) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(kTurnBar + c), "n"(kConsumerThreads) : "memory");
-}
-
-__device__ __forceinline__ void turn_pass(int c) {  // to the other consumer warpgroup
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(kTurnBar + 1 - c), "n"(kConsumerThreads)
-               : "memory");
-}
-
-// exp2 on the MUFU unit alone (no scaling for results below 2^-126: they flush to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// P (this thread's rows r0 and r0 + 8 of the warpgroup's 64, in the 64 x 128 fp32 accumulator
-// layout) to shared memory as bf16, K-major in two 64-key boxes with the 128-byte swizzle:
-// 16-byte chunk j of row r lands at chunk j ^ (r % 8) of its box.
-__device__ __forceinline__ void store_p(unsigned char* buf, int r0, int cq, const float (&x)[64]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int r = r0 + 8 * hi;
-      *reinterpret_cast<uint32_t*>(buf + (j / 8) * box_bytes(64) + r * 128 +
-                                   (((j % 8) ^ (r % 8)) << 4) + 2 * cq) =
-          pack_bf16x2(x[4 * j + 2 * hi], x[4 * j + 2 * hi + 1]);
-    }
-}
-
-// O[64 x 128] += P[64 x 128 keys] V[128 keys x 128]: P K-major (K step kk at box kk / 4, byte
-// 32 * (kk % 4) of each row), V MN-major (16 keys, 2,048 bytes, per K step).
-template <int kk = 0>
-__device__ __forceinline__ void gemm_pv(float (&d)[64], uint64_t p, uint64_t v) {
-  wgmma_ss_m64n128<0, 1, (kk / 4) * box_bytes(64) + (kk % 4) * 32, kk * 2048, true>(d, p, v);
-  if constexpr (kk + 1 < kBlockN / 16) gemm_pv<kk + 1>(d, p, v);
-}
 
 template <bool kCap>
 __global__ void __launch_bounds__(kFwdThreads, 1)
@@ -338,40 +295,6 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// Merges the key ranges of a split call: one warp per row of [B * N * Sq], 4 columns a lane.
-__global__ void flash_fwd_combine_kernel(const float* __restrict__ part_o,
-                                         const float* __restrict__ part_ml,
-                                         __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                                         int heads, int sq, int splits, int64_t rows,
-                                         int64_t o_sb, int64_t o_ss, int64_t o_sh) {
-  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x / 32) + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  float m = -INFINITY;
-  for (int z = 0; z < splits; ++z) m = fmaxf(m, part_ml[(z * rows + r) * 2]);
-  float l = 0.f;
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int z = 0; z < splits; ++z) {
-    const float2 ml = *reinterpret_cast<const float2*>(part_ml + (z * rows + r) * 2);
-    const float w = exp2f(ml.x - m);
-    const float4 x = *reinterpret_cast<const float4*>(part_o + (z * rows + r) * kHeadDim + 4 * lane);
-    l += w * ml.y;
-    a.x += w * x.x;
-    a.y += w * x.y;
-    a.z += w * x.z;
-    a.w += w * x.w;
-  }
-  const float safe = l == 0.f ? 1.f : l;
-  const float inv = 1.f / safe;
-  const int64_t bh = r / sq;
-  const int row = static_cast<int>(r % sq);
-  __nv_bfloat16* dst =
-      o + (bh / heads) * o_sb + row * o_ss + (bh % heads) * o_sh + 4 * lane;
-  *reinterpret_cast<uint2*>(dst) =
-      make_uint2(pack_bf16x2(a.x * inv, a.y * inv), pack_bf16x2(a.z * inv, a.w * inv));
-  if (lse != nullptr && lane == 0) lse[r] = (m + log2f(safe)) * kLn2;
-}
-
 bool g_opt_in[2][kMaxDevices];  // per kernel variant (kCap) and device
 
 }  // namespace
@@ -417,13 +340,6 @@ extern "C" int dft_flash_fwd_bf16(const void* q, const void* k, const void* v,
 extern "C" int dft_flash_fwd_combine(const void* part_o, const void* part_ml, void* o, void* lse,
                                      int batch, int heads, int sq, int splits, long long o_sb,
                                      long long o_ss, long long o_sh, void* stream) {
-  const int64_t rows = static_cast<int64_t>(batch) * heads * sq;
-  const int warps = 8;
-  const int64_t blocks = (rows + warps - 1) / warps;
-  flash_fwd_combine_kernel<<<static_cast<unsigned>(blocks), 32 * warps, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, sq, splits, rows, o_sb,
-      o_ss, o_sh);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split_combine(part_o, part_ml, o, lse, batch, heads, sq, splits, o_sb, o_ss, o_sh,
+                              stream);
 }

@@ -1,14 +1,18 @@
 // Shared machinery of the port's warp-specialised Hopper (sm_90a) kernels: the flash forward
-// (flash_fwd.cu) and the flash backward (flash_bwd.cu) include it.
+// (flash_fwd.cu), the flash backward (flash_bwd.cu) and the int8-QK forward (sage_fwd.cu)
+// include it.
 //
-// - the CTA layout both use: two consumer warpgroups running `wgmma` and a producer whose
+// - the CTA layout all use: two consumer warpgroups running `wgmma` and a producer whose
 //   first thread issues TMA loads;
-// - mbarrier, TMA and bulk-copy wrappers, named barriers over the consumers;
+// - mbarrier, TMA and bulk-copy wrappers, named barriers over the consumers, and the two
+//   forwards' ping-pong turn barriers;
 // - wgmma wrappers and shared-memory descriptors for tiles of [rows, 64] bf16 boxes in the
-//   128-byte swizzle (a 128-column row is two boxes), and the fp32 accumulator to bf16 A
-//   fragment conversion;
-// - on the host, 4-D tensor maps over [B, S, N, 128] bf16 views, encoded through the driver
-//   entry point (no link against libcuda), and the dynamic shared-memory opt-in.
+//   128-byte swizzle (a 128-column row is two boxes), for int8 tiles of [rows, 128] (a
+//   128-column row is one box), and the fp32 accumulator to bf16 A fragment conversion;
+// - the forwards' P store and P V product (their split calls' combine is in fwd_combine.cuh);
+// - on the host, 4-D tensor maps over [B, S, N, 128] bf16 or int8 views and 1-D maps over
+//   fp32 vectors, encoded through the driver entry point (no link against libcuda), and the
+//   dynamic shared-memory opt-in.
 //
 // Everything sits in an anonymous namespace: each source that includes it builds into its own
 // library.
@@ -25,6 +29,7 @@ namespace {
 constexpr int kHeadDim = 128;
 constexpr int kHalf = 64;                  // columns of one 128-byte swizzled box (bf16)
 constexpr int kConsumerThreads = 256;      // two consumer warpgroups
+constexpr float kLn2 = 0.6931471805599453f;
 
 // bytes of one [rows, 64] bf16 box, and of a [rows, 128] tile (two boxes)
 __host__ __device__ constexpr int box_bytes(int rows) { return rows * kHalf * 2; }
@@ -73,13 +78,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > kWaitTrapCycles) __trap();
 }
 
-// One [rows, 64] box of a 4-D [B, S, N, D] tensor map (coordinates innermost first).
+// One box of a 4-D [B, S, N, D] tensor map (coordinates innermost first): [rows, 64] bf16 or
+// [rows, 128] int8.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int d0, int h, int row, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// One box of a 1-D tensor map, starting at element x.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x)
       : "memory");
 }
 
@@ -145,8 +161,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle. K-major operands: 8-row groups 1024 bytes
-// apart (SBO); the K step within a 128-byte row moves the start address by 32 bytes.
+// apart (SBO); the K step within a 128-byte row moves the start address by 32 bytes (16 bf16
+// or 32 int8 values: the same descriptor serves both types).
 // MN-major operands: 64-element MN chunks `lbo` bytes apart (LBO), 8-row K groups 1024 bytes
 // apart (SBO). The swizzle atoms sit on 1024-byte boundaries, so the base offset is 0.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
@@ -314,6 +337,113 @@ __device__ __forceinline__ void gemm_kmajor_d128_n128(float (&d)[64], uint64_t a
   if constexpr (kk + 1 < kHeadDim / 16) gemm_kmajor_d128_n128<kABox, kBBox, kk + 1>(d, a, b);
 }
 
+// D[64 x 128] (+)= A[64 x 32] B[32 x 128] in int8 with an s32 accumulator, both operands from
+// shared memory and K-major (8-bit wgmma takes no transpose), through desc_a and desc_b moved on
+// by kOffA and kOffB bytes inside the asm (as DFT_WGMMA_SS_M64N64). With kAccumulate false
+// D = A B, and the outputs are write-only. The accumulator's layout is the fp32 one.
+#define DFT_WGMMA_SS_M64N128_S8(CONSTRAINT)                                                  \
+  asm volatile(                                                                             \
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %66, 0;\n"                        \
+      "add.s64 da, %64, %67;\nadd.s64 db, %65, %68;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "                                   \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                              \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                            \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                            \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                            \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                            \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                            \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                                           \
+      "da, db, p;\n}\n"                                                                     \
+      : CONSTRAINT(d[0]), CONSTRAINT(d[1]), CONSTRAINT(d[2]), CONSTRAINT(d[3]),             \
+        CONSTRAINT(d[4]), CONSTRAINT(d[5]), CONSTRAINT(d[6]), CONSTRAINT(d[7]),             \
+        CONSTRAINT(d[8]), CONSTRAINT(d[9]), CONSTRAINT(d[10]), CONSTRAINT(d[11]),           \
+        CONSTRAINT(d[12]), CONSTRAINT(d[13]), CONSTRAINT(d[14]), CONSTRAINT(d[15]),         \
+        CONSTRAINT(d[16]), CONSTRAINT(d[17]), CONSTRAINT(d[18]), CONSTRAINT(d[19]),         \
+        CONSTRAINT(d[20]), CONSTRAINT(d[21]), CONSTRAINT(d[22]), CONSTRAINT(d[23]),         \
+        CONSTRAINT(d[24]), CONSTRAINT(d[25]), CONSTRAINT(d[26]), CONSTRAINT(d[27]),         \
+        CONSTRAINT(d[28]), CONSTRAINT(d[29]), CONSTRAINT(d[30]), CONSTRAINT(d[31]),         \
+        CONSTRAINT(d[32]), CONSTRAINT(d[33]), CONSTRAINT(d[34]), CONSTRAINT(d[35]),         \
+        CONSTRAINT(d[36]), CONSTRAINT(d[37]), CONSTRAINT(d[38]), CONSTRAINT(d[39]),         \
+        CONSTRAINT(d[40]), CONSTRAINT(d[41]), CONSTRAINT(d[42]), CONSTRAINT(d[43]),         \
+        CONSTRAINT(d[44]), CONSTRAINT(d[45]), CONSTRAINT(d[46]), CONSTRAINT(d[47]),         \
+        CONSTRAINT(d[48]), CONSTRAINT(d[49]), CONSTRAINT(d[50]), CONSTRAINT(d[51]),         \
+        CONSTRAINT(d[52]), CONSTRAINT(d[53]), CONSTRAINT(d[54]), CONSTRAINT(d[55]),         \
+        CONSTRAINT(d[56]), CONSTRAINT(d[57]), CONSTRAINT(d[58]), CONSTRAINT(d[59]),         \
+        CONSTRAINT(d[60]), CONSTRAINT(d[61]), CONSTRAINT(d[62]), CONSTRAINT(d[63])          \
+      : "l"(desc_a), "l"(desc_b), "r"(kAccumulate ? 1 : 0), "n"(kOffA >> 4), "n"(kOffB >> 4))
+#define DFT_READ_WRITE_S32(x) "+r"(x)
+#define DFT_WRITE_S32(x) "=r"(x)
+
+template <int kOffA, int kOffB, bool kAccumulate>
+__device__ __forceinline__ void wgmma_ss_m64n128_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  if constexpr (kAccumulate)
+    DFT_WGMMA_SS_M64N128_S8(DFT_READ_WRITE_S32);
+  else
+    DFT_WGMMA_SS_M64N128_S8(DFT_WRITE_S32);
+}
+
+// D[64 x 128] = A[64 rows of a K-major int8 [*, 128] tile] B^T[128 rows of another], over
+// D = 128: each row is one 128-byte box, and K step kk (32 values) reads byte 32 * kk of it.
+template <int kk = 0>
+__device__ __forceinline__ void gemm_kmajor_s8_d128_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  wgmma_ss_m64n128_s8<kk * 32, kk * 32, (kk > 0)>(d, a, b);
+  if constexpr (kk + 1 < kHeadDim / 32) gemm_kmajor_s8_d128_n128<kk + 1>(d, a, b);
+}
+
+// --- the forwards' softmax side: turns, exp2, P --------------------------------------------
+
+// Named barriers (0 is __syncthreads, 1 consumer_sync, 2 and 3 warpgroup_sync): kTurnBar + c
+// completes when consumer warpgroup c may issue its products (the forwards' ping-pong).
+constexpr int kTurnBar = 4;
+
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(kTurnBar + c), "n"(kConsumerThreads) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int c) {  // to the other consumer warpgroup
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(kTurnBar + 1 - c), "n"(kConsumerThreads)
+               : "memory");
+}
+
+// exp2 on the MUFU unit alone (no scaling for results below 2^-126: they flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Columns 8j + cq and 8j + cq + 1 of P's rows r0 and r0 + 8 (x[0..1] and x[2..3], this thread's
+// in the 64 x 128 fp32 accumulator layout) to shared memory as bf16, K-major in two 64-key
+// boxes with the 128-byte swizzle: 16-byte chunk j of row r lands at chunk j ^ (r % 8) of its
+// box.
+__device__ __forceinline__ void store_p_cols(unsigned char* buf, int r0, int cq, int j,
+                                             float x0, float x1, float x2, float x3) {
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = r0 + 8 * hi;
+    *reinterpret_cast<uint32_t*>(buf + (j / 8) * box_bytes(64) + r * 128 +
+                                 (((j % 8) ^ (r % 8)) << 4) + 2 * cq) =
+        hi ? pack_bf16x2(x2, x3) : pack_bf16x2(x0, x1);
+  }
+}
+
+// All of this thread's P (64 values of the accumulator layout), as `store_p_cols`.
+__device__ __forceinline__ void store_p(unsigned char* buf, int r0, int cq, const float (&x)[64]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    store_p_cols(buf, r0, cq, j, x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+
+// O[64 x 128] += P[64 x 128 keys] V[128 keys x 128]: P K-major (K step kk at box kk / 4, byte
+// 32 * (kk % 4) of each row), V MN-major (16 keys, 2,048 bytes, per K step).
+template <int kk = 0>
+__device__ __forceinline__ void gemm_pv(float (&d)[64], uint64_t p, uint64_t v) {
+  wgmma_ss_m64n128<0, 1, (kk / 4) * box_bytes(64) + (kk % 4) * 32, kk * 2048, true>(d, p, v);
+  if constexpr (kk + 1 < 128 / 16) gemm_pv<kk + 1>(d, p, v);
+}
+
 // --- host side -----------------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -335,20 +465,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a [B, S, N, 128] bf16 view: `geom` holds the dims innermost first (128, N, S,
-// B) and the byte strides of dims 1..3; boxes of [rows, 64] columns, 128-byte swizzle, rows
-// past S zero-filled.
-bool make_map(CUtensorMap* map, const void* ptr, const unsigned long long* geom, int rows) {
+// A 4-D map over a [B, S, N, 128] view: `geom` holds the dims innermost first (128, N, S, B)
+// and the byte strides of dims 1..3; boxes of [rows, cols], 128-byte swizzle (cols * element
+// size = 128 bytes: 64 bf16 columns, the default, or 128 int8 ones, whose type is given as
+// UINT8), rows past S zero-filled.
+bool make_map(CUtensorMap* map, const void* ptr, const unsigned long long* geom, int rows,
+              CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, int cols = kHalf) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {geom[0], geom[1], geom[2], geom[3]};
   const cuuint64_t strides[3] = {geom[4], geom[5], geom[6]};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kHalf), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 1-D map over `n` fp32 values (ptr 16-byte aligned), boxes of `box` values (a multiple of
+// 4, at most 256), no swizzle; values past n zero-filled.
+bool make_map_1d_f32(CUtensorMap* map, const void* ptr, unsigned long long n, int box) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {n};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map reads none
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t elem[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides,
+            boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The opt-in to more than 48 KiB of dynamic shared memory, made once per device and kernel

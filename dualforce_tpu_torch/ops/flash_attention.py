@@ -339,18 +339,20 @@ def bwd_workspace_floats(b: int, n: int, sq: int) -> int:
     return b * n * _rows_padded(sq) * HEAD_DIM
 
 
-def tma_geometry(shape, stride):
-    """The seven values the kernels build a [B, S, N, 128] bf16 tensor map
-    from: the dims innermost first (128, N, S, B) and the byte strides of N, S
-    and B. A dim of size 1 is never stepped, so its stride is given as 256
-    bytes whatever the view says. Raises unless each stride is a positive
-    multiple of 16 bytes below 2^40 and S fits an int32 coordinate."""
+def tma_geometry(shape, stride, elem_bytes: int = 2):
+    """The seven values the kernels build a [B, S, N, 128] tensor map from:
+    the dims innermost first (128, N, S, B) and the byte strides of N, S and
+    B, for elements of `elem_bytes` bytes (2 for bf16, the default; 1 for the
+    sage kernel's int8 q and k). A dim of size 1 is never stepped, so its
+    stride is given as one 128-element row whatever the view says. Raises
+    unless each stride is a positive multiple of 16 bytes below 2^40 and S
+    fits an int32 coordinate."""
     b, s, n, d = shape
     if s >= 2**31:
         raise ValueError(f"{s} rows pass the tensor map's int32 coordinates")
     strides = []
     for size, st in ((n, stride[2]), (s, stride[1]), (b, stride[0])):
-        nbytes = 2 * st if size > 1 else 2 * HEAD_DIM
+        nbytes = elem_bytes * st if size > 1 else elem_bytes * HEAD_DIM
         if nbytes <= 0 or nbytes % 16 or nbytes >= 2**40:
             raise ValueError(f"byte stride {nbytes} of a dim of size {size}: the tensor maps "
                              f"take positive multiples of 16 below 2^40")

@@ -1,27 +1,39 @@
-"""Int8-QK ("sage") attention: the quantization prologue, the CUDA kernel's
-wrapper and its plain version.
+"""Int8-QK ("sage") attention: the quantization prologue and the attention
+kernel, their CUDA wrappers and their plain versions.
 
 Counterpart of `sage_attention` and `_sage_fwd` in
 `dualforce_tpu/ops/flash_attention.py` (the Pallas kernel
-`_sage_fwd_kernel`). Inference only: there is no gradient, and an input
-that requires grad raises.
+`_sage_fwd_kernel`, and the jnp prologue before it). Inference only: there
+is no gradient, and an input that requires grad raises.
 
-`sage_quantize` is the prologue, plain PyTorch as JAX does it in XLA outside
-the kernel: K in fp32 is mean-centred over all Sk keys (masked ones
-included), then Q and K get per-block absmax int8 quantization with
-scale = max(absmax, 1e-8) / 127, rounded half to even, the softmax scale
-D^-1/2 and log2(e) folded into the q scales. The quantization blocks are
-part of the numerics and follow JAX's rule (`sage_blocks`); the block
-scales are handed on as per-row [B, N, Sq] and per-key [B, N, Sk] vectors,
-so the kernel's tiles do not depend on them.
+`sage_quantize` is the prologue: K in fp32 is mean-centred over all Sk keys
+(masked ones included), then Q and K get per-block absmax int8 quantization
+with scale = max(absmax, 1e-8) / 127, rounded half to even, the softmax
+scale D^-1/2 and log2(e) folded into the q scales. Its arithmetic is that of
+`_sage_fwd` as it runs, under jit, where XLA turns each division by a
+constant (the mean's by Sk, the scale's by 127) into a product with the
+fp32 reciprocal, and folds that reciprocal and the q scales' factor into one
+fp32 constant; the codes are an IEEE division x / scale. The quantization
+blocks are part of the numerics and follow JAX's rule (`sage_blocks`); the
+block scales are handed on as per-row [B, N, Sq] and per-key [B, N, Sk]
+vectors, so the kernel's tiles do not depend on them. CUDA tensors (bf16, D = 128)
+go to the prologue's kernels in `csrc/sage_fwd.cu`, CPU tensors to
+`sage_quantize_plain`. The two give Q's codes and scales bit for bit; the
+kernels sum K over the keys in another order, so a K code may differ by one
+at a rounding tie (`sage_quantize.launches` counts the CUDA calls).
 
-`sage_fwd` is the kernel's function: s = float(Qi8 . Ki8^T) * (q_scale *
-k_scale) in log2 units, keys past kv_valid_len excluded, P = exp2(s - cap)
-with the static shift cap = `FAST_SOFTMAX_CAP` (a constant of the kernel too),
-o = P V / rowsum(P) with a zero sum giving 0. CUDA tensors go to the kernel
-(`csrc/sage_fwd.cu`: int8 q/k, bf16 v, D = 128), which raises on what it
-does not take; CPU tensors go to `sage_fwd_plain`. There is no fallback from
-one to the other. `sage_attention.launches` counts kernel launches.
+`sage_fwd` is the attention kernel's function: s = float(Qi8 . Ki8^T) *
+(q_scale * k_scale) in log2 units, keys past kv_valid_len excluded, P =
+exp2(s - cap) with the static shift cap = `FAST_SOFTMAX_CAP` (a constant of
+the kernel too), o = P V / rowsum(P) with a zero sum giving 0. CUDA tensors
+go to the kernel (`csrc/sage_fwd.cu`: int8 q/k, bf16 v, D = 128, read
+through tensor maps; a call whose CTAs would leave SMs idle is split over
+keys, as the flash forward's `fwd_splits` decides, and merged in the same
+call), which raises on what it does not take; CPU tensors go to
+`sage_fwd_plain`. `sage_attention.launches` counts its calls.
+
+Each wrapper launches its kernel for CUDA tensors or raises; there is no
+fallback to the plain version.
 """
 
 from __future__ import annotations
@@ -32,13 +44,20 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dualforce_tpu_torch.ops.flash_attention import (_MAX_GRID_Y, FAST_SOFTMAX_CAP, HEAD_DIM,
-                                                     LOG2E, _chunk_rows, _kernel, _key_mask,
-                                                     _lens)
+from dualforce_tpu_torch.ops.flash_attention import (_MAX_GRID_Y, FAST_SOFTMAX_CAP,
+                                                     FWD_BLOCK_M, HEAD_DIM, LOG2E, _chunk_rows,
+                                                     _kernel, _key_mask, _lens, _sm_count,
+                                                     fwd_splits, tma_geometry)
 
 DEFAULT_BLOCK = 1024
-_SAGE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                  + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+# the kernel's C launcher: q, k, v, k_scale, their tensor-map geometry, o, q_scale, kv_len, the
+# split workspace; then the prologue's
+_SAGE_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+                  + [ctypes.c_void_p])
+_QUANT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+# keys per partial sum of K's mean in the CUDA prologue; it sizes the workspace and is passed
+SUM_CHUNK = 512
 
 
 # --- the quantization blocks (JAX's rule; numerics, not tile sizes) ----------
@@ -81,16 +100,33 @@ def sage_blocks(sq: int, sk: int, masked: bool, block_q: int = DEFAULT_BLOCK,
     return bq, bk
 
 
+def _recip_f32(n: int) -> float:
+    """1 / n rounded once to fp32 (1.0f / float(n)), as XLA folds a
+    division by the constant n; a Python float that is exactly that value."""
+    return (torch.ones((), dtype=torch.float32) / float(n)).item()
+
+
+def _q_scale_factor(d: int) -> float:
+    """What the q scales are the clamped block absmax times: fp32(1 / 127)
+    times fp32(D^-1/2 log2(e)), one fp32 product, as XLA folds
+    `max(absmax, 1e-8) / 127.0 * (d ** -0.5 * LOG2E)` under jit."""
+    return (torch.tensor(_recip_f32(127), dtype=torch.float32)
+            * torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)).item()
+
+
 def _block_quant_int8(x: torch.Tensor, blk: int):
-    """[B, S, N, D] (S a multiple of blk) -> (int8 [B, S, N, D], fp32 block
-    scales [B, S // blk, N]), as `_block_quant_int8` per (batch, head) on x
-    cast to fp32: the absmax is exact in x's dtype, and x / scale promotes
-    to fp32 element by element, so no fp32 copy of x is made."""
+    """[B, S, N, D] (S a multiple of blk) -> (int8 [B, S, N, D], fp32
+    clamped block absmax [B, S // blk, N]), as `_block_quant_int8` per
+    (batch, head) on x cast to fp32 under jit: codes = round(x / scale) with
+    scale = max(absmax, 1e-8) * fp32(1 / 127). The absmax is exact in x's
+    dtype, and x / scale promotes to fp32 element by element, so no fp32
+    copy of x is made."""
     b, s, n, d = x.shape
     xb = x.reshape(b, s // blk, blk, n, d)
-    sc = xb.abs().amax(dim=(2, 4)).float().clamp_min(1e-8) / 127.0
+    amax = xb.abs().amax(dim=(2, 4)).float().clamp_min(1e-8)
+    sc = amax * _recip_f32(127)
     xi = torch.round_(xb / sc[:, :, None, :, None]).to(torch.int8)
-    return xi.reshape(b, s, n, d), sc
+    return xi.reshape(b, s, n, d), amax
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -103,24 +139,74 @@ def _per_row(sc: torch.Tensor, blk: int, s: int) -> torch.Tensor:
     return sc.permute(0, 2, 1).repeat_interleave(blk, dim=2)[:, :, :s].contiguous()
 
 
-def sage_quantize(q: torch.Tensor, k: torch.Tensor,
-                  kv_valid_len: Optional[torch.Tensor] = None,
-                  block_q: int = DEFAULT_BLOCK, block_k: int = DEFAULT_BLOCK):
-    """The prologue of `_sage_fwd` on [B, S, N, D] q and k. Returns
-    (q int8 [B, Sq, N, D], k int8 [B, Sk, N, D], q_scale [B, N, Sq] fp32
-    times D^-1/2 log2(e), k_scale [B, N, Sk] fp32), all contiguous."""
+def sage_quantize_plain(q: torch.Tensor, k: torch.Tensor,
+                        kv_valid_len: Optional[torch.Tensor] = None,
+                        block_q: int = DEFAULT_BLOCK, block_k: int = DEFAULT_BLOCK):
+    """The prologue of `_sage_fwd` in plain PyTorch on [B, S, N, D] q and k.
+    Returns (q int8 [B, Sq, N, D], k int8 [B, Sk, N, D], q_scale [B, N, Sq]
+    fp32 times D^-1/2 log2(e), k_scale [B, N, Sk] fp32), all contiguous."""
     b, sq, n, d = q.shape
     sk = k.shape[1]
     bq, bk = sage_blocks(sq, sk, kv_valid_len is not None, block_q, block_k)
     sq_p, sk_p = _ceil_to(sq, bq), _ceil_to(sk, bk)
     kf = k.float()
-    kf = kf - kf.mean(dim=1, keepdim=True)    # over all Sk keys, masked ones too
-    qi, q_sc = _block_quant_int8(_pad_rows(q, sq_p), bq)
-    ki, k_sc = _block_quant_int8(_pad_rows(kf, sk_p), bk)
+    # over all Sk keys, masked ones too; the sum times fp32(1 / Sk), as `jnp.mean` under jit
+    kf = kf - kf.sum(dim=1, keepdim=True) * _recip_f32(sk)
+    qi, q_amax = _block_quant_int8(_pad_rows(q, sq_p), bq)
+    ki, k_amax = _block_quant_int8(_pad_rows(kf, sk_p), bk)
     del kf
-    q_sc = q_sc * (d ** -0.5 * LOG2E)         # fold the softmax scale and log2(e)
+    q_sc = q_amax * _q_scale_factor(d)         # the softmax scale and log2(e) folded in
+    k_sc = k_amax * _recip_f32(127)
     return (qi[:, :sq].contiguous(), ki[:, :sk].contiguous(),
             _per_row(q_sc, bq, sq), _per_row(k_sc, bk, sk))
+
+
+def _launch_quantize(q, k, kv_valid_len, block_q, block_k):
+    _check_view("q", q, torch.bfloat16, 8)
+    _check_view("k", k, torch.bfloat16, 8)
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    if k.shape[0] != b or k.shape[2] != n or k.get_device() != q.get_device():
+        raise ValueError(f"k {tuple(k.shape)} on {k.device} does not match q "
+                         f"{tuple(q.shape)} on {q.device}")
+    if b * n > _MAX_GRID_Y:
+        raise ValueError(f"batch * heads = {b * n} exceeds {_MAX_GRID_Y}")
+    bq, bk = sage_blocks(sq, sk, kv_valid_len is not None, block_q, block_k)
+    dev = q.device
+    qi = torch.empty((b, sq, n, d), dtype=torch.int8, device=dev)
+    ki = torch.empty((b, sk, n, d), dtype=torch.int8, device=dev)
+    q_scale = torch.empty((b, n, sq), dtype=torch.float32, device=dev)
+    k_scale = torch.empty((b, n, sk), dtype=torch.float32, device=dev)
+    if qi.numel() + ki.numel() == 0:
+        return qi, ki, q_scale, k_scale
+    partial = torch.empty((-(-sk // SUM_CHUNK), b * n, d), dtype=torch.float32, device=dev)
+    err = _kernel("sage_fwd", "dft_sage_quantize", _QUANT_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), qi.data_ptr(), ki.data_ptr(), q_scale.data_ptr(),
+        k_scale.data_ptr(), partial.data_ptr(), b, n, sq, sk, max(bq, 1), max(bk, 1), SUM_CHUNK,
+        *q.stride()[:3], *k.stride()[:3], _q_scale_factor(d),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sage_quantize kernel launch failed: CUDA error {err}")
+    sage_quantize.launches += 1
+    return qi, ki, q_scale, k_scale
+
+
+def sage_quantize(q: torch.Tensor, k: torch.Tensor,
+                  kv_valid_len: Optional[torch.Tensor] = None,
+                  block_q: int = DEFAULT_BLOCK, block_k: int = DEFAULT_BLOCK):
+    """The prologue of `_sage_fwd` on [B, S, N, D] q and k: the CUDA kernels
+    for CUDA tensors (bf16, D = 128, a unit D stride and the other strides
+    multiples of 8), `sage_quantize_plain` for CPU tensors. Returns (q int8
+    [B, Sq, N, D], k int8 [B, Sk, N, D], q_scale [B, N, Sq] fp32 times
+    D^-1/2 log2(e), k_scale [B, N, Sk] fp32), all contiguous."""
+    if q.is_cuda:
+        return _launch_quantize(q, k, kv_valid_len, block_q, block_k)
+    if q.device.type != "cpu":
+        raise ValueError(f"sage attention runs on cuda or cpu, not {q.device}")
+    return sage_quantize_plain(q, k, kv_valid_len, block_q, block_k)
+
+
+sage_quantize.launches = 0
 
 
 # --- plain version ----------------------------------------------------------
@@ -166,6 +252,7 @@ def _check_view(name, t, dtype, stride_multiple: int) -> None:
 
 
 def _launch_sage(qi, ki, v, q_scale, k_scale, kv_valid_len):
+    """The kernel on checked inputs."""
     _check_view("q", qi, torch.int8, 16)
     _check_view("k", ki, torch.int8, 16)
     _check_view("v", v, torch.bfloat16, 8)
@@ -176,26 +263,42 @@ def _launch_sage(qi, ki, v, q_scale, k_scale, kv_valid_len):
                          f"q {tuple(qi.shape)}")
     dev = qi.get_device()
     for name, t, shape in (("q_scale", q_scale, (b, n, sq)), ("k_scale", k_scale, (b, n, sk))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous fp32 {list(shape)} tensor")
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned fp32 "
+                             f"{list(shape)} tensor")
     if any(t.get_device() != dev for t in (ki, v, q_scale, k_scale)):
         raise ValueError("sage inputs must lie on one device")
     if b * n > _MAX_GRID_Y:
         raise ValueError(f"batch * heads = {b * n} exceeds {_MAX_GRID_Y}")
+    if b * n * sk >= 2**31:
+        raise ValueError(f"{b * n * sk} key scales pass the kernel's int32 coordinates")
     if kv_valid_len is not None and (kv_valid_len.get_device() != dev
                                      or kv_valid_len.shape != (b,)):
         raise ValueError(f"kv_valid_len must be [{b}] on {qi.device}")
     out = torch.empty(v.shape[:1] + (sq,) + v.shape[2:], dtype=v.dtype, device=v.device)
     if out.numel() == 0:
         return out
+    if sk == 0:     # no key at all: the kernel's keyless rows, without a launch
+        return out.zero_()
     lens = _lens(kv_valid_len)
+    # the kernel's tiles are the flash forward's: 128 query rows a CTA, 128 keys a stage
+    splits = fwd_splits(b * n * -(-sq // FWD_BLOCK_M), sk, _sm_count(qi.device))
+    part_o = part_ml = None
+    if splits > 1:
+        part_o = torch.empty((splits, b * n * sq, d), dtype=torch.float32, device=v.device)
+        part_ml = torch.empty((splits, b * n * sq, 2), dtype=torch.float32, device=v.device)
+    geom = (*tma_geometry(qi.shape, qi.stride(), 1), *tma_geometry(ki.shape, ki.stride(), 1),
+            *tma_geometry(v.shape, v.stride()))
     err = _kernel("sage_fwd", "dft_sage_fwd", _SAGE_ARGTYPES)(
-        qi.data_ptr(), ki.data_ptr(), v.data_ptr(), out.data_ptr(), q_scale.data_ptr(),
-        k_scale.data_ptr(), None if lens is None else lens.data_ptr(), b, n, sq, sk,
-        *qi.stride()[:3], *ki.stride()[:3], *v.stride()[:3], sq * n * d, n * d, d,
-        torch.cuda.current_stream(qi.device).cuda_stream)
+        qi.data_ptr(), ki.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        (ctypes.c_ulonglong * len(geom))(*geom), out.data_ptr(), q_scale.data_ptr(),
+        None if lens is None else lens.data_ptr(),
+        None if part_o is None else part_o.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), b, n, sq, sk, splits,
+        sq * n * d, n * d, d, torch.cuda.current_stream(qi.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sage_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"sage_fwd kernel launch failed: error {err}")
     sage_attention.launches += 1
     return out
 
@@ -235,8 +338,8 @@ def sage_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_valid_len: Optional[torch.Tensor] = None,
                          block_q: int = DEFAULT_BLOCK, block_k: int = DEFAULT_BLOCK
                          ) -> torch.Tensor:
-    """`sage_attention` through `sage_fwd_plain` on any device: the kernel's
-    reference on the same quantization."""
+    """`sage_attention` through `sage_quantize_plain` and `sage_fwd_plain` on
+    any device: the kernels' reference, launching nothing."""
     _no_grad(q, k, v)
-    qi, ki, q_scale, k_scale = sage_quantize(q, k, kv_valid_len, block_q, block_k)
+    qi, ki, q_scale, k_scale = sage_quantize_plain(q, k, kv_valid_len, block_q, block_k)
     return sage_fwd_plain(qi, ki, v, q_scale, k_scale, kv_valid_len)

@@ -8,14 +8,15 @@ both sides. Tolerances:
 - cap mode in fp32: o at 2e-5 (JAX's own bound between its cap and exact
   modes), the gradients of q, k and v through the same call at 5e-4 (the
   backward is the exact mode's, from the cap-mode LSE);
-- sage: the int8 values and scales equal JAX's `_block_quant_int8` on the
-  same input, but for a level at an exact rounding tie, which the mean over
-  the keys (summed in another order) can flip, counted and bounded; the
-  outputs agree to relative L2 1e-3, and both lie within JAX's 2.5e-2 of
-  `attention_ref` (the int8 resolution floor);
+- sage: the int8 values and scales equal those of JAX's prologue under jit
+  on the same input, but for a level at an exact rounding tie, which the
+  mean over the keys (summed in another order) can flip, counted and
+  bounded; the outputs agree to relative L2 1e-3, and both lie within
+  JAX's 2.5e-2 of `attention_ref` (the int8 resolution floor);
 - the sage route's RoPE, which rotates in bf16 as JAX's does: bit-equal.
 """
 
+import functools
 from pathlib import Path
 
 import jax
@@ -110,15 +111,13 @@ def test_cap_mode_lse():
     assert torch.count_nonzero(o[1]) == 0
 
 
-def _jax_quantized(q, k, bq, bk):
-    """JAX's own prologue of `_sage_fwd`, op by op (a jit would let XLA
-    turn the division by 127 into a product), on [B, S, N, D] numpy inputs:
-    (qi8, q block scales times D^-1/2 log2(e), ki8, k block scales), laid out
-    [B, N, S, D] and [B, N, S/blk]."""
-    b, sq, n, d = q.shape
-    sk = k.shape[1]
-    qf = jnp.asarray(q).transpose(0, 2, 1, 3).reshape(b * n, sq, d)
-    kf = jnp.asarray(k).transpose(0, 2, 1, 3).reshape(b * n, sk, d)
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _jax_quantized_bn(qf, kf, bq, bk):
+    """JAX's own prologue of `_sage_fwd` (:800-813) on [BN, S, D] fp32 q and
+    k, jitted as `_sage_fwd` runs, where XLA turns the divisions by Sk and by
+    127 into products with their fp32 reciprocals."""
+    bn, sq, d = qf.shape
+    sk = kf.shape[1]
     kf = kf - jnp.mean(kf, axis=1, keepdims=True)
     sq_p, sk_p = jfa._ceil_to(sq, bq), jfa._ceil_to(sk, bk)
     qf = jnp.pad(qf, ((0, 0), (0, sq_p - sq), (0, 0)))
@@ -126,8 +125,18 @@ def _jax_quantized(q, k, bq, bk):
     qi, q_sc = jfa._block_quant_int8(qf, bq)
     ki, k_sc = jfa._block_quant_int8(kf, bk)
     q_sc = q_sc * (d ** -0.5 * jfa.LOG2E)
-    return tuple(np.asarray(x).reshape(b, n, *x.shape[1:])
-                 for x in (qi[:, :sq], q_sc, ki[:, :sk], k_sc))
+    return qi[:, :sq], q_sc, ki[:, :sk], k_sc
+
+
+def _jax_quantized(q, k, bq, bk):
+    """`_jax_quantized_bn` on [B, S, N, D] numpy inputs: (qi8, q block
+    scales times D^-1/2 log2(e), ki8, k block scales), laid out [B, N, S, D]
+    and [B, N, S/blk]."""
+    b, sq, n, d = q.shape
+    sk = k.shape[1]
+    out = _jax_quantized_bn(jnp.asarray(q).transpose(0, 2, 1, 3).reshape(b * n, sq, d),
+                            jnp.asarray(k).transpose(0, 2, 1, 3).reshape(b * n, sk, d), bq, bk)
+    return tuple(np.asarray(x).reshape(b, n, *x.shape[1:]) for x in out)
 
 
 def _ties(port_i8, jax_i8, what) -> int:
