@@ -105,9 +105,33 @@ Phases, each of which must pass:
    split backward 8 times and the fused one 6 times; afterwards every
    module's LoRA `b` must be nonzero. Prints encode, loss+backward and
    optimizer seconds per step and the peak device memory.
+14. full depth, staged: MOVA-360p at full depth (40 video layers per
+   expert, 30 audio, 30 shared bridge layers, UMT5 24) from seed 0, each
+   module drawn on the card and handed back in page-locked host memory
+   (bf16 masters, 73.3 GiB: the card's host holds them, so the fp8
+   fallback for smaller hosts is not taken), then phase 5's request
+   through `MOVAPipeline(offload="component")`. It must give phase 5's
+   shapes, launch the flash kernel exactly 1,600 times, peak under both
+   experts' bf16 bytes (53.2 GiB, which no run holding both could stay
+   under) and leave the allocated memory within 1 GiB of its level before
+   the request. Prints prepare, step and decode seconds, each staging's
+   seconds and rate, the host's memory and lock limit.
+15. full depth, fp8: the same request with the towers and UMT5 stored in
+   fp8 (`init_pipeline_params(dtype=float8_e4m3fn)`) resident on the card:
+   1,600 launches; prints the fp8 modules' bytes against bf16's and the
+   peak.
+16. sampler options: at phase 5's geometry and depth cut (seed 0), one
+   request with `cfg_batch` and `mask_ctx_pad`: exactly 56 launches, each at
+   B = 2, the text cross-attentions with per-batch kv lengths, its decoded
+   video within 2e-2 relative L2 (fp32) of the same request unbatched (112
+   launches); one request with `cfg_cache_interval=2`, its launches
+   printed; then the unbatched request again with the same modules moved
+   to page-locked host memory, through `offload="component"`: bit-equal to
+   the resident result.
 
-The run sets PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the
-environment sets it: phase 13 needs it to fit 193 frames on an 80 GB card.
+Every phase prints its wall time. The run sets
+PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the environment sets
+it: phase 13 needs it to fit 193 frames on an 80 GB card.
 The line before the last is the card's name and power limit; the one
 before that lists each kernel as JSON. The last line of standard output is
 {"ok": true, "device": {...}}. Without CUDA, or outside a checkout, it
@@ -321,6 +345,14 @@ def check_preprocess(fa, o, do, lse, dlse=None):
         raise AssertionError(f"preprocess: delta rel err {err}, lse abs err {lse_err}, "
                              f"padded rows as due {pad_ok}")
     return err, mae
+
+
+def timed_phase(name: str, fn, *args):
+    """fn(*args), with its wall time printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[{name}] phase wall time {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase_device():
@@ -1605,6 +1637,295 @@ def phase_train_720p(cfg, modules, root: str):
     return launches, peak
 
 
+# a full-depth MOVA-360p request (4 steps, CFG 5): 30 shared layers x 6 attentions + 10
+# video-only tail layers x 2, per pass, x 2 passes x 4 steps
+FULL_DEPTH_LAUNCHES = (30 * 6 + 10 * 2) * 2 * 4
+# bf16 masters of the full-depth model fit the card's host: 101 GiB (`free -g` on the
+# H100's machine), of which the masters page-lock 73.3 GiB; fp8 masters (37.6 GiB) would
+# be the fallback for a smaller host, and are not needed there
+FULL_DEPTH_MASTER_DTYPE = "bfloat16"
+MEMORY_RETURN_GIB = 1.0
+OPTIONS_REL_TOL = 2e-2
+
+
+def _host_memory():
+    """(this process's resident host memory in GiB, `free -g`'s total line)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        rss_kb = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=30).stdout
+    mem = next((line for line in free.splitlines() if line.startswith("Mem:")), free)
+    lock = resource.getrlimit(resource.RLIMIT_MEMLOCK)[0]
+    lock = "unlimited" if lock == resource.RLIM_INFINITY else f"{lock // 1024} KiB"
+    return rss_kb / 2**20, (f"{' '.join(mem.split())} (total used free shared cache "
+                            f"available); ulimit -l {lock}")
+
+
+def _serve_request(pipe, prompt, seed, request, rng, **extra):
+    """One request through prepare_state / denoise_state / finalize_state, timed
+    on the host (each end synchronised), with the steps timed by the progress
+    hook. Returns (result, prepare s, step s list, decode s)."""
+    import torch
+
+    step_s, last = [], [0.0]
+
+    def on_step(step, total):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_s.append(now - last[0])
+        last[0] = now
+
+    pipe.progress_cb = on_step
+    image = rng.uniform(-1, 1, (request["height"], request["width"], 3)).astype("float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = pipe.prepare_state([prompt], [image], negative_prompts=["blurry, low quality"],
+                               seeds=[seed], **dict(request, **extra))
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    last[0] = time.perf_counter()
+    state = pipe.denoise_state(state)
+    t0 = time.perf_counter()
+    res = pipe.finalize_state(state)[0]
+    torch.cuda.synchronize()
+    return res, prepare_s, step_s, time.perf_counter() - t0
+
+
+def _count_flash(fn):
+    """fn() with the forward kernels' counts set to 0 just before and read just
+    after: {"exact": ..., "cap": ..., "sage": ...}."""
+    from dualforce_tpu_torch.ops import sage_attention as sa
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention
+
+    flash_attention.launches = flash_attention.cap_launches = 0
+    sa.sage_attention.launches = 0
+    out = fn()
+    return out, {"exact": flash_attention.launches, "cap": flash_attention.cap_launches,
+                 "sage": sa.sage_attention.launches}
+
+
+def phase_full_depth_staged():
+    """Phase 14: MOVA-360p at full depth through `offload="component"`, bf16
+    masters in page-locked host memory (FULL_DEPTH_MASTER_DTYPE: the host
+    holds them)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch import offload
+    from dualforce_tpu_torch.config import mova_360p
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+
+    cfg = mova_360p()
+    rss, free = _host_memory()
+    log(f"[full] host before init: rss {rss:.2f} GiB; free -g: {free}")
+    t0 = time.perf_counter()
+    modules = init_pipeline_params(cfg, device="cuda", dtype=getattr(torch,
+                                   FULL_DEPTH_MASTER_DTYPE), seed=0, host=True)
+    init_s = time.perf_counter() - t0
+    if not all(t.is_pinned() for m in modules.values()
+               for t in list(m.parameters()) + list(m.buffers())):
+        raise AssertionError("a master is not in page-locked host memory")
+    sizes = {n: offload.nbytes(m) for n, m in modules.items()}
+    rss, free = _host_memory()
+    log(f"[full] {sum(p.numel() for m in modules.values() for p in m.parameters()) / 1e9:.3f}"
+        f" B parameters drawn on the card and moved to page-locked host memory in "
+        f"{init_s:.1f} s: " + ", ".join(f"{n} {b / 2**30:.2f} GiB" for n, b in sizes.items())
+        + f"; card allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; host rss "
+        f"{rss:.2f} GiB; free -g: {free}")
+    peak_limit = sizes["video_dit"] + sizes["video_dit_2"]
+    pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(), compute_dtype=torch.bfloat16,
+                        device="cuda", offload="component")
+    names = {id(m): n for n, m in modules.items()}
+    staging = []
+    real = offload.staged
+
+    @contextlib.contextmanager
+    def timed(module, device):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with real(module, device) as copy:
+            torch.cuda.synchronize()
+            staging.append((names[id(module)], time.perf_counter() - start))
+            yield copy
+
+    offload.staged = timed
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (res, prep_s, step_s, dec_s), counts = _count_flash(lambda: _serve_request(
+            pipe, "a cat playing the piano in a sunlit room", 0, REQUEST,
+            np.random.default_rng(14)))
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        offload.staged = real
+    rss, free = _host_memory()
+    log(f"[full] staged bf16 request: prepare {prep_s:.2f} s, denoise steps "
+        f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {dec_s:.2f} s; launches {counts}")
+    log("[full] staging: " + "; ".join(
+        f"{n} {sizes[n] / 2**30:.2f} GiB in {t:.3f} s ({sizes[n] / t / 1e9:.1f} GB/s)"
+        for n, t in staging))
+    log(f"[full] max_memory_allocated {peak / 2**30:.2f} GiB (limit: both experts' bf16 "
+        f"bytes, {peak_limit / 2**30:.2f} GiB); allocated {mem0 / 2**30:.3f} GiB before, "
+        f"{after / 2**30:.3f} GiB after; host rss {rss:.2f} GiB; free -g: {free}")
+    _check_result(res, REQUEST)
+    log(f"[full] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
+        f"{res.audio.shape[0]} finite samples, rms {float(np.sqrt(np.mean(res.audio ** 2))):.4f}")
+    want = {"exact": FULL_DEPTH_LAUNCHES, "cap": 0, "sage": 0}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    if peak >= peak_limit:
+        raise AssertionError(f"peak {peak / 2**30:.2f} GiB, not under the two experts' "
+                             f"{peak_limit / 2**30:.2f} GiB")
+    if abs(after - mem0) > MEMORY_RETURN_GIB * 2**30:
+        raise AssertionError(f"allocated {after / 2**30:.3f} GiB after the request, "
+                             f"{mem0 / 2**30:.3f} GiB before")
+    stats = {"launches": counts["exact"], "peak_gib": peak / 2**30, "step_s": step_s,
+             "init_s": init_s, "staging": staging}
+    return stats
+
+
+def phase_full_depth_fp8():
+    """Phase 15: the same request with every tower and UMT5 stored in fp8,
+    resident on the card (`offload="none"`)."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch import offload
+    from dualforce_tpu_torch.config import mova_360p
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+
+    cfg = mova_360p()
+    t0 = time.perf_counter()
+    modules = init_pipeline_params(cfg, device="cuda", dtype=torch.float8_e4m3fn, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    fp8_names = ("video_dit", "video_dit_2", "audio_dit", "bridge", "text_encoder")
+    fp8_bytes = sum(offload.nbytes(modules[n]) for n in fp8_names)
+    bf16_bytes = sum(2 * p.numel() for n in fp8_names for p in modules[n].parameters())
+    log(f"[fp8] drawn in bf16 and cast on the card in {init_s:.1f} s: towers and UMT5 "
+        f"{fp8_bytes / 2**30:.3f} GiB in fp8 storage against {bf16_bytes / 2**30:.3f} GiB "
+        f"in bf16 ({100 * fp8_bytes / bf16_bytes:.1f} %); card allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(), compute_dtype=torch.bfloat16,
+                        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (res, prep_s, step_s, dec_s), counts = _count_flash(lambda: _serve_request(
+        pipe, "a cat playing the piano in a sunlit room", 0, REQUEST,
+        np.random.default_rng(14)))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[fp8] resident fp8 request: prepare {prep_s:.2f} s, denoise steps "
+        f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {dec_s:.2f} s; launches {counts}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    _check_result(res, REQUEST)
+    log(f"[fp8] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
+        f"{res.audio.shape[0]} finite samples, rms {float(np.sqrt(np.mean(res.audio ** 2))):.4f}")
+    want = {"exact": FULL_DEPTH_LAUNCHES, "cap": 0, "sage": 0}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+    return {"launches": counts["exact"], "peak_gib": peak / 2**30, "step_s": step_s,
+            "fp8_share": fp8_bytes / bf16_bytes}
+
+
+def phase_sampler_options():
+    """Phase 16: the sampler's serving options on the card at phase 5's
+    geometry and modules (depth cut, seed 0)."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch import offload
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.diffusion.sampler import build_plan
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+    from dualforce_tpu_torch.ops import attention as attn_mod
+
+    cfg = main_path_config()
+    modules = init_pipeline_params(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(), compute_dtype=torch.bfloat16,
+                        device="cuda", mask_ctx_pad=True)
+    calls = []
+    real = attn_mod.flash_attention
+
+    def spy(q, k, v, kv_valid_len=None, **kw):
+        calls.append((q.shape[0], None if kv_valid_len is None else kv_valid_len.tolist()))
+        return real(q, k, v, kv_valid_len, **kw)
+
+    prompt = "a cat playing the piano in a sunlit room"
+    attn_mod.flash_attention = spy
+    try:
+        (batched, _, b_steps, _), b_counts = _count_flash(lambda: _serve_request(
+            pipe, prompt, 0, REQUEST, np.random.default_rng(16), cfg_batch=True))
+    finally:
+        attn_mod.flash_attention = real
+    (single, _, s_steps, _), s_counts = _count_flash(lambda: _serve_request(
+        pipe, prompt, 0, REQUEST, np.random.default_rng(16)))
+    plain = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(),
+                         compute_dtype=torch.bfloat16, device="cuda")
+    (cached, _, c_steps, _), c_counts = _count_flash(lambda: _serve_request(
+        plain, prompt, 0, REQUEST, np.random.default_rng(16), cfg_cache_interval=2))
+    # the same modules moved to page-locked host memory and staged per phase
+    for m in modules.values():
+        offload.to_host(m, "cuda")
+    staged = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(),
+                          compute_dtype=torch.bfloat16, device="cuda", mask_ctx_pad=True,
+                          offload="component")
+    (restaged, _, r_steps, _), r_counts = _count_flash(lambda: _serve_request(
+        staged, prompt, 0, REQUEST, np.random.default_rng(16)))
+    rel = float(np.linalg.norm(batched.video.astype(np.float32) - single.video.astype(np.float32))
+                / np.linalg.norm(single.video.astype(np.float32)))
+    rel_audio = float(np.linalg.norm(batched.audio - single.audio)
+                      / max(np.linalg.norm(single.audio), 1e-30))
+    with_len = [lens for b, lens in calls if lens is not None]
+    log(f"[options] mask_ctx_pad + cfg_batch: launches {b_counts}, batch sizes "
+        f"{sorted(set(b for b, _ in calls))}, {len(with_len)} calls with per-batch kv lengths "
+        f"{with_len[0] if with_len else None}; steps {', '.join(f'{x:.2f}' for x in b_steps)} s")
+    log(f"[options] mask_ctx_pad unbatched: launches {s_counts}; steps "
+        f"{', '.join(f'{x:.2f}' for x in s_steps)} s; decoded video rel L2 batched against "
+        f"unbatched {rel:.3e} (limit {OPTIONS_REL_TOL}), audio {rel_audio:.3e}")
+    log(f"[options] cfg_cache_interval=2: launches {c_counts}; steps "
+        f"{', '.join(f'{x:.2f}' for x in c_steps)} s")
+    same = (np.array_equal(restaged.video, single.video)
+            and np.array_equal(restaged.audio, single.audio))
+    log(f"[options] the unbatched request through offload='component' (the modules in "
+        f"page-locked host memory): launches {r_counts}; steps "
+        f"{', '.join(f'{x:.2f}' for x in r_steps)} s; bit-equal to resident: {same}")
+    for res in (batched, single, cached, restaged):
+        _check_result(res, REQUEST)
+    if not same or r_counts != s_counts:
+        raise AssertionError("the staged request differs from the resident one")
+    if b_counts != {"exact": LAUNCHES_PER_REQUEST // 2, "cap": 0, "sage": 0}:
+        raise AssertionError(f"batched launches {b_counts}, expected "
+                             f"{LAUNCHES_PER_REQUEST // 2}")
+    if len(calls) != LAUNCHES_PER_REQUEST // 2 or any(b != 2 for b, _ in calls):
+        raise AssertionError(f"batched calls {[b for b, _ in calls]}, expected 56 at B = 2")
+    if not with_len or any(len(lens) != 2 or lens[0] == lens[1] == 512 for lens in with_len):
+        raise AssertionError(f"text cross-attention kv lengths {with_len}")
+    if s_counts["exact"] != LAUNCHES_PER_REQUEST:
+        raise AssertionError(f"unbatched launches {s_counts}")
+    # the cached request runs its negative pass at steps i % 2 == 0 and at each
+    # expert's first step: one positive pass per step, one negative per refresh
+    steps = REQUEST["num_inference_steps"]
+    plain.scheduler.set_timesteps(steps, shift=REQUEST["sigma_shift"])
+    boundary = build_plan(plain.scheduler, cfg.boundary_ratio).boundary_step
+    refreshes = {i for i in range(steps) if i % 2 == 0 or i == boundary}
+    want = {"exact": LAUNCHES_PER_REQUEST // (2 * steps) * (steps + len(refreshes)),
+            "cap": 0, "sage": 0}
+    if c_counts != want:
+        raise AssertionError(f"cfg_cache_interval=2 launches {c_counts}, expected {want} "
+                             f"(negative passes at steps {sorted(refreshes)})")
+    if rel > OPTIONS_REL_TOL:
+        raise AssertionError(f"batched video rel L2 {rel:.3e} > {OPTIONS_REL_TOL}")
+    return {"cfg_batch": b_counts["exact"], "unbatched": s_counts["exact"],
+            "cfg_cache_interval_2": c_counts["exact"], "rel": rel}
+
+
 def main() -> int:
     # Freed blocks of any size serve later requests of any size: without it the
     # 720p training phase loses some 11 GiB of the card to fragmentation and
@@ -1624,19 +1945,31 @@ def main() -> int:
         return 1
     sys.path.insert(0, root)
 
-    smi = phase_device()
-    phase_build()
-    rows, max_abs = phase_kernels()
-    phase_small_step()
-    serve_launches, cfg, modules = phase_main_path()
-    bwd_rows, bwd_max_abs = phase_backward_kernels()
-    phase_small_backward()
-    train = phase_train_path(cfg, modules, root)
-    prec_rows, prec_max_abs = phase_precision_kernels()
-    phase_precision_step()
-    prec = phase_precision_serving(cfg, modules)
-    rows_720p, max_abs_720p = phase_720p_backward_kernels()
-    train720, peak_720p = phase_train_720p(cfg, modules, root)
+    smi = timed_phase("device", phase_device)
+    timed_phase("build", phase_build)
+    rows, max_abs = timed_phase("kernel", phase_kernels)
+    timed_phase("small", phase_small_step)
+    serve_launches, cfg, modules = timed_phase("main", phase_main_path)
+    bwd_rows, bwd_max_abs = timed_phase("backward", phase_backward_kernels)
+    timed_phase("small-backward", phase_small_backward)
+    train = timed_phase("train", phase_train_path, cfg, modules, root)
+    prec_rows, prec_max_abs = timed_phase("precision-kernels", phase_precision_kernels)
+    timed_phase("precision-step", phase_precision_step)
+    prec = timed_phase("precision", phase_precision_serving, cfg, modules)
+    rows_720p, max_abs_720p = timed_phase("720p", phase_720p_backward_kernels)
+    train720, peak_720p = timed_phase("train720", phase_train_720p, cfg, modules, root)
+    del modules                             # the depth-cut model leaves the card
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = timed_phase("full", phase_full_depth_staged)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8 = timed_phase("fp8", phase_full_depth_fp8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    options = timed_phase("options", phase_sampler_options)
 
     video_self, train_self = rows[0], bwd_rows[0]
     cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
@@ -1647,11 +1980,20 @@ def main() -> int:
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
-        "launches": serve_launches + train["fwd"] + train720["fwd"],
+        "launches": (serve_launches + train["fwd"] + train720["fwd"] + full["launches"]
+                     + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
+                     + options["cfg_cache_interval_2"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
-                             "train_720p": train720["fwd"]},
+                             "train_720p": train720["fwd"],
+                             "serve_full_depth_staged": full["launches"],
+                             "serve_full_depth_fp8": fp8["launches"],
+                             "serve_cfg_batch_mask_ctx_pad": options["cfg_batch"],
+                             "serve_mask_ctx_pad": options["unbatched"],
+                             "serve_cfg_cache_interval_2": options["cfg_cache_interval_2"]},
+        "full_depth_staged_peak_gib": full["peak_gib"],
+        "full_depth_fp8_peak_gib": fp8["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),
         "ms": video_self["kernel_ms"],
         "plain_ms": video_self["plain_ms"],

@@ -9,6 +9,8 @@ converters (`models/umt5.convert_umt5`, `convert/load_checkpoint._convert_wan_va
 `convert/torch_import.convert_dac`). `load` loads them with strict=True, so
 no key may be missing or extra. `lora` carries a JAX LoRA tree (factors
 stacked per layer, `engine/lora.init_pipeline_lora`) into the port's LoRA.
+Leaves that `cast_tree_fp8` stored in fp8 (ml_dtypes' float8 arrays) stay
+fp8, byte for byte; every other float leaf is read as fp32.
 """
 
 from __future__ import annotations
@@ -25,10 +27,14 @@ from dualforce_tpu_torch.engine import lora as lora_mod
 
 Array = np.ndarray
 StateDict = Dict[str, Array]
+# ml_dtypes' float8 dtypes, by name (the port does not import ml_dtypes)
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
 
 
 def _np32(x) -> Array:
-    return np.asarray(x, dtype=np.float32)
+    """A float leaf as fp32, or as it is if it is fp8."""
+    x = np.asarray(x)
+    return x if x.dtype.name in _FP8 else x.astype(np.float32)
 
 
 def _unstack(tree, i: int):
@@ -264,8 +270,12 @@ def state_dicts(params: Dict[str, Any], cfg: MOVAConfig) -> Dict[str, StateDict]
 
 
 def _tensor(x) -> torch.Tensor:
-    """Integer leaves (quantized weights) as they are, the rest as fp32."""
+    """Integer leaves (quantized weights) and fp8 ones as they are, the rest
+    as fp32. `torch.from_numpy` takes no float8 array, so an fp8 leaf goes
+    over as its bytes."""
     x = np.asarray(x)
+    if x.dtype.name in _FP8:
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.uint8)).view(_FP8[x.dtype.name])
     return torch.from_numpy(np.array(x, x.dtype if np.issubdtype(x.dtype, np.integer)
                                      else np.float32))
 

@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from dualforce_tpu_torch import resolve_device
 from dualforce_tpu_torch.config import AudioDiTConfig, BridgeConfig, VideoDiTConfig
 from dualforce_tpu_torch.models.audio_dit import AudioDiT
 from dualforce_tpu_torch.models.bridge import DualTowerBridge
@@ -35,10 +36,13 @@ def _audio_tables(cfg: AudioDiTConfig):
 
 def make_rope_pack(vcfg: VideoDiTConfig, acfg: AudioDiTConfig, bcfg: BridgeConfig,
                    grid: Tuple[int, int, int], audio_tokens: int,
-                   video_fps: float = 24.0, device="cpu"):
+                   video_fps: float = 24.0, device="cuda"):
     """RoPE tables for a generation geometry, built on the host in float64
-    and moved to `device` as fp32: {"v": (cos, sin), "a": (cos, sin)} and,
-    when the bridge applies cross RoPE, "cross": ((cos_v, sin_v), (cos_a, sin_a))."""
+    and moved to `device` (CUDA unless the caller asks for the CPU) as fp32:
+    {"v": (cos, sin), "a": (cos, sin)} and, when the bridge applies cross
+    RoPE, "cross": ((cos_v, sin_v), (cos_a, sin_a))."""
+    device = resolve_device(device)
+
     def dev(a):
         return torch.from_numpy(a).to(device)
 

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 
+from dualforce_tpu_torch import nn as dnn
 from dualforce_tpu_torch import resolve_device
 from dualforce_tpu_torch.config import MOVAConfig
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
@@ -88,6 +89,8 @@ class LoRATrainer:
             raise NotImplementedError("component offload is not ported")
         if tcfg.offload != "none":
             raise ValueError(f"unknown trainer offload {tcfg.offload!r}")
+        if any(p.dtype in dnn.FP8_DTYPES for m in modules.values() for p in m.parameters()):
+            raise NotImplementedError("LoRA training on fp8-stored weights is not ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.modules = modules

@@ -50,6 +50,11 @@ class ConditionalCrossAttentionBlock(nn.Module):
 
 
 class DualTowerBridge(nn.Module):
+    # fp8 storage (`dnn.fp8_stored`): the JAX tree stacks both conditioner
+    # lists; the inner attention's `norm_q`/`norm_k` and `y_norm` stay bf16
+    FP8_STACKED = ("audio_to_video_conditioners.", "video_to_audio_conditioners.")
+    FP8_EXEMPT = ("norm_q.", "norm_k.", "y_norm.")
+
     def __init__(self, cfg: BridgeConfig, device=None, dtype=None):
         super().__init__()
         if cfg.pooled_adaln:

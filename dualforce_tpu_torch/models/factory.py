@@ -6,7 +6,14 @@ passes through host memory. Linear and conv weights and biases are uniform
 in +-1/sqrt(fan_in) (PyTorch's default bound), embeddings standard normal,
 AdaLN modulation tables normal / sqrt(dim), and norm, snake and scale
 parameters ones (biases zeros). The DiTs, bridge and text encoder take
-`dtype`; the VAEs stay fp32, as in the JAX package.
+`dtype`; the VAEs stay fp32, as in the JAX package. An fp8 `dtype` is
+storage only, as the JAX loader's: those modules are drawn in bf16 and cast
+by `nn.cast_modules_fp8`.
+
+With `host=True` each module is drawn on the device and moved into host
+memory (page-locked when the device is a CUDA card) before the next one is
+drawn: the card never holds more than one module, and the values are those
+of a resident init from the same seed.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 from torch import nn
 
 from dualforce_tpu_torch import nn as dnn
-from dualforce_tpu_torch import resolve_device
+from dualforce_tpu_torch import offload, resolve_device
 from dualforce_tpu_torch.config import MOVAConfig
 from dualforce_tpu_torch.models.audio_dit import AudioDiT
 from dualforce_tpu_torch.models.bridge import DualTowerBridge
@@ -53,33 +60,45 @@ def _init_weights(module: nn.Module, gen: torch.Generator) -> None:
             p.normal_(generator=gen).div_(math.sqrt(p.shape[-1]))
 
 
-def _build(cls, cfg, device, dtype, gen) -> nn.Module:
+def _build(cls, cfg, device, dtype, gen, host: bool = False) -> nn.Module:
+    fp8 = dtype in dnn.FP8_DTYPES
     with torch.device("meta"):
-        module = cls(cfg, dtype=dtype)
+        module = cls(cfg, dtype=torch.bfloat16 if fp8 else dtype)
     module = module.to_empty(device=device)
     _init_weights(module, gen)
-    return module.eval().requires_grad_(False)
+    if fp8:
+        dnn.cast_modules_fp8(module, dtype)
+    module = module.eval().requires_grad_(False)
+    if host and device.type != "cpu":
+        offload.to_host(module, device)
+    return module
 
 
 def init_pipeline_params(cfg: MOVAConfig, device="cuda",
                          dtype: torch.dtype = torch.bfloat16, seed: int = 0, *,
                          with_vaes: bool = True, with_text: bool = True,
-                         two_video_towers: Optional[bool] = None
+                         two_video_towers: Optional[bool] = None, host: bool = False
                          ) -> Dict[str, nn.Module]:
     """{"video_dit", "video_dit_2" (two experts), "audio_dit", "bridge",
-    "video_vae", "audio_vae", "text_encoder"} with random weights."""
+    "video_vae", "audio_vae", "text_encoder"} with random weights, drawn on
+    `device`; with `host`, handed back in host memory, one module at a
+    time."""
     device = resolve_device(device)
     if two_video_towers is None:
         two_video_towers = cfg.two_video_towers
     gen = torch.Generator(device).manual_seed(seed)
-    mods = {"video_dit": _build(VideoDiT, cfg.video_dit, device, dtype, gen)}
+
+    def build(cls, sub_cfg, sub_dtype):
+        return _build(cls, sub_cfg, device, sub_dtype, gen, host)
+
+    mods = {"video_dit": build(VideoDiT, cfg.video_dit, dtype)}
     if two_video_towers:
-        mods["video_dit_2"] = _build(VideoDiT, cfg.video_dit, device, dtype, gen)
-    mods["audio_dit"] = _build(AudioDiT, cfg.audio_dit, device, dtype, gen)
-    mods["bridge"] = _build(DualTowerBridge, cfg.bridge, device, dtype, gen)
+        mods["video_dit_2"] = build(VideoDiT, cfg.video_dit, dtype)
+    mods["audio_dit"] = build(AudioDiT, cfg.audio_dit, dtype)
+    mods["bridge"] = build(DualTowerBridge, cfg.bridge, dtype)
     if with_vaes:
-        mods["video_vae"] = _build(WanVAE, cfg.video_vae, device, torch.float32, gen)
-        mods["audio_vae"] = _build(DACVAE, cfg.audio_vae, device, torch.float32, gen)
+        mods["video_vae"] = build(WanVAE, cfg.video_vae, torch.float32)
+        mods["audio_vae"] = build(DACVAE, cfg.audio_vae, torch.float32)
     if with_text:
-        mods["text_encoder"] = _build(UMT5Encoder, cfg.text_encoder, device, dtype, gen)
+        mods["text_encoder"] = build(UMT5Encoder, cfg.text_encoder, dtype)
     return mods

@@ -124,6 +124,12 @@ class _Stack(nn.Module):
 
 
 class UMT5Encoder(nn.Module):
+    # fp8 storage (`dnn.fp8_stored`): the JAX tree stacks `encoder.block`, and
+    # names its RMSNorm scales `ln1`/`ln2`, so no leaf is exempt (HF's
+    # `layer_norm` inside a block is fp8 too; the 1-D final norm stays bf16)
+    FP8_STACKED = ("encoder.block.",)
+    FP8_EXEMPT = ()
+
     def __init__(self, cfg: UMT5Config, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg

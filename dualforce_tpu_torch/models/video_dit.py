@@ -58,7 +58,7 @@ def _norm_rope(x, weight, eps, shape, rope):
 
 
 def _gelu_linear(x, weight, bias):
-    return F.linear(dnn.gelu_tanh(x), weight, bias)
+    return F.linear(dnn.gelu_tanh(x), weight.to(x.dtype), bias.to(x.dtype))   # fp8: upcast
 
 
 def self_attention(attn: Attention, x: torch.Tensor, rope, num_heads: int,
@@ -149,6 +149,11 @@ class Head(nn.Module):
 
 class DiTTower(nn.Module):
     """Embeddings, blocks and head shared by the video and audio towers."""
+
+    # fp8 storage (`dnn.fp8_stored`): the JAX tree stacks `blocks`; its
+    # `modulation`, `norm_q`, `norm_k` and `norm3` leaves stay bf16
+    FP8_STACKED = ("blocks.",)
+    FP8_EXEMPT = ("modulation", "norm_q.", "norm_k.", "norm3.")
 
     def __init__(self, cfg, patch_embedding: nn.Module, out_features: int,
                  device=None, dtype=None):

@@ -12,8 +12,9 @@ counterpart of `quantize_linear_int8` / `_linear_int8`), `Int4Linear`
 (packed int4 weights dequantised at use, `quantize_linear_int4` /
 `_linear_int4`) and `quantize_modules`, the counterpart of
 `quantize_tree_int8` / `quantize_tree_int4`. Their arithmetic is JAX's; only
-the layout follows PyTorch's [out, in] weights. The JAX package's fp8 weight
-storage (`cast_tree_fp8`) is not ported.
+the layout follows PyTorch's [out, in] weights. fp8 weight storage
+(`cast_modules_fp8`, `Fp8Linear`) is the counterpart of `cast_tree_fp8` and
+`_weight`: weights kept in fp8 and upcast at each use.
 """
 
 from __future__ import annotations
@@ -128,7 +129,8 @@ def patch_embed_3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     f, h, w = F_ // pt, H // ph, W // pw
     x = x.reshape(b, c, f, pt, h, ph, w, pw).permute(0, 2, 4, 6, 1, 3, 5, 7)
     x = x.reshape(b, f * h * w, c * pt * ph * pw)
-    return F.linear(x, weight.reshape(weight.shape[0], -1), bias), (f, h, w)
+    w2 = weight.reshape(weight.shape[0], -1).to(x.dtype)     # fp8 storage: upcast
+    return F.linear(x, w2, bias.to(x.dtype)), (f, h, w)
 
 
 def unpatchify_3d(x: torch.Tensor, grid: Tuple[int, int, int],
@@ -148,7 +150,8 @@ def patch_embed_1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     b, c, T = x.shape
     f = T // patch_size
     x = x.reshape(b, c, f, patch_size).permute(0, 2, 1, 3).reshape(b, f, c * patch_size)
-    return F.linear(x, weight.reshape(weight.shape[0], -1), bias), f
+    w2 = weight.reshape(weight.shape[0], -1).to(x.dtype)     # fp8 storage: upcast
+    return F.linear(x, w2, bias.to(x.dtype)), f
 
 
 def unpatchify_1d(x: torch.Tensor, patch_size: int, out_dim: int) -> torch.Tensor:
@@ -217,7 +220,7 @@ class Int8Linear(nn.Module):
         acc = _int_mm(ai.reshape(-1, ai.shape[-1]), self.weight_q.t())
         acc = acc.reshape(*x.shape[:-1], acc.shape[-1])
         y = (acc * a_scale).mul_(self.weight_scale).to(x.dtype)   # acc promotes to fp32
-        return y if self.bias is None else y + self.bias
+        return y if self.bias is None else y + self.bias.to(y.dtype)   # fp8 storage: upcast
 
 
 def dequantize_int4(q4: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
@@ -288,3 +291,75 @@ def quantize_modules(module: nn.Module, mode: str) -> nn.Module:
 
     walk(out, False)
     return out
+
+
+# --- fp8 weight storage ---------------------------------------------------------
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+# `cast_tree_fp8` stores a leaf of the JAX package's tree in fp8 when it has two
+# axes or more and its path holds neither "modulation" nor "norm". Those trees
+# stack every block list along a leading layer axis, so each parameter of a
+# stacked list has two axes or more there, 1-D biases and UMT5's per-layer bias
+# tables and RMSNorm scales included. A model class names its stacked lists
+# (`FP8_STACKED`, prefixes of parameter names) and the parameters whose JAX path
+# holds "modulation" or "norm" (`FP8_EXEMPT`, name fragments); a module that
+# declares neither gets JAX's rule on its own names.
+
+
+def fp8_stored(module: nn.Module, name: str, p: torch.Tensor) -> bool:
+    """Whether `cast_tree_fp8` stores the JAX leaf of `module`'s parameter
+    `name` in fp8."""
+    stacked = getattr(type(module), "FP8_STACKED", ())
+    exempt = getattr(type(module), "FP8_EXEMPT", ("modulation", "norm"))
+    return ((name.startswith(stacked) or p.dim() >= 2)
+            and not any(k in name for k in exempt))
+
+
+class Fp8Linear(nn.Linear):
+    """A linear whose weight (and, inside a block, bias) is stored in fp8:
+    each call upcasts them to the input's dtype, as JAX's `_weight` does, and
+    runs the product in that dtype. No upcast copy outlives the call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def _as_fp8_linear(linear: nn.Linear) -> Fp8Linear:
+    with torch.device("meta"):
+        out = Fp8Linear(linear.in_features, linear.out_features,
+                        bias=linear.bias is not None)
+    out.weight, out.bias = linear.weight, linear.bias
+    return out
+
+
+@torch.no_grad()
+def cast_modules_fp8(module: nn.Module,
+                     weight_dtype: torch.dtype = torch.float8_e4m3fn) -> nn.Module:
+    """The counterpart of `cast_tree_fp8`, in place: the parameters that
+    `fp8_stored` names go to `weight_dtype`, the rest to bf16, and
+    every `nn.Linear` whose weight is now fp8 becomes an `Fp8Linear` holding
+    the same parameters. Values beyond the fp8 range saturate to its largest
+    finite value, where the JAX package's cast (ml_dtypes) gives NaN; the
+    clamp makes it so whatever PyTorch's own cast does (2.11 gives NaN, 2.13
+    saturates). Returns `module`."""
+    top = torch.finfo(weight_dtype).max
+    for name, p in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner)
+        if fp8_stored(module, name, p):
+            q = p.clamp(-top, top).to(weight_dtype)
+        else:
+            q = p.to(torch.bfloat16)
+        setattr(sub, leaf, nn.Parameter(q, requires_grad=False))
+
+    def walk(parent: nn.Module) -> None:
+        for name, child in parent.named_children():
+            if type(child) is nn.Linear and child.weight.dtype in FP8_DTYPES:
+                setattr(parent, name, _as_fp8_linear(child))
+            else:
+                walk(child)
+
+    walk(module)
+    return module

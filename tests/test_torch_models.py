@@ -281,7 +281,8 @@ def test_make_rope_pack_matches():
 
     cfg = tiny_test_config()
     jcfg = _jax_config(cfg)
-    got = make_rope_pack(cfg.video_dit, cfg.audio_dit, cfg.bridge, (3, 4, 4), 25)
+    got = make_rope_pack(cfg.video_dit, cfg.audio_dit, cfg.bridge, (3, 4, 4), 25,
+                         device="cpu")
     want = jax_pack(jcfg.video_dit, jcfg.audio_dit, jcfg.bridge, (3, 4, 4), 25)
     assert set(got) == set(want)
     for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):

@@ -164,5 +164,5 @@ def test_generate_end_to_end_on_cpu(slice_run):
     assert r1.video.shape == (5, 32, 32, 3) and np.isfinite(r1.audio).all()
     np.testing.assert_array_equal(r1.video, r2.video)
     np.testing.assert_array_equal(r1.audio, r2.audio)
-    with pytest.raises(NotImplementedError):
-        pipe("a dog", image, cfg_batch=True, **kw)
+    with pytest.raises(ValueError):
+        pipe("a dog", image, cfg_batch=True, cfg_cache_interval=2, **kw)

@@ -249,6 +249,6 @@ def test_pipeline_refuses_unknown_modes(towers):
         with pytest.raises(ValueError):
             MOVAPipeline(cfg, dict(mods), device="cpu", **kw)
     with pytest.raises(NotImplementedError):
-        MOVAPipeline(cfg, dict(mods), device="cpu", offload="component")
+        MOVAPipeline(cfg, dict(mods), device="cpu", offload="group")
     pipe = MOVAPipeline(cfg, dict(mods), device="cpu", attn_impl="sage", quantize="int8")
     assert (pipe.attn_impl, pipe.quantize) == ("sage", "int8")
