@@ -128,6 +128,28 @@ Phases, each of which must pass:
    printed; then the unbatched request again with the same modules moved
    to page-locked host memory, through `offload="component"`: bit-equal to
    the resident result.
+17. checkpoint and CLIs: phase 5's modules (seed 0, drawn again) written
+   with the port's writer as an HF-layout checkpoint in a temporary
+   directory (towers and UMT5 bf16, VAEs fp32 with the DAC weight-normed),
+   then phase 5's first request through `cli.inference_single.run` with its
+   default flags: 112 launches, every loaded parameter equal to the one
+   written (the DAC's folded weights within 1e-6 relative), the video
+   bit-equal to phase 5's, the request's audio latents those of phase 5
+   (the written DAC decodes them to phase 5's audio bit for bit) and their
+   fp32 decodes through the loaded and the written DAC within 1e-5 relative
+   L2 (the end-to-end audio differs more, ~6e-4: cuDNN runs the fp32
+   convolutions in TF32, whose rounding any one-ulp weight change shows;
+   printed); the same
+   request with `--weight_dtype fp8 --profile DIR`: 112 launches, every fp8
+   tower and UMT5 byte-equal to `nn.cast_modules_fp8` of the bf16 load, the
+   ten operations with the most device time printed from the profiler's
+   averages; and through `cli.inference_single_lora.run` with an
+   accelerate-format LoRA (rank 16, alpha 16, scale 0.75, from a numpy
+   seed) and `--offload cpu`: 112 launches, the experts never staged
+   together, three merged weights within half a bf16 step (and a few fp32
+   steps) of W + (alpha/r) * scale * B A computed on the card in fp32, the
+   video changed. Each clip is written with `save_video_with_audio` (the
+   WAV alone where PIL is absent); the directory is removed.
 
 Every phase prints its wall time. The run sets
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the environment sets
@@ -723,6 +745,7 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0            # the main path's count starts here
     per_request = []
+    first = None
     for prompt, seed in requests:
         image = rng.uniform(-1, 1, (request["height"], request["width"], 3)).astype(np.float32)
         before = flash_attention.launches
@@ -730,6 +753,9 @@ def phase_main_path():
         res = pipe(prompt, image, negative_prompt=negative, seed=seed, **request)
         launched = flash_attention.launches - before
         per_request.append(launched)
+        if first is None:       # phase 17 serves this request again from a checkpoint
+            first = dict(prompt=prompt, negative=negative, seed=seed, image=image,
+                         video=res.video, audio=res.audio)
         log(f"[main] request seed={seed}: prepare {marks['prepare']:.2f} s, denoise steps "
             f"{', '.join(f'{s:.2f}' for s in step_s)} s, decode {marks['decode']:.2f} s; "
             f"flash launches {launched}")
@@ -744,7 +770,7 @@ def phase_main_path():
         f"flash launches over both requests {launches}")
     if launches == 0:
         raise AssertionError("the main path never launched the flash kernel")
-    return launches, cfg, modules
+    return launches, cfg, modules, first
 
 
 def _rand(g, *shape, dtype=None):
@@ -1705,12 +1731,35 @@ def _count_flash(fn):
                  "sage": sa.sage_attention.launches}
 
 
+def _staging_spy(offload):
+    """Wrap `offload.staged` to time each staging and keep the order in which
+    modules enter and leave the card: (events [(kind, id, s)], restore)."""
+    import contextlib
+
+    import torch
+
+    real, events = offload.staged, []
+
+    @contextlib.contextmanager
+    def timed(module, device):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with real(module, device) as copy:
+            torch.cuda.synchronize()
+            events.append(("in", id(module), time.perf_counter() - start))
+            try:
+                yield copy
+            finally:
+                events.append(("out", id(module), 0.0))
+
+    offload.staged = timed
+    return events, lambda: setattr(offload, "staged", real)
+
+
 def phase_full_depth_staged():
     """Phase 14: MOVA-360p at full depth through `offload="component"`, bf16
     masters in page-locked host memory (FULL_DEPTH_MASTER_DTYPE: the host
     holds them)."""
-    import contextlib
-
     import numpy as np
     import torch
 
@@ -1740,19 +1789,7 @@ def phase_full_depth_staged():
     pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(), compute_dtype=torch.bfloat16,
                         device="cuda", offload="component")
     names = {id(m): n for n, m in modules.items()}
-    staging = []
-    real = offload.staged
-
-    @contextlib.contextmanager
-    def timed(module, device):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        with real(module, device) as copy:
-            torch.cuda.synchronize()
-            staging.append((names[id(module)], time.perf_counter() - start))
-            yield copy
-
-    offload.staged = timed
+    events, restore = _staging_spy(offload)
     try:
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
@@ -1764,7 +1801,8 @@ def phase_full_depth_staged():
         torch.cuda.synchronize()
         after = torch.cuda.memory_allocated()
     finally:
-        offload.staged = real
+        restore()
+    staging = [(names[mid], t) for kind, mid, t in events if kind == "in"]
     rss, free = _host_memory()
     log(f"[full] staged bf16 request: prepare {prep_s:.2f} s, denoise steps "
         f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {dec_s:.2f} s; launches {counts}")
@@ -1926,6 +1964,310 @@ def phase_sampler_options():
             "cfg_cache_interval_2": c_counts["exact"], "rel": rel}
 
 
+# phase 17: the DAC's weight norm is folded in fp32 (sums in another order than the
+# unfolded module's), so its loaded weights and the audio they decode (in fp32) may differ
+# a little
+FOLD_REL_TOL = 1e-6
+CLI_AUDIO_REL_TOL = 1e-5
+LORA_RANK, LORA_ALPHA, LORA_SCALE = 16, 16.0, 0.75
+
+
+def _reference_lora(modules, root: str, seed: int = 17):
+    """An accelerate-format LoRA directory (`lora_weights.pt`, `lora_config.pt`)
+    over q, k, v and o of every block's self and cross attention of both video
+    experts and of the bridge's a2v and v2a conditioners; A ~ N(0, 1/in), B ~
+    N(0, 0.01^2), from a numpy seed. Returns {(module, weight name): (A, B)}."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.engine.lora import lora_targets
+
+    rng = np.random.default_rng(seed)
+    sd, factors = {}, {}
+    for mod, prefix in (("video_dit", "video_dit"), ("video_dit_2", "video_dit_2"),
+                        ("bridge", "dual_tower_bridge")):
+        for name in lora_targets(modules[mod]):
+            out_dim, in_dim = modules[mod].get_parameter(name).shape
+            a = (rng.standard_normal((LORA_RANK, in_dim)) / math.sqrt(in_dim)).astype("float32")
+            b = (0.01 * rng.standard_normal((out_dim, LORA_RANK))).astype("float32")
+            stem = f"{prefix}.{name[:-len('.weight')]}"
+            sd[f"{stem}.lora_A.weight"] = torch.from_numpy(a)
+            sd[f"{stem}.lora_B.weight"] = torch.from_numpy(b)
+            factors[(mod, name)] = (a, b)
+    os.makedirs(root, exist_ok=True)
+    torch.save(sd, os.path.join(root, "lora_weights.pt"))
+    torch.save({"rank": LORA_RANK, "alpha": LORA_ALPHA}, os.path.join(root, "lora_config.pt"))
+    return factors
+
+
+def _trace_busy(path: str):
+    """(summed kernel microseconds, microseconds in which at least one kernel,
+    copy or memset ran, microseconds from the first to the last) of a
+    `torch.profiler` Chrome trace."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not events:
+        return 0.0, 0.0, 0.0
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernels = sum(float(e["dur"]) for e in events if e["cat"] == "kernel")
+    return kernels, busy, end - spans[0][0]
+
+
+def _write_av(path: str, res) -> str:
+    """The clip through the port's `save_video_with_audio`, or the WAV alone
+    where PIL (which encodes the frames) is absent."""
+    import importlib.util
+
+    from dualforce_tpu_torch.utils import av_io
+
+    if importlib.util.find_spec("PIL") is None:
+        wav = os.path.splitext(path)[0] + ".wav"
+        av_io.write_wav(wav, res.audio, res.sample_rate)
+        log(f"[cli] PIL is absent: wrote the WAV alone, {wav}")
+        return wav
+    return av_io.save_video_with_audio(path, res.video, res.audio, fps=res.fps,
+                                       sample_rate=res.sample_rate)
+
+
+def phase_checkpoint_cli(first):
+    """Phase 17: phase 5's modules written as an HF-layout checkpoint and
+    served from it through the port's two inference CLIs."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch import nn as dnn
+    from dualforce_tpu_torch import offload
+    from dualforce_tpu_torch.cli import inference_single as cli
+    from dualforce_tpu_torch.cli import inference_single_lora as lora_cli
+    from dualforce_tpu_torch.convert import load_checkpoint as lc
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.models import dac_vae
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+
+    cfg = main_path_config()
+    source = init_pipeline_params(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = os.path.join(root, "mova_360p_depth_cut")
+        free = shutil.disk_usage(root).free
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = lc.save_pipeline_params(source, cfg, ckpt)
+        write_s = time.perf_counter() - t0
+        os.sync()
+        sync_s = time.perf_counter() - t0 - write_s
+        log(f"[cli] wrote the checkpoint, {nbytes / 1e9:.3f} GB of tensors ("
+            + ", ".join(f"{n} {offload.nbytes(m) / 1e9:.3f}" for n, m in source.items())
+            + f" GB in the modules), in {write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s) "
+            f"and synced in {sync_s:.2f} s; {free / 1e9:.1f} GB free on the temporary "
+            f"directory's disk before")
+
+        request = ["--prompt", first["prompt"], "--negative_prompt", first["negative"],
+                   "--seed", str(first["seed"]), "--ref_path", "unused (first frame given)",
+                   "--height", str(REQUEST["height"]), "--width", str(REQUEST["width"]),
+                   "--num_frames", str(REQUEST["num_frames"]), "--fps", str(REQUEST["video_fps"]),
+                   "--num_inference_steps", str(REQUEST["num_inference_steps"]),
+                   "--cfg_scale", str(REQUEST["cfg_scale"]),
+                   "--sigma_shift", str(REQUEST["sigma_shift"])]
+        want = {"exact": LAUNCHES_PER_REQUEST, "cap": 0, "sage": 0}
+
+        # 2. the base CLI with its default flags (the denoised audio latents kept)
+        rss0 = _host_memory()[0]
+        args = cli.parse_args(["--ckpt_path", ckpt, "--output", os.path.join(root, "base.mp4")]
+                              + request)
+        kept, finalize = {}, MOVAPipeline.finalize_state
+
+        def keep(self, state):
+            kept["audio_latents"] = state["audio_latents"]
+            return finalize(self, state)
+
+        MOVAPipeline.finalize_state = keep
+        try:
+            t0 = time.perf_counter()
+            (base, pipe), counts = _count_flash(lambda: cli.run(
+                args, tokenizer=ByteTokenizer(), image=first["image"]))
+        finally:
+            MOVAPipeline.finalize_state = finalize
+        log(f"[cli] base request (load, then generate) {time.perf_counter() - t0:.2f} s; host "
+            f"rss {rss0:.2f} GiB before, {_host_memory()[0]:.2f} GiB after; launches {counts}")
+        if counts != want:
+            raise AssertionError(f"base CLI launches {counts}, expected {want}")
+        worst_fold = 0.0
+        for name, module in pipe.modules.items():
+            loaded = dict(module.named_parameters())
+            for k, p in source[name].named_parameters():
+                q = loaded[k]
+                if name == "audio_vae" and k.endswith(".weight"):
+                    err = float((q - p).abs().max() / p.abs().max())
+                    worst_fold = max(worst_fold, err)
+                    ok = err <= FOLD_REL_TOL
+                else:
+                    ok = q.dtype == p.dtype and torch.equal(q, p)
+                if not ok:
+                    raise AssertionError(f"loaded {name}.{k} differs from the module written")
+        _check_result(base, REQUEST)
+        same_video = np.array_equal(base.video, first["video"])
+        audio_rel = float(np.linalg.norm(base.audio - first["audio"])
+                          / np.linalg.norm(first["audio"]))
+        # the DAC decode: cuDNN runs fp32 convolutions in TF32 (PyTorch's default), whose
+        # rounding (~6e-4 relative at the DAC's output) any one-ulp weight change shows;
+        # the fold is held in fp32 on the request's own audio latents
+        z, n = kept["audio_latents"].to("cuda"), first["audio"].shape[0]
+        with torch.no_grad():
+            again = dac_vae.decode(source["audio_vae"], z)[0, 0, :n].cpu().numpy()
+            with torch.backends.cudnn.flags(enabled=True,
+                                            benchmark=torch.backends.cudnn.benchmark,
+                                            deterministic=torch.backends.cudnn.deterministic,
+                                            allow_tf32=False):
+                got32 = dac_vae.decode(pipe.modules["audio_vae"], z)[0, 0, :n]
+                want32 = dac_vae.decode(source["audio_vae"], z)[0, 0, :n]
+        same_latents = np.array_equal(again, first["audio"])
+        fold_rel = rel_err(got32, want32.float())
+        tf32_rel = rel_err(torch.from_numpy(again).cuda(), want32.float())
+        log(f"[cli] every loaded parameter equal to the one written (DAC folds within "
+            f"{worst_fold:.2e} relative); video bit-equal to phase 5's first request: "
+            f"{same_video}; audio rel L2 {audio_rel:.3e} against phase 5's (TF32 "
+            f"convolutions); its latents decoded by the written DAC give phase 5's audio bit "
+            f"for bit: {same_latents}; decoded in fp32 by the loaded and the written DAC: rel "
+            f"L2 {fold_rel:.3e} (limit {CLI_AUDIO_REL_TOL}); the written DAC's TF32 decode "
+            f"against its fp32 one: rel L2 {tf32_rel:.3e}")
+        if not same_video:
+            diff = np.abs(base.video.astype(np.int16) - first["video"].astype(np.int16))
+            raise AssertionError(f"the CLI's video differs from phase 5's: {int(diff.max())} "
+                                 f"levels at most, in {float(np.mean(diff > 0)):.2e} of values")
+        if not same_latents or fold_rel > CLI_AUDIO_REL_TOL:
+            raise AssertionError(f"audio: latents as phase 5's {same_latents}, fp32 decode "
+                                 f"rel L2 {fold_rel:.3e} (limit {CLI_AUDIO_REL_TOL})")
+        # the request's audio against phase 5's: each TF32 decode within about tf32_rel of
+        # its fp32 one, and the two fp32 decodes fold_rel apart
+        audio_limit = 2 * tf32_rel + fold_rel
+        log(f"[cli] audio rel L2 {audio_rel:.3e} against phase 5's, limit {audio_limit:.3e} "
+            f"(2 x TF32 vs fp32 + the fp32 fold gap)")
+        if audio_rel > audio_limit:
+            raise AssertionError(f"the CLI's audio is {audio_rel:.3e} from phase 5's "
+                                 f"(limit {audio_limit:.3e})")
+        written = [_write_av(os.path.join(root, "base.mp4"), base)]
+
+        # 3. fp8 storage, profiled
+        trace_dir = os.path.join(root, "profile")
+        args8 = cli.parse_args(["--ckpt_path", ckpt, "--weight_dtype", "fp8", "--profile",
+                                trace_dir] + request)
+        t0 = time.perf_counter()
+        (res8, pipe8), counts8 = _count_flash(lambda: cli.run(
+            args8, tokenizer=ByteTokenizer(), image=first["image"]))
+        log(f"[cli] fp8 request, profiled (load, generate, trace export) "
+            f"{time.perf_counter() - t0:.2f} s; launches {counts8}")
+        if counts8 != want:
+            raise AssertionError(f"fp8 CLI launches {counts8}, expected {want}")
+        for name in ("video_dit", "video_dit_2", "audio_dit", "bridge", "text_encoder"):
+            cast = dnn.cast_modules_fp8(copy.deepcopy(pipe.modules[name]))
+            loaded = dict(pipe8.modules[name].named_parameters())
+            for k, p in cast.named_parameters():
+                q = loaded[k]
+                if q.dtype != p.dtype or not torch.equal(q.view(torch.uint8),
+                                                         p.view(torch.uint8)):
+                    raise AssertionError(f"fp8 load of {name}.{k} differs from "
+                                         "cast_modules_fp8 of the bf16 load")
+            del cast
+        _check_result(res8, REQUEST)
+        with open(os.path.join(trace_dir, "device_ops.json")) as f:
+            ops = [o for o in json.load(f)
+                   if o["device_type"] == "CUDA" and o["self_device_us"] > 0]
+        total_us = sum(o["self_device_us"] for o in ops)
+        kernel_us, busy_us, span_us = _trace_busy(os.path.join(trace_dir, "trace.json"))
+        log(f"[cli] fp8 towers and UMT5 byte-equal to cast_modules_fp8 of the bf16 load; "
+            f"trace.json {os.path.getsize(os.path.join(trace_dir, 'trace.json')) / 1e6:.1f} "
+            f"MB: kernels {kernel_us / 1e6:.3f} s, the card busy {busy_us / 1e6:.3f} s of "
+            f"{span_us / 1e6:.3f} s from the first kernel to the last (idle "
+            f"{100 * (1 - busy_us / max(span_us, 1e-9)):.1f} %); the profiler's averages: "
+            f"{len(ops)} device operations, {total_us / 1e6:.3f} s; the ten with the most:")
+        for o in ops[:10]:
+            log(f"[cli]   {o['self_device_us'] / 1e3:10.2f} ms "
+                f"({100 * o['self_device_us'] / max(total_us, 1e-9):5.1f} %), "
+                f"{o['calls']:6d} calls: {o['name'][:110]}")
+        if total_us <= 0:
+            log("[cli] the profiler's averages hold no device time")
+        written.append(_write_av(os.path.join(root, "fp8.mp4"), res8))
+        del pipe8, res8, pipe
+        torch.cuda.empty_cache()
+
+        # 4. a reference-format LoRA through the LoRA CLI, staged from host memory
+        lora_dir = os.path.join(root, "lora")
+        factors = _reference_lora(source, lora_dir)
+        argsl = lora_cli.parse_args(["--base_model", ckpt, "--lora_path", lora_dir,
+                                     "--lora_scale", str(LORA_SCALE), "--offload", "cpu"]
+                                    + request)
+        events, restore = _staging_spy(offload)
+        try:
+            t0 = time.perf_counter()
+            (resl, pipel), countsl = _count_flash(lambda: lora_cli.run(
+                argsl, tokenizer=ByteTokenizer(), image=first["image"]))
+        finally:
+            restore()
+        names = {id(m): n for n, m in pipel.modules.items()}
+        live, together = set(), False
+        for kind, mid, _ in events:
+            (live.add if kind == "in" else live.discard)(names[mid])
+            together |= {"video_dit", "video_dit_2"} <= live
+        log(f"[cli] LoRA request (load, merge on the card, page-lock, generate) "
+            f"{time.perf_counter() - t0:.2f} s; launches {countsl}; staging: " + "; ".join(
+                f"{names[mid]} {offload.nbytes(pipel.modules[names[mid]]) / 1e9:.3f} GB in "
+                f"{s:.3f} s ({offload.nbytes(pipel.modules[names[mid]]) / s / 1e9:.1f} GB/s)"
+                for kind, mid, s in events if kind == "in"))
+        if countsl != want:
+            raise AssertionError(f"LoRA CLI launches {countsl}, expected {want}")
+        if together:
+            raise AssertionError("the two video experts were staged together")
+        if not all(t.is_pinned() for m in pipel.modules.values() for t in m.parameters()):
+            raise AssertionError("a LoRA master is not in page-locked host memory")
+        scaling = LORA_ALPHA / LORA_RANK * LORA_SCALE
+        for mod, name in (("video_dit", "blocks.0.self_attn.q.weight"),
+                          ("video_dit_2",
+                           f"blocks.{cfg.video_dit.num_layers - 1}.cross_attn.o.weight"),
+                          ("bridge", f"video_to_audio_conditioners."
+                                     f"{cfg.bridge.interaction_layers()[-1]}.inner.k.weight")):
+            a, b = (torch.from_numpy(x).cuda() for x in factors[(mod, name)])
+            w = source[mod].get_parameter(name).float()
+            want32 = w + scaling * (b @ a)
+            got = pipel.modules[mod].get_parameter(name).cuda()
+            # W + delta rounded once to bf16: within half a bf16 step of the fp32 value,
+            # give or take a few fp32 steps for another order of the sums
+            step = torch.ldexp(torch.ones_like(want32), torch.frexp(want32)[1] - 8)
+            slack = 4 * torch.finfo(torch.float32).eps * (w.abs() + (b @ a).abs() * scaling)
+            err = (got.float() - want32).abs()
+            exact = float((got == want32.bfloat16()).float().mean())
+            log(f"[cli] merged {mod}.{name}: max |merged - fp32 reference| / half step "
+                f"{float((err / (0.5 * step)).max()):.4f}; bit-equal to the reference "
+                f"rounded once in {exact:.6f} of values; |delta| max "
+                f"{float((b @ a).abs().max()) * scaling:.3e}")
+            if got.dtype != torch.bfloat16 or bool((err > 0.5 * step + slack).any()):
+                raise AssertionError(f"merged {mod}.{name} is not W + (alpha/r) * scale * B A")
+        _check_result(resl, REQUEST)
+        if np.array_equal(resl.video, base.video):
+            raise AssertionError("the LoRA left the video unchanged")
+        rel = float(np.linalg.norm(resl.video.astype(np.float32) - base.video.astype(np.float32))
+                    / np.linalg.norm(base.video.astype(np.float32)))
+        log(f"[cli] LoRA video rel L2 against the base request {rel:.3e}")
+        written.append(_write_av(os.path.join(root, "lora.mp4"), resl))
+
+        # 5. the files
+        log("[cli] wrote " + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB"
+                                       for p in written))
+        return {"launches": counts["exact"] + counts8["exact"] + countsl["exact"],
+                "write_s": write_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     # Freed blocks of any size serve later requests of any size: without it the
     # 720p training phase loses some 11 GiB of the card to fragmentation and
@@ -1949,7 +2291,7 @@ def main() -> int:
     timed_phase("build", phase_build)
     rows, max_abs = timed_phase("kernel", phase_kernels)
     timed_phase("small", phase_small_step)
-    serve_launches, cfg, modules = timed_phase("main", phase_main_path)
+    serve_launches, cfg, modules, first = timed_phase("main", phase_main_path)
     bwd_rows, bwd_max_abs = timed_phase("backward", phase_backward_kernels)
     timed_phase("small-backward", phase_small_backward)
     train = timed_phase("train", phase_train_path, cfg, modules, root)
@@ -1970,6 +2312,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     options = timed_phase("options", phase_sampler_options)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = timed_phase("cli", phase_checkpoint_cli, first)
 
     video_self, train_self = rows[0], bwd_rows[0]
     cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
@@ -1982,7 +2327,7 @@ def main() -> int:
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
         "launches": (serve_launches + train["fwd"] + train720["fwd"] + full["launches"]
                      + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
-                     + options["cfg_cache_interval_2"]),
+                     + options["cfg_cache_interval_2"] + ckpt["launches"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -1991,7 +2336,8 @@ def main() -> int:
                              "serve_full_depth_fp8": fp8["launches"],
                              "serve_cfg_batch_mask_ctx_pad": options["cfg_batch"],
                              "serve_mask_ctx_pad": options["unbatched"],
-                             "serve_cfg_cache_interval_2": options["cfg_cache_interval_2"]},
+                             "serve_cfg_cache_interval_2": options["cfg_cache_interval_2"],
+                             "serve_cli_checkpoint": ckpt["launches"]},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),

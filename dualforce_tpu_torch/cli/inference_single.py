@@ -1,0 +1,212 @@
+"""Single-clip TI2VA inference from a MOVA checkpoint (counterpart of
+`scripts/inference_single.py`, flag for flag, plus `--device`):
+
+    python -m dualforce_tpu_torch.cli.inference_single --ckpt_path CKPT \\
+        --prompt "a cat playing the piano" --ref_path first_frame.png \\
+        --output out.mp4
+
+It runs on the CUDA card unless `--device cpu` asks for the CPU (the plain
+PyTorch path, for tiny checkpoints). Weights stay resident on the card
+(`--offload none`) or wait in page-locked host memory and are staged per
+phase (`--offload cpu` or `component`). Flags of parts not yet ported exit
+with a message that names their ROADMAP item. Importing this module loads
+neither the model code, PIL nor transformers, so `--help` is quick.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def add_common_args(p: argparse.ArgumentParser, output: str, quantize) -> None:
+    """The flags both inference CLIs share."""
+    p.add_argument("--prompt", type=str, required=True)
+    p.add_argument("--negative_prompt", type=str, default="")
+    p.add_argument("--ref_path", type=str, required=True,
+                   help="reference first-frame image (read with PIL)")
+    p.add_argument("--output", "--output_path", dest="output", type=str, default=output)
+    p.add_argument("--num_frames", type=int, default=193)
+    p.add_argument("--fps", type=float, default=24.0)
+    p.add_argument("--height", type=int, default=352)
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--num_inference_steps", type=int, default=50)
+    p.add_argument("--cfg_scale", type=float, default=5.0)
+    p.add_argument("--cfg_scale_bridge", type=float, default=0.0,
+                   help="dual-CFG cross-modal guidance s_B; 0 disables the third "
+                        "bridge-off pass")
+    p.add_argument("--sigma_shift", type=float, default=5.0)
+    p.add_argument("--cp_size", type=int, default=1,
+                   help="sequence parallelism: not ported yet (ROADMAP A7), 1 only")
+    p.add_argument("--fsdp_size", type=int, default=1,
+                   help="weight sharding: not ported yet (ROADMAP A7), 1 only")
+    p.add_argument("--attn_type", type=str, default="auto",
+                   choices=["auto", "fast", "sage", "pallas", "ref"],
+                   help="attention route (`MOVAPipeline(attn_impl=...)`)")
+    p.add_argument("--offload", type=str, default="none",
+                   choices=["none", "cpu", "group", "component"],
+                   help="'cpu'/'component': the modules wait in page-locked host "
+                        "memory and each is staged to the card for its phase (the "
+                        "two video experts never together); 'group' (layer-group "
+                        "streaming) is not ported yet (ROADMAP A9); default keeps "
+                        "the weights resident on the card")
+    p.add_argument("--offload_group_size", type=int, default=8,
+                   help="with --offload group: DiT layers per streamed group")
+    p.add_argument("--weight_dtype", type=str, default="bf16", choices=["bf16", "fp8"],
+                   help="fp8 stores the matmul weights as float8_e4m3 (half the "
+                        "memory; compute stays bf16)")
+    p.add_argument("--quantize", type=str, default="none", choices=quantize,
+                   help="int8: w8a8 DiT and bridge projections; int4: packed int4 "
+                        "tower weights; lossy, inference only, compose with "
+                        "--attn_type sage")
+    p.add_argument("--compile_cache", type=str, default="",
+                   help="accepted for the JAX CLI's sake and unused: the port has "
+                        "no XLA compile to cache")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu' (the plain PyTorch path)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m dualforce_tpu_torch.cli.inference_single",
+        description="Generate one clip with audio from a prompt and a first frame.")
+    p.add_argument("--ckpt_path", type=str, required=True)
+    add_common_args(p, "output.mp4", ["none", "int8", "int4"])
+    p.add_argument("--visual_shift", type=float, default=None)
+    p.add_argument("--audio_shift", type=float, default=None)
+    p.add_argument("--offload_resident_small", action="store_true",
+                   help="group offload only: not ported yet (ROADMAP A9)")
+    p.add_argument("--offload_resident_groups", "--resident_groups", type=int, default=0,
+                   help="group offload only: not ported yet (ROADMAP A9), 0 only")
+    p.add_argument("--offload_to_disk_path", type=str, default=None, metavar="DIR",
+                   help="disk-backed weights: not ported yet (ROADMAP A9)")
+    p.add_argument("--remove_video_dit", action="store_true",
+                   help="accepted and unused, as in the JAX CLI (which parses it "
+                        "and never reads it)")
+    p.add_argument("--cfg_cache_interval", type=int, default=1,
+                   help="recompute the CFG negative pass every N steps and reuse it "
+                        "in between (1 = exact)")
+    p.add_argument("--cfg_batch", action="store_true",
+                   help="batch the positive and negative CFG passes in one forward")
+    p.add_argument("--mask_ctx_pad", action="store_true",
+                   help="cross-attend only the prompt's tokens through the kernel's "
+                        "kv mask (the reference attends the zero pads)")
+    p.add_argument("--vae_encode_dtype", type=str, default=None, choices=["fp32", "bf16"],
+                   help="the VAE encode's compute dtype: fp32 only; bf16 is not "
+                        "ported yet (ROADMAP A1)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the generation to DIR "
+                        "(trace.json, and device_ops.json with time per operation)")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Exit, naming the ROADMAP item, where a flag asks for a part that is
+    not ported yet."""
+    if args.cp_size > 1 or args.fsdp_size > 1:
+        raise SystemExit("--cp_size and --fsdp_size above 1 need sequence and data "
+                         "parallelism, which are not ported yet (ROADMAP A7)")
+    if (args.offload == "group" or getattr(args, "offload_resident_small", False)
+            or getattr(args, "offload_resident_groups", 0) > 0
+            or getattr(args, "offload_to_disk_path", None)):
+        raise SystemExit("--offload group, --offload_resident_small, "
+                         "--offload_resident_groups and --offload_to_disk_path need "
+                         "group streaming, which is not ported yet (ROADMAP A9)")
+    if getattr(args, "vae_encode_dtype", None) == "bf16":
+        raise SystemExit("--vae_encode_dtype bf16 is not ported yet (ROADMAP A1); the "
+                         "VAE encodes fp32 tensors")
+
+
+def offload_mode(args: argparse.Namespace) -> str:
+    """The pipeline's offload mode for `--offload`."""
+    return "component" if args.offload in ("cpu", "component") else "none"
+
+
+def first_frame(args: argparse.Namespace, image=None):
+    """The first frame as float32 [height, width, 3] in [-1, 1]: `image` as
+    given (an array already so), or `--ref_path` read with PIL, scaled and
+    center-cropped."""
+    import numpy as np
+
+    if image is None:
+        from PIL import Image
+
+        from dualforce_tpu_torch.data.transforms import crop_and_resize, image_to_tensor
+
+        with Image.open(args.ref_path) as im:
+            image = image_to_tensor(crop_and_resize(im.convert("RGB"), args.height,
+                                                    args.width))
+    image = np.asarray(image, np.float32)
+    if image.shape != (args.height, args.width, 3):
+        raise ValueError(f"first frame {image.shape}, expected "
+                         f"{(args.height, args.width, 3)}")
+    return image
+
+
+def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
+    """Load the checkpoint, build the pipeline and generate one clip.
+    tokenizer: the checkpoint's (`load_tokenizer`) unless given; image: the
+    first frame instead of `--ref_path` (see `first_frame`); dtype: the
+    towers' and UMT5's weight dtype under `--weight_dtype bf16` and the
+    compute dtype (bf16 unless given). Returns (GenerationResult,
+    MOVAPipeline)."""
+    refuse_unported(args)
+    import torch
+
+    from dualforce_tpu_torch import resolve_device
+    from dualforce_tpu_torch.convert.load_checkpoint import (config_from_checkpoint,
+                                                             load_pipeline_params,
+                                                             load_tokenizer)
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.utils.misc import device_timer, hbm_in_use_gb, profile_trace
+
+    device = resolve_device(args.device)
+    offload = offload_mode(args)
+    dtype = dtype or torch.bfloat16
+    cfg = config_from_checkpoint(args.ckpt_path)
+    wdtype = torch.float8_e4m3fn if args.weight_dtype == "fp8" else dtype
+    modules = load_pipeline_params(args.ckpt_path, cfg, dtype=wdtype, device=device,
+                                   host=offload != "none")
+    if device.type == "cuda":
+        print(f"[info] card memory in use after loading: {hbm_in_use_gb(device):.2f} GB",
+              flush=True)
+    pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
+                        compute_dtype=dtype, device=device, attn_impl=args.attn_type,
+                        quantize=args.quantize, offload=offload,
+                        mask_ctx_pad=args.mask_ctx_pad)
+    frame = first_frame(args, image)
+    with profile_trace(args.profile), device_timer("generation", device):
+        result = pipe(prompt=args.prompt, image=frame, negative_prompt=args.negative_prompt,
+                      seed=args.seed, height=args.height, width=args.width,
+                      num_frames=args.num_frames, video_fps=args.fps,
+                      num_inference_steps=args.num_inference_steps,
+                      sigma_shift=args.sigma_shift, visual_shift=args.visual_shift,
+                      audio_shift=args.audio_shift, cfg_scale=args.cfg_scale,
+                      cfg_batch=args.cfg_batch, cfg_cache_interval=args.cfg_cache_interval,
+                      cfg_scale_bridge=args.cfg_scale_bridge)
+    return result, pipe
+
+
+def save(args: argparse.Namespace, result) -> str:
+    """Write the clip to `--output` (`save_video_with_audio`); returns the
+    path written (an .avi beside it without ffmpeg)."""
+    from dualforce_tpu_torch.utils.av_io import save_video_with_audio
+
+    out = save_video_with_audio(args.output, result.video, result.audio, fps=result.fps,
+                                sample_rate=result.sample_rate)
+    print(f"[done] saved {out}")
+    return out
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    result, _ = run(args)
+    save(args, result)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,11 +8,13 @@ v and o projection of `self_attn`, `cross_attn` and the bridge's `inner`
 attention, nothing under the time or patch embeddings. `a` starts normal /
 sqrt(in) and `b` at zero, so the first merge is the identity.
 
-`merge_pipeline_lora` gives W' = W + (a b)^T * alpha / r per targeted weight
-in fp32, cast to W's dtype, as {module: {name: W'}}. The training step hands
-those to `dual_tower_step(params=...)`, which applies them functionally
-(`torch.func.functional_call`), so the base modules stay frozen and as they
-are; gradients reach only the factors.
+`merge_pipeline_lora` gives W' = W + (a b)^T * alpha / r * scale per targeted
+weight in fp32, cast to W's dtype, as {module: {name: W'}}. The training
+step hands those to `dual_tower_step(params=...)`, which applies them
+functionally (`torch.func.functional_call`), so the base modules stay frozen
+and as they are; gradients reach only the factors. `merge_lora_into` writes
+the same W' into a module's own weights, one at a time, for inference (the
+LoRA CLI), so no second copy of a module is held.
 
 `save_lora` / `load_lora` read and write the JAX package's format: one npz of
 `{module}::{path}::{a|b}` arrays stacked over layers ([L, in, r], [L, r, out],
@@ -76,24 +78,40 @@ def lora_parameters(lora: Lora) -> List[torch.Tensor]:
             for part in ("a", "b")]
 
 
+def _merged(w: torch.Tensor, ab: Dict[str, torch.Tensor], alpha: float,
+            scale: float) -> torch.Tensor:
+    """W + (a b)^T * alpha / r * scale in fp32 on W's device, cast to W's dtype."""
+    a, b = (ab[part].to(w.device, torch.float32) for part in ("a", "b"))
+    delta = (a @ b).t() * ((alpha / b.shape[-2]) * scale)
+    return (w.float() + delta).to(w.dtype)
+
+
 def merge_lora(module: torch.nn.Module, tree: Dict[str, Dict[str, torch.Tensor]],
-               alpha: float = 16.0) -> Dict[str, torch.Tensor]:
-    """{name: W + (a b)^T * alpha / r}, in fp32, cast to W's dtype."""
-    out = {}
-    for name, ab in tree.items():
-        w = module.get_parameter(name)
-        delta = (ab["a"].float() @ ab["b"].float()).t() * (alpha / ab["b"].shape[-2])
-        out[name] = (w.float() + delta).to(w.dtype)
-    return out
+               alpha: float = 16.0, scale: float = 1.0) -> Dict[str, torch.Tensor]:
+    """{name: W + (a b)^T * alpha / r * scale}, in fp32, cast to W's dtype."""
+    return {name: _merged(module.get_parameter(name), ab, alpha, scale)
+            for name, ab in tree.items()}
 
 
 def merge_pipeline_lora(modules: Dict[str, torch.nn.Module], lora: Lora,
-                        alpha: float = 16.0, names: Optional[Sequence[str]] = None
-                        ) -> Dict[str, Dict[str, torch.Tensor]]:
+                        alpha: float = 16.0, names: Optional[Sequence[str]] = None,
+                        scale: float = 1.0) -> Dict[str, Dict[str, torch.Tensor]]:
     """Merged weights per module, for the modules in `names` (default: every
     module with factors)."""
-    return {m: merge_lora(modules[m], lora[m], alpha)
+    return {m: merge_lora(modules[m], lora[m], alpha, scale)
             for m in (names if names is not None else lora) if m in lora and lora[m]}
+
+
+@torch.no_grad()
+def merge_lora_into(module: torch.nn.Module, tree: Dict[str, Dict[str, torch.Tensor]],
+                    alpha: float = 16.0, scale: float = 1.0) -> torch.nn.Module:
+    """`merge_lora`'s weights written into `module`'s own parameters, one at
+    a time (the factors are moved to each weight's device). Returns
+    `module`."""
+    for name, ab in tree.items():
+        w = module.get_parameter(name)
+        w.copy_(_merged(w, ab, alpha, scale))
+    return module
 
 
 # --- the JAX package's stacked layout --------------------------------------

@@ -334,22 +334,31 @@ def _as_fp8_linear(linear: nn.Linear) -> Fp8Linear:
     return out
 
 
+def to_fp8(t: torch.Tensor, weight_dtype: torch.dtype = torch.float8_e4m3fn) -> torch.Tensor:
+    """`t` in `weight_dtype`, values beyond its range saturated to its
+    largest finite value (see `cast_modules_fp8`)."""
+    top = torch.finfo(weight_dtype).max
+    return t.clamp(-top, top).to(weight_dtype)
+
+
 @torch.no_grad()
 def cast_modules_fp8(module: nn.Module,
                      weight_dtype: torch.dtype = torch.float8_e4m3fn) -> nn.Module:
     """The counterpart of `cast_tree_fp8`, in place: the parameters that
-    `fp8_stored` names go to `weight_dtype`, the rest to bf16, and
-    every `nn.Linear` whose weight is now fp8 becomes an `Fp8Linear` holding
-    the same parameters. Values beyond the fp8 range saturate to its largest
-    finite value, where the JAX package's cast (ml_dtypes) gives NaN; the
-    clamp makes it so whatever PyTorch's own cast does (2.11 gives NaN, 2.13
-    saturates). Returns `module`."""
-    top = torch.finfo(weight_dtype).max
+    `fp8_stored` names go to `weight_dtype` (those already there stay as
+    they are), the rest to bf16, and every `nn.Linear` whose weight is now
+    fp8 becomes an `Fp8Linear` holding the same parameters. Values beyond
+    the fp8 range saturate to its largest finite value, where the JAX
+    package's cast (ml_dtypes) gives NaN; the clamp makes it so whatever
+    PyTorch's own cast does (2.11 gives NaN, 2.13 saturates). Returns
+    `module`."""
     for name, p in list(module.named_parameters()):
         owner, _, leaf = name.rpartition(".")
         sub = module.get_submodule(owner)
+        if p.dtype == weight_dtype:
+            continue
         if fp8_stored(module, name, p):
-            q = p.clamp(-top, top).to(weight_dtype)
+            q = to_fp8(p, weight_dtype)
         else:
             q = p.to(torch.bfloat16)
         setattr(sub, leaf, nn.Parameter(q, requires_grad=False))
