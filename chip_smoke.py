@@ -149,7 +149,37 @@ Phases, each of which must pass:
    together, three merged weights within half a bf16 step (and a few fp32
    steps) of W + (alpha/r) * scale * B A computed on the card in fp32, the
    video changed. Each clip is written with `save_video_with_audio` (the
-   WAV alone where PIL is absent); the directory is removed.
+   WAV alone where PIL is absent). The checkpoint stays for phase 19.
+18. low-resource training at full depth: MOVA-360p uncut from seed 0, the
+   towers and UMT5 drawn on the card, cast to fp8 and moved into
+   page-locked host memory, then `LoRATrainer` with the `trainer` settings
+   of `configs/training/lora_low_resource.py` (AdamW8bit, component
+   offload, remat, rank 16) on synthetic 352x640x49 clips, cut to 3
+   optimizer steps of 2 micro-batches with the expert switched every step
+   (experts 0, 0, 1, 1, 0, 0; the warmup's lr is 0 at the first step, so
+   expert 0 trains at a nonzero lr only at the third). The two experts must
+   never be staged together (a spy on `offload.staged`), the metrics be
+   finite, each micro-step launch the forward kernel exactly 220 times and
+   the fused backward and its preprocess 110 times (30 shared layers x 3
+   video-side attentions + 10 tail layers x 2; the split kernels never),
+   every module's LoRA `b` be nonzero afterwards, and the saved
+   `lora_weights.npz` and the exported `lora_weights.pt` reload bit-equal.
+   Prints per micro-step the encode, staging, loss+backward and optimizer
+   seconds, the peak device memory and the host's RSS, and each staging's
+   rate.
+19. training CLI to LoRA CLI: 2 npz shards and 1 MJPEG AVI with audio at
+   352x640, 49 frames, 24 fps and their `metadata.json`; `cli.train.run`
+   with `configs/training/lora_low_resource.py` from phase 17's checkpoint
+   (fp8 storage, component offload, AdamW8bit, 4 micro-batches per step;
+   `--set` one data worker, the expert switched every step, jsonl logs, lr
+   1e-3 after one warmup step) to step 2, then again to step 3, which must
+   resume from `step-2` (16 forward and 8 fused backward launches per
+   micro-step); the step's npz and exported `.pt` reload bit-equal and
+   every LoRA `b` is nonzero; then phase 5's first request through
+   `cli.inference_single_lora.run` with the exported
+   `step-3/lora_weights.pt`: 112 launches, a uint8 video of the right shape
+   that differs from phase 17's base video (its relative L2 printed). The
+   checkpoint's directory is removed.
 
 Every phase prints its wall time. The run sets
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the environment sets
@@ -2034,12 +2064,13 @@ def _write_av(path: str, res) -> str:
                                        sample_rate=res.sample_rate)
 
 
-def phase_checkpoint_cli(first):
-    """Phase 17: phase 5's modules written as an HF-layout checkpoint and
-    served from it through the port's two inference CLIs."""
+def phase_checkpoint_cli(first, root: str):
+    """Phase 17: phase 5's modules written as an HF-layout checkpoint under
+    `root` (a temporary directory, removed by the caller once phase 19 has
+    trained from the checkpoint) and served from it through the port's two
+    inference CLIs."""
     import copy
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -2055,217 +2086,539 @@ def phase_checkpoint_cli(first):
 
     cfg = main_path_config()
     source = init_pipeline_params(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
-    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt = os.path.join(root, "mova_360p_depth_cut")
+    free = shutil.disk_usage(root).free
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = lc.save_pipeline_params(source, cfg, ckpt)
+    write_s = time.perf_counter() - t0
+    os.sync()
+    sync_s = time.perf_counter() - t0 - write_s
+    log(f"[cli] wrote the checkpoint, {nbytes / 1e9:.3f} GB of tensors ("
+        + ", ".join(f"{n} {offload.nbytes(m) / 1e9:.3f}" for n, m in source.items())
+        + f" GB in the modules), in {write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s) "
+        f"and synced in {sync_s:.2f} s; {free / 1e9:.1f} GB free on the temporary "
+        f"directory's disk before")
+
+    request = ["--prompt", first["prompt"], "--negative_prompt", first["negative"],
+               "--seed", str(first["seed"]), "--ref_path", "unused (first frame given)",
+               "--height", str(REQUEST["height"]), "--width", str(REQUEST["width"]),
+               "--num_frames", str(REQUEST["num_frames"]), "--fps", str(REQUEST["video_fps"]),
+               "--num_inference_steps", str(REQUEST["num_inference_steps"]),
+               "--cfg_scale", str(REQUEST["cfg_scale"]),
+               "--sigma_shift", str(REQUEST["sigma_shift"])]
+    want = {"exact": LAUNCHES_PER_REQUEST, "cap": 0, "sage": 0}
+
+    # 2. the base CLI with its default flags (the denoised audio latents kept)
+    rss0 = _host_memory()[0]
+    args = cli.parse_args(["--ckpt_path", ckpt, "--output", os.path.join(root, "base.mp4")]
+                          + request)
+    kept, finalize = {}, MOVAPipeline.finalize_state
+
+    def keep(self, state):
+        kept["audio_latents"] = state["audio_latents"]
+        return finalize(self, state)
+
+    MOVAPipeline.finalize_state = keep
     try:
-        ckpt = os.path.join(root, "mova_360p_depth_cut")
-        free = shutil.disk_usage(root).free
+        t0 = time.perf_counter()
+        (base, pipe), counts = _count_flash(lambda: cli.run(
+            args, tokenizer=ByteTokenizer(), image=first["image"]))
+    finally:
+        MOVAPipeline.finalize_state = finalize
+    log(f"[cli] base request (load, then generate) {time.perf_counter() - t0:.2f} s; host "
+        f"rss {rss0:.2f} GiB before, {_host_memory()[0]:.2f} GiB after; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"base CLI launches {counts}, expected {want}")
+    worst_fold = 0.0
+    for name, module in pipe.modules.items():
+        loaded = dict(module.named_parameters())
+        for k, p in source[name].named_parameters():
+            q = loaded[k]
+            if name == "audio_vae" and k.endswith(".weight"):
+                err = float((q - p).abs().max() / p.abs().max())
+                worst_fold = max(worst_fold, err)
+                ok = err <= FOLD_REL_TOL
+            else:
+                ok = q.dtype == p.dtype and torch.equal(q, p)
+            if not ok:
+                raise AssertionError(f"loaded {name}.{k} differs from the module written")
+    _check_result(base, REQUEST)
+    same_video = np.array_equal(base.video, first["video"])
+    audio_rel = float(np.linalg.norm(base.audio - first["audio"])
+                      / np.linalg.norm(first["audio"]))
+    # the DAC decode: cuDNN runs fp32 convolutions in TF32 (PyTorch's default), whose
+    # rounding (~6e-4 relative at the DAC's output) any one-ulp weight change shows;
+    # the fold is held in fp32 on the request's own audio latents
+    z, n = kept["audio_latents"].to("cuda"), first["audio"].shape[0]
+    with torch.no_grad():
+        again = dac_vae.decode(source["audio_vae"], z)[0, 0, :n].cpu().numpy()
+        with torch.backends.cudnn.flags(enabled=True,
+                                        benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=False):
+            got32 = dac_vae.decode(pipe.modules["audio_vae"], z)[0, 0, :n]
+            want32 = dac_vae.decode(source["audio_vae"], z)[0, 0, :n]
+    same_latents = np.array_equal(again, first["audio"])
+    fold_rel = rel_err(got32, want32.float())
+    tf32_rel = rel_err(torch.from_numpy(again).cuda(), want32.float())
+    log(f"[cli] every loaded parameter equal to the one written (DAC folds within "
+        f"{worst_fold:.2e} relative); video bit-equal to phase 5's first request: "
+        f"{same_video}; audio rel L2 {audio_rel:.3e} against phase 5's (TF32 "
+        f"convolutions); its latents decoded by the written DAC give phase 5's audio bit "
+        f"for bit: {same_latents}; decoded in fp32 by the loaded and the written DAC: rel "
+        f"L2 {fold_rel:.3e} (limit {CLI_AUDIO_REL_TOL}); the written DAC's TF32 decode "
+        f"against its fp32 one: rel L2 {tf32_rel:.3e}")
+    if not same_video:
+        diff = np.abs(base.video.astype(np.int16) - first["video"].astype(np.int16))
+        raise AssertionError(f"the CLI's video differs from phase 5's: {int(diff.max())} "
+                             f"levels at most, in {float(np.mean(diff > 0)):.2e} of values")
+    if not same_latents or fold_rel > CLI_AUDIO_REL_TOL:
+        raise AssertionError(f"audio: latents as phase 5's {same_latents}, fp32 decode "
+                             f"rel L2 {fold_rel:.3e} (limit {CLI_AUDIO_REL_TOL})")
+    # the request's audio against phase 5's: each TF32 decode within about tf32_rel of
+    # its fp32 one, and the two fp32 decodes fold_rel apart
+    audio_limit = 2 * tf32_rel + fold_rel
+    log(f"[cli] audio rel L2 {audio_rel:.3e} against phase 5's, limit {audio_limit:.3e} "
+        f"(2 x TF32 vs fp32 + the fp32 fold gap)")
+    if audio_rel > audio_limit:
+        raise AssertionError(f"the CLI's audio is {audio_rel:.3e} from phase 5's "
+                             f"(limit {audio_limit:.3e})")
+    written = [_write_av(os.path.join(root, "base.mp4"), base)]
+
+    # 3. fp8 storage, profiled
+    trace_dir = os.path.join(root, "profile")
+    args8 = cli.parse_args(["--ckpt_path", ckpt, "--weight_dtype", "fp8", "--profile",
+                            trace_dir] + request)
+    t0 = time.perf_counter()
+    (res8, pipe8), counts8 = _count_flash(lambda: cli.run(
+        args8, tokenizer=ByteTokenizer(), image=first["image"]))
+    log(f"[cli] fp8 request, profiled (load, generate, trace export) "
+        f"{time.perf_counter() - t0:.2f} s; launches {counts8}")
+    if counts8 != want:
+        raise AssertionError(f"fp8 CLI launches {counts8}, expected {want}")
+    for name in ("video_dit", "video_dit_2", "audio_dit", "bridge", "text_encoder"):
+        cast = dnn.cast_modules_fp8(copy.deepcopy(pipe.modules[name]))
+        loaded = dict(pipe8.modules[name].named_parameters())
+        for k, p in cast.named_parameters():
+            q = loaded[k]
+            if q.dtype != p.dtype or not torch.equal(q.view(torch.uint8),
+                                                     p.view(torch.uint8)):
+                raise AssertionError(f"fp8 load of {name}.{k} differs from "
+                                     "cast_modules_fp8 of the bf16 load")
+        del cast
+    _check_result(res8, REQUEST)
+    with open(os.path.join(trace_dir, "device_ops.json")) as f:
+        ops = [o for o in json.load(f)
+               if o["device_type"] == "CUDA" and o["self_device_us"] > 0]
+    total_us = sum(o["self_device_us"] for o in ops)
+    kernel_us, busy_us, span_us = _trace_busy(os.path.join(trace_dir, "trace.json"))
+    log(f"[cli] fp8 towers and UMT5 byte-equal to cast_modules_fp8 of the bf16 load; "
+        f"trace.json {os.path.getsize(os.path.join(trace_dir, 'trace.json')) / 1e6:.1f} "
+        f"MB: kernels {kernel_us / 1e6:.3f} s, the card busy {busy_us / 1e6:.3f} s of "
+        f"{span_us / 1e6:.3f} s from the first kernel to the last (idle "
+        f"{100 * (1 - busy_us / max(span_us, 1e-9)):.1f} %); the profiler's averages: "
+        f"{len(ops)} device operations, {total_us / 1e6:.3f} s; the ten with the most:")
+    for o in ops[:10]:
+        log(f"[cli]   {o['self_device_us'] / 1e3:10.2f} ms "
+            f"({100 * o['self_device_us'] / max(total_us, 1e-9):5.1f} %), "
+            f"{o['calls']:6d} calls: {o['name'][:110]}")
+    if total_us <= 0:
+        log("[cli] the profiler's averages hold no device time")
+    written.append(_write_av(os.path.join(root, "fp8.mp4"), res8))
+    del pipe8, res8, pipe
+    torch.cuda.empty_cache()
+
+    # 4. a reference-format LoRA through the LoRA CLI, staged from host memory
+    lora_dir = os.path.join(root, "lora")
+    factors = _reference_lora(source, lora_dir)
+    argsl = lora_cli.parse_args(["--base_model", ckpt, "--lora_path", lora_dir,
+                                 "--lora_scale", str(LORA_SCALE), "--offload", "cpu"]
+                                + request)
+    events, restore = _staging_spy(offload)
+    try:
+        t0 = time.perf_counter()
+        (resl, pipel), countsl = _count_flash(lambda: lora_cli.run(
+            argsl, tokenizer=ByteTokenizer(), image=first["image"]))
+    finally:
+        restore()
+    names = {id(m): n for n, m in pipel.modules.items()}
+    live, together = set(), False
+    for kind, mid, _ in events:
+        (live.add if kind == "in" else live.discard)(names[mid])
+        together |= {"video_dit", "video_dit_2"} <= live
+    log(f"[cli] LoRA request (load, merge on the card, page-lock, generate) "
+        f"{time.perf_counter() - t0:.2f} s; launches {countsl}; staging: " + "; ".join(
+            f"{names[mid]} {offload.nbytes(pipel.modules[names[mid]]) / 1e9:.3f} GB in "
+            f"{s:.3f} s ({offload.nbytes(pipel.modules[names[mid]]) / s / 1e9:.1f} GB/s)"
+            for kind, mid, s in events if kind == "in"))
+    if countsl != want:
+        raise AssertionError(f"LoRA CLI launches {countsl}, expected {want}")
+    if together:
+        raise AssertionError("the two video experts were staged together")
+    if not all(t.is_pinned() for m in pipel.modules.values() for t in m.parameters()):
+        raise AssertionError("a LoRA master is not in page-locked host memory")
+    scaling = LORA_ALPHA / LORA_RANK * LORA_SCALE
+    for mod, name in (("video_dit", "blocks.0.self_attn.q.weight"),
+                      ("video_dit_2",
+                       f"blocks.{cfg.video_dit.num_layers - 1}.cross_attn.o.weight"),
+                      ("bridge", f"video_to_audio_conditioners."
+                                 f"{cfg.bridge.interaction_layers()[-1]}.inner.k.weight")):
+        a, b = (torch.from_numpy(x).cuda() for x in factors[(mod, name)])
+        w = source[mod].get_parameter(name).float()
+        want32 = w + scaling * (b @ a)
+        got = pipel.modules[mod].get_parameter(name).cuda()
+        # W + delta rounded once to bf16: within half a bf16 step of the fp32 value,
+        # give or take a few fp32 steps for another order of the sums
+        step = torch.ldexp(torch.ones_like(want32), torch.frexp(want32)[1] - 8)
+        slack = 4 * torch.finfo(torch.float32).eps * (w.abs() + (b @ a).abs() * scaling)
+        err = (got.float() - want32).abs()
+        exact = float((got == want32.bfloat16()).float().mean())
+        log(f"[cli] merged {mod}.{name}: max |merged - fp32 reference| / half step "
+            f"{float((err / (0.5 * step)).max()):.4f}; bit-equal to the reference "
+            f"rounded once in {exact:.6f} of values; |delta| max "
+            f"{float((b @ a).abs().max()) * scaling:.3e}")
+        if got.dtype != torch.bfloat16 or bool((err > 0.5 * step + slack).any()):
+            raise AssertionError(f"merged {mod}.{name} is not W + (alpha/r) * scale * B A")
+    _check_result(resl, REQUEST)
+    if np.array_equal(resl.video, base.video):
+        raise AssertionError("the LoRA left the video unchanged")
+    rel = float(np.linalg.norm(resl.video.astype(np.float32) - base.video.astype(np.float32))
+                / np.linalg.norm(base.video.astype(np.float32)))
+    log(f"[cli] LoRA video rel L2 against the base request {rel:.3e}")
+    written.append(_write_av(os.path.join(root, "lora.mp4"), resl))
+
+    # 5. the files
+    log("[cli] wrote " + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB"
+                                   for p in written))
+    return {"launches": counts["exact"] + counts8["exact"] + countsl["exact"],
+            "write_s": write_s, "ckpt": ckpt}
+
+
+# phase 18: the low-resource LoRA recipe (configs/training/lora_low_resource.py) at full
+# depth. Per micro-step (B 1, 352x640x49: 11,440 video and 103 audio tokens) the 3
+# video-side attentions of each of the 30 shared layers (video self, video text cross,
+# a2v; the 103-query audio side takes plain attention) and the 2 of each of the 10 tail
+# layers take the kernels: 110 calls, each forward twice under remat, each backward fused
+# (Sq 11,440 < 98,305) after one delta preprocess
+LOW_RESOURCE_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "training", "lora_low_resource.py")
+FULL_TRAIN_FLASH_CALLS = 30 * 3 + 10 * 2
+# the recipe's cuts: 3 optimizer steps of 2 micro-batches with the expert switched every
+# step (experts 0, 0, 1, 1, 0, 0): the warmup gives lr 0 at the first step, so expert 0
+# trains at a nonzero lr only at the third
+FULL_TRAIN_CUTS = dict(max_steps=3, grad_accum_steps=2, expert_switch_interval=1)
+FULL_TRAIN_EXPERTS = [0, 0, 1, 1, 0, 0]
+
+
+def _recipe_trainer_config():
+    """The `trainer` dict of the low-resource recipe, read from the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("low_resource_recipe", LOW_RESOURCE_RECIPE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.config
+
+
+def _check_saved_lora(trainer, step_dir: str, cfg, tag: str) -> None:
+    """The step's `lora_weights.npz` and its reference export `lora_weights.pt`
+    reload bit-equal to the live LoRA."""
+    import torch
+
+    from dualforce_tpu_torch.convert.lora_import import load_reference_lora
+    from dualforce_tpu_torch.engine import lora as lora_mod
+
+    npz, _ = lora_mod.load_lora(os.path.join(step_dir, "lora_weights.npz"),
+                                cfg.bridge.interaction_layers())
+    ref, meta = load_reference_lora(step_dir, cfg)
+    for mod, tree in trainer.lora.items():
+        for name, ab in tree.items():
+            for part in ("a", "b"):
+                live = ab[part].detach().cpu()
+                if not torch.equal(npz[mod][name][part], live):
+                    raise AssertionError(f"{tag}: lora_weights.npz differs at {mod} {name}")
+                if not torch.equal(ref[mod][name][part], live):
+                    raise AssertionError(f"{tag}: lora_weights.pt differs at {mod} {name}")
+    log(f"[{tag}] {os.path.basename(step_dir)}/lora_weights.npz and the exported "
+        f"lora_weights.pt (rank {meta['rank']}, alpha {meta['alpha']}) reload bit-equal to "
+        f"the live LoRA")
+
+
+def phase_train_low_resource(root: str):
+    """Phase 18: `LoRATrainer` with the low-resource recipe's trainer settings at
+    MOVA-360p full width and depth: fp8 modules in page-locked host memory,
+    staged per phase, AdamW8bit, remat, rank 16."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch import offload
+    from dualforce_tpu_torch.config import mova_360p
+    from dualforce_tpu_torch.engine import lora as lora_mod
+    from dualforce_tpu_torch.engine.optim import AdamW8bit
+    from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
+    from dualforce_tpu_torch.models.factory import init_pipeline_params
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                         flash_bwd_preprocess)
+
+    recipe = _recipe_trainer_config()
+    save_dir = os.path.join(root, "build", "chip_smoke_low_resource")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    settings = dict(recipe["trainer"], **FULL_TRAIN_CUTS, save_dir=save_dir, logger="jsonl",
+                    log_interval=1)
+    log(f"[lowres] recipe {os.path.relpath(LOW_RESOURCE_RECIPE, root)}: pipeline "
+        f"{recipe['pipeline']}, trainer {recipe['trainer']}; cuts: {FULL_TRAIN_CUTS} "
+        f"(experts {FULL_TRAIN_EXPERTS}), save_dir and logger jsonl for this run; clips "
+        f"synthetic 352x640x49 at 24 fps")
+    cfg = mova_360p()
+    t0 = time.perf_counter()
+    modules = init_pipeline_params(cfg, device="cuda", dtype=torch.float8_e4m3fn, seed=0,
+                                   host=True)
+    init_s = time.perf_counter() - t0
+    if not all(t.is_pinned() for m in modules.values()
+               for t in list(m.parameters()) + list(m.buffers())):
+        raise AssertionError("a master is not in page-locked host memory")
+    sizes = {n: offload.nbytes(m) for n, m in modules.items()}
+    n_params = sum(p.numel() for m in modules.values() for p in m.parameters())
+    rss, free = _host_memory()
+    log(f"[lowres] {n_params / 1e9:.3f} B parameters drawn on the card, towers and UMT5 "
+        f"cast to fp8, moved to page-locked host memory in {init_s:.1f} s: "
+        + ", ".join(f"{n} {b / 2**30:.2f} GiB" for n, b in sizes.items())
+        + f"; card allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; host rss "
+        f"{rss:.2f} GiB; free -g: {free}")
+
+    trainer = LoRATrainer(cfg, modules, TrainerConfig(**settings), device="cuda")
+    if not isinstance(trainer.optimizer, AdamW8bit) or trainer.tcfg.offload != "component":
+        raise AssertionError("the recipe's AdamW8bit and component offload are not in use")
+    n_lora = sum(p.numel() for p in lora_mod.lora_parameters(trainer.lora))
+    state_bytes = sum(q.numel() + 4 * s.numel() for q, s in
+                      trainer.optimizer.mu + trainer.optimizer.nu)
+    log(f"[lowres] {n_lora / 1e6:.2f} M LoRA parameters (rank {trainer.tcfg.lora_rank}) over "
+        f"{sum(len(t) for t in trainer.lora.values())} weights, on the card; AdamW8bit "
+        f"moments {state_bytes / 2**20:.1f} MiB (fp32 moments would take "
+        f"{8 * n_lora / 2**20:.1f})")
+
+    names = {id(m): n for n, m in modules.items()}
+    events, restore = _staging_spy(offload)
+    steps = []
+
+    def record(st):
+        st["max_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        st["rss_gib"] = _host_memory()[0]
+        steps.append(st)
+        torch.cuda.reset_peak_memory_stats()
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        # the low-resource path's counts
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
+        t0 = time.perf_counter()
+        final = trainer.train(_synthetic_clips(2 * FULL_TRAIN_CUTS["max_steps"]),
+                              on_micro_step=record)
+        wall = time.perf_counter() - t0
+        launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
+                    "split": flash_attention_bwd.split_launches,
+                    "prep": flash_bwd_preprocess.launches}
+        after = torch.cuda.memory_allocated()
+    finally:
+        restore()
+    stagings = [(names[mid], t) for kind, mid, t in events if kind == "in"]
+    live, together = set(), False
+    for kind, mid, _ in events:
+        (live.add if kind == "in" else live.discard)(names[mid])
+        together |= {"video_dit", "video_dit_2"} <= live
+    for i, st in enumerate(steps):
+        log(f"[lowres] micro-step {i + 1}: expert {st['expert']} timestep "
+            f"{st['timestep']:.1f} loss {st['loss']:.5f} (video {st['video_loss']:.5f}, "
+            f"audio {st['audio_loss']:.5f})"
+            + (f" grad_norm {st['grad_norm']:.5f}" if "grad_norm" in st else "")
+            + f"; encode {st['encode_s']:.3f} s, staging {st['stage_s']:.3f} s, "
+            f"loss+backward {st['loss_backward_s']:.3f} s, optimizer {st['optimizer_s']:.3f} s;"
+            f" flash fwd {st['flash_fwd']} bwd {st['flash_bwd']} split "
+            f"{st['flash_bwd_split']}; max_memory_allocated {st['max_allocated_gib']:.2f} GiB; "
+            f"host rss {st['rss_gib']:.2f} GiB")
+    log("[lowres] staging: " + "; ".join(
+        f"{n} {sizes[n] / 2**30:.2f} GiB in {t:.3f} s ({sizes[n] / t / 1e9:.1f} GB/s)"
+        for n, t in stagings))
+    log(f"[lowres] {final} steps in {wall:.2f} s (saves included); allocated "
+        f"{mem0 / 2**30:.3f} GiB before, {after / 2**30:.3f} GiB after; flash launches over "
+        f"the phase fwd {launches['fwd']} bwd {launches['bwd']} split {launches['split']} "
+        f"preprocess {launches['prep']}")
+
+    if final != FULL_TRAIN_CUTS["max_steps"] or [st["expert"] for st in steps] != \
+            FULL_TRAIN_EXPERTS:
+        raise AssertionError(f"{final} steps, experts {[st['expert'] for st in steps]}")
+    if together:
+        raise AssertionError("the two video experts were staged together")
+    staged = [n for n, _ in stagings]
+    if staged.count("video_dit") != 2 or staged.count("video_dit_2") != 1 or \
+            staged.count("text_encoder") != len(steps):
+        raise AssertionError(f"stagings {staged}")
+    for st in steps:
+        values = [st[k] for k in ("loss", "video_loss", "audio_loss")]
+        values += [st["grad_norm"]] if "grad_norm" in st else []
+        if not all(math.isfinite(x) for x in values) or st.get("grad_norm", 1.0) <= 0:
+            raise AssertionError(f"non-finite or zero metrics {st}")
+        if (st["flash_fwd"], st["flash_bwd"], st["flash_bwd_split"]) != (
+                2 * FULL_TRAIN_FLASH_CALLS, FULL_TRAIN_FLASH_CALLS, 0):
+            raise AssertionError(f"flash launches per micro-step fwd {st['flash_fwd']} bwd "
+                                 f"{st['flash_bwd']} split {st['flash_bwd_split']}, expected "
+                                 f"{2 * FULL_TRAIN_FLASH_CALLS}, {FULL_TRAIN_FLASH_CALLS}, 0")
+    if launches["prep"] != launches["bwd"] + launches["split"]:
+        raise AssertionError(f"preprocess launches {launches['prep']}, one per backward due")
+    for mod, tree in trainer.lora.items():
+        zero = [n for n, ab in tree.items() if not torch.count_nonzero(ab["b"])]
+        if zero:
+            raise AssertionError(f"{mod}: LoRA b still zero at {zero[:3]}")
+    _check_saved_lora(trainer, os.path.join(save_dir, f"step-{final}"), cfg, "lowres")
+    log(f"[lowres] experts {FULL_TRAIN_EXPERTS}, never staged together; every module's LoRA "
+        f"b nonzero; {2 * FULL_TRAIN_FLASH_CALLS} forward, {FULL_TRAIN_FLASH_CALLS} fused "
+        f"backward and preprocess launches per micro-step")
+    stats = {"launches": launches, "steps": steps, "stagings": stagings, "init_s": init_s,
+             "peak_gib": max(st["max_allocated_gib"] for st in steps)}
+    del trainer, modules
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return stats
+
+
+# phase 19: clips written as the dataset reads them (2 npz shards, 1 MJPEG AVI with audio)
+# at the 360p recipe's geometry, trained through the CLI from phase 17's checkpoint; lr
+# 1e-3 from the second step (warmup 1) so that three steps move the LoRA past bf16's
+# rounding of the base weights, and the served video shows it
+CLI_TRAIN_SETS = ["data.num_workers=1", "trainer.expert_switch_interval=1",
+                  "trainer.logger=jsonl", "trainer.log_interval=1", "trainer.lr=1e-3",
+                  "trainer.warmup_steps=1"]
+
+
+def _write_clips(root: str, height: int = 352, width: int = 640, num_frames: int = 49,
+                 fps: float = 24.0, sample_rate: int = 48000) -> str:
+    """Two npz shards and one MJPEG AVI from a numpy seed, and their
+    `metadata.json`; returns its path."""
+    import numpy as np
+
+    from dualforce_tpu_torch.utils.av_io import write_mjpeg_avi
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(19)
+    n_audio = int(sample_rate * num_frames / fps)
+    t = np.arange(n_audio) / sample_rate
+    items = []
+    for i in range(3):
+        # smooth frames (JPEG keeps them) with a moving bright square
+        base = rng.integers(0, 256, (num_frames, height // 16, width // 16, 3))
+        video = np.repeat(np.repeat(base, 16, axis=1), 16, axis=2).astype(np.uint8)
+        for f in range(num_frames):
+            video[f, 100:160, 10 * f:10 * f + 60] = 255
+        audio = (0.3 * np.sin(2 * np.pi * 220.0 * (i + 1) * t)).astype(np.float32)
+        if i < 2:
+            name = f"clip{i}.npz"
+            np.savez(os.path.join(root, name), video=video, audio=audio, fps=fps,
+                     sr=sample_rate)
+        else:
+            name = "clip2.avi"
+            write_mjpeg_avi(os.path.join(root, name), video, fps, audio, sample_rate)
+        items.append({"video_path": name, "caption": f"clip {i}: a square crossing a "
+                                                     f"noisy field, a tone of {220 * (i + 1)} Hz"})
+    path = os.path.join(root, "metadata.json")
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path
+
+
+def phase_train_cli(first, ckpt: str, root: str):
+    """Phase 19: the training CLI with the low-resource recipe from phase 17's
+    checkpoint, a resume, and the exported LoRA served through the LoRA CLI."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.cli import inference_single_lora as lora_cli
+    from dualforce_tpu_torch.cli import train as train_cli
+    from dualforce_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                         flash_bwd_preprocess)
+
+    meta = _write_clips(os.path.join(root, "clips"))
+    save_dir = os.path.join(root, "lora_cli")
+    log(f"[traincli] clips: " + ", ".join(
+        f"{n} {os.path.getsize(os.path.join(root, 'clips', n)) / 1e6:.1f} MB"
+        for n in sorted(os.listdir(os.path.join(root, "clips")))))
+    launches = {"fwd": 0, "bwd": 0, "split": 0, "prep": 0}
+    trainers = []
+    for max_steps in (2, 3):
+        argv = [LOW_RESOURCE_RECIPE, "--set", f"pipeline.ckpt_path={ckpt}",
+                f"data.metadata_path={meta}", f"trainer.save_dir={save_dir}",
+                f"trainer.max_steps={max_steps}"] + CLI_TRAIN_SETS
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nbytes = lc.save_pipeline_params(source, cfg, ckpt)
-        write_s = time.perf_counter() - t0
-        os.sync()
-        sync_s = time.perf_counter() - t0 - write_s
-        log(f"[cli] wrote the checkpoint, {nbytes / 1e9:.3f} GB of tensors ("
-            + ", ".join(f"{n} {offload.nbytes(m) / 1e9:.3f}" for n, m in source.items())
-            + f" GB in the modules), in {write_s:.2f} s ({nbytes / write_s / 1e9:.2f} GB/s) "
-            f"and synced in {sync_s:.2f} s; {free / 1e9:.1f} GB free on the temporary "
-            f"directory's disk before")
+        trainer = train_cli.run(argv, tokenizer=ByteTokenizer())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
+               "split": flash_attention_bwd.split_launches,
+               "prep": flash_bwd_preprocess.launches}
+        for k in launches:
+            launches[k] += run[k]
+        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        log(f"[traincli] `python -m dualforce_tpu_torch.cli.train {' '.join(argv)}`: "
+            f"{wall:.2f} s (load, clips, train, saves); step {trainer.global_step}; flash "
+            f"launches {run}; last metrics {lines[-1]}")
+        micro = trainer.tcfg.grad_accum_steps * (max_steps - (0 if max_steps == 2 else 2))
+        if trainer.global_step != max_steps or run["fwd"] != 2 * TRAIN_FLASH_CALLS * micro \
+                or run["bwd"] != TRAIN_FLASH_CALLS * micro or run["split"] != 0:
+            raise AssertionError(f"step {trainer.global_step}, launches {run} for {micro} "
+                                 f"micro-steps")
+        if not all(math.isfinite(x["loss"]) for x in lines):
+            raise AssertionError(f"non-finite losses {lines}")
+        for name in ("state.pt", "lora_weights.npz", "lora_weights.pt", "lora_config.pt"):
+            if not os.path.isfile(os.path.join(save_dir, f"step-{max_steps}", name)):
+                raise AssertionError(f"step-{max_steps}/{name} was not written")
+        trainers.append(trainer)
+    first_run, resumed = trainers
+    if resumed.optimizer.count != 3:
+        raise AssertionError(f"the second run did not resume from step-2 "
+                             f"(optimizer count {resumed.optimizer.count})")
+    cfg = resumed.cfg
+    _check_saved_lora(resumed, os.path.join(save_dir, "step-3"), cfg, "traincli")
+    for mod, tree in resumed.lora.items():
+        if not all(torch.count_nonzero(ab["b"]) for ab in tree.values()):
+            raise AssertionError(f"{mod}: a LoRA b is still zero after three steps")
+    del trainers, first_run, resumed
+    torch.cuda.empty_cache()
 
-        request = ["--prompt", first["prompt"], "--negative_prompt", first["negative"],
-                   "--seed", str(first["seed"]), "--ref_path", "unused (first frame given)",
-                   "--height", str(REQUEST["height"]), "--width", str(REQUEST["width"]),
-                   "--num_frames", str(REQUEST["num_frames"]), "--fps", str(REQUEST["video_fps"]),
-                   "--num_inference_steps", str(REQUEST["num_inference_steps"]),
-                   "--cfg_scale", str(REQUEST["cfg_scale"]),
-                   "--sigma_shift", str(REQUEST["sigma_shift"])]
-        want = {"exact": LAUNCHES_PER_REQUEST, "cap": 0, "sage": 0}
-
-        # 2. the base CLI with its default flags (the denoised audio latents kept)
-        rss0 = _host_memory()[0]
-        args = cli.parse_args(["--ckpt_path", ckpt, "--output", os.path.join(root, "base.mp4")]
-                              + request)
-        kept, finalize = {}, MOVAPipeline.finalize_state
-
-        def keep(self, state):
-            kept["audio_latents"] = state["audio_latents"]
-            return finalize(self, state)
-
-        MOVAPipeline.finalize_state = keep
-        try:
-            t0 = time.perf_counter()
-            (base, pipe), counts = _count_flash(lambda: cli.run(
-                args, tokenizer=ByteTokenizer(), image=first["image"]))
-        finally:
-            MOVAPipeline.finalize_state = finalize
-        log(f"[cli] base request (load, then generate) {time.perf_counter() - t0:.2f} s; host "
-            f"rss {rss0:.2f} GiB before, {_host_memory()[0]:.2f} GiB after; launches {counts}")
-        if counts != want:
-            raise AssertionError(f"base CLI launches {counts}, expected {want}")
-        worst_fold = 0.0
-        for name, module in pipe.modules.items():
-            loaded = dict(module.named_parameters())
-            for k, p in source[name].named_parameters():
-                q = loaded[k]
-                if name == "audio_vae" and k.endswith(".weight"):
-                    err = float((q - p).abs().max() / p.abs().max())
-                    worst_fold = max(worst_fold, err)
-                    ok = err <= FOLD_REL_TOL
-                else:
-                    ok = q.dtype == p.dtype and torch.equal(q, p)
-                if not ok:
-                    raise AssertionError(f"loaded {name}.{k} differs from the module written")
-        _check_result(base, REQUEST)
-        same_video = np.array_equal(base.video, first["video"])
-        audio_rel = float(np.linalg.norm(base.audio - first["audio"])
-                          / np.linalg.norm(first["audio"]))
-        # the DAC decode: cuDNN runs fp32 convolutions in TF32 (PyTorch's default), whose
-        # rounding (~6e-4 relative at the DAC's output) any one-ulp weight change shows;
-        # the fold is held in fp32 on the request's own audio latents
-        z, n = kept["audio_latents"].to("cuda"), first["audio"].shape[0]
-        with torch.no_grad():
-            again = dac_vae.decode(source["audio_vae"], z)[0, 0, :n].cpu().numpy()
-            with torch.backends.cudnn.flags(enabled=True,
-                                            benchmark=torch.backends.cudnn.benchmark,
-                                            deterministic=torch.backends.cudnn.deterministic,
-                                            allow_tf32=False):
-                got32 = dac_vae.decode(pipe.modules["audio_vae"], z)[0, 0, :n]
-                want32 = dac_vae.decode(source["audio_vae"], z)[0, 0, :n]
-        same_latents = np.array_equal(again, first["audio"])
-        fold_rel = rel_err(got32, want32.float())
-        tf32_rel = rel_err(torch.from_numpy(again).cuda(), want32.float())
-        log(f"[cli] every loaded parameter equal to the one written (DAC folds within "
-            f"{worst_fold:.2e} relative); video bit-equal to phase 5's first request: "
-            f"{same_video}; audio rel L2 {audio_rel:.3e} against phase 5's (TF32 "
-            f"convolutions); its latents decoded by the written DAC give phase 5's audio bit "
-            f"for bit: {same_latents}; decoded in fp32 by the loaded and the written DAC: rel "
-            f"L2 {fold_rel:.3e} (limit {CLI_AUDIO_REL_TOL}); the written DAC's TF32 decode "
-            f"against its fp32 one: rel L2 {tf32_rel:.3e}")
-        if not same_video:
-            diff = np.abs(base.video.astype(np.int16) - first["video"].astype(np.int16))
-            raise AssertionError(f"the CLI's video differs from phase 5's: {int(diff.max())} "
-                                 f"levels at most, in {float(np.mean(diff > 0)):.2e} of values")
-        if not same_latents or fold_rel > CLI_AUDIO_REL_TOL:
-            raise AssertionError(f"audio: latents as phase 5's {same_latents}, fp32 decode "
-                                 f"rel L2 {fold_rel:.3e} (limit {CLI_AUDIO_REL_TOL})")
-        # the request's audio against phase 5's: each TF32 decode within about tf32_rel of
-        # its fp32 one, and the two fp32 decodes fold_rel apart
-        audio_limit = 2 * tf32_rel + fold_rel
-        log(f"[cli] audio rel L2 {audio_rel:.3e} against phase 5's, limit {audio_limit:.3e} "
-            f"(2 x TF32 vs fp32 + the fp32 fold gap)")
-        if audio_rel > audio_limit:
-            raise AssertionError(f"the CLI's audio is {audio_rel:.3e} from phase 5's "
-                                 f"(limit {audio_limit:.3e})")
-        written = [_write_av(os.path.join(root, "base.mp4"), base)]
-
-        # 3. fp8 storage, profiled
-        trace_dir = os.path.join(root, "profile")
-        args8 = cli.parse_args(["--ckpt_path", ckpt, "--weight_dtype", "fp8", "--profile",
-                                trace_dir] + request)
-        t0 = time.perf_counter()
-        (res8, pipe8), counts8 = _count_flash(lambda: cli.run(
-            args8, tokenizer=ByteTokenizer(), image=first["image"]))
-        log(f"[cli] fp8 request, profiled (load, generate, trace export) "
-            f"{time.perf_counter() - t0:.2f} s; launches {counts8}")
-        if counts8 != want:
-            raise AssertionError(f"fp8 CLI launches {counts8}, expected {want}")
-        for name in ("video_dit", "video_dit_2", "audio_dit", "bridge", "text_encoder"):
-            cast = dnn.cast_modules_fp8(copy.deepcopy(pipe.modules[name]))
-            loaded = dict(pipe8.modules[name].named_parameters())
-            for k, p in cast.named_parameters():
-                q = loaded[k]
-                if q.dtype != p.dtype or not torch.equal(q.view(torch.uint8),
-                                                         p.view(torch.uint8)):
-                    raise AssertionError(f"fp8 load of {name}.{k} differs from "
-                                         "cast_modules_fp8 of the bf16 load")
-            del cast
-        _check_result(res8, REQUEST)
-        with open(os.path.join(trace_dir, "device_ops.json")) as f:
-            ops = [o for o in json.load(f)
-                   if o["device_type"] == "CUDA" and o["self_device_us"] > 0]
-        total_us = sum(o["self_device_us"] for o in ops)
-        kernel_us, busy_us, span_us = _trace_busy(os.path.join(trace_dir, "trace.json"))
-        log(f"[cli] fp8 towers and UMT5 byte-equal to cast_modules_fp8 of the bf16 load; "
-            f"trace.json {os.path.getsize(os.path.join(trace_dir, 'trace.json')) / 1e6:.1f} "
-            f"MB: kernels {kernel_us / 1e6:.3f} s, the card busy {busy_us / 1e6:.3f} s of "
-            f"{span_us / 1e6:.3f} s from the first kernel to the last (idle "
-            f"{100 * (1 - busy_us / max(span_us, 1e-9)):.1f} %); the profiler's averages: "
-            f"{len(ops)} device operations, {total_us / 1e6:.3f} s; the ten with the most:")
-        for o in ops[:10]:
-            log(f"[cli]   {o['self_device_us'] / 1e3:10.2f} ms "
-                f"({100 * o['self_device_us'] / max(total_us, 1e-9):5.1f} %), "
-                f"{o['calls']:6d} calls: {o['name'][:110]}")
-        if total_us <= 0:
-            log("[cli] the profiler's averages hold no device time")
-        written.append(_write_av(os.path.join(root, "fp8.mp4"), res8))
-        del pipe8, res8, pipe
-        torch.cuda.empty_cache()
-
-        # 4. a reference-format LoRA through the LoRA CLI, staged from host memory
-        lora_dir = os.path.join(root, "lora")
-        factors = _reference_lora(source, lora_dir)
-        argsl = lora_cli.parse_args(["--base_model", ckpt, "--lora_path", lora_dir,
-                                     "--lora_scale", str(LORA_SCALE), "--offload", "cpu"]
-                                    + request)
-        events, restore = _staging_spy(offload)
-        try:
-            t0 = time.perf_counter()
-            (resl, pipel), countsl = _count_flash(lambda: lora_cli.run(
-                argsl, tokenizer=ByteTokenizer(), image=first["image"]))
-        finally:
-            restore()
-        names = {id(m): n for n, m in pipel.modules.items()}
-        live, together = set(), False
-        for kind, mid, _ in events:
-            (live.add if kind == "in" else live.discard)(names[mid])
-            together |= {"video_dit", "video_dit_2"} <= live
-        log(f"[cli] LoRA request (load, merge on the card, page-lock, generate) "
-            f"{time.perf_counter() - t0:.2f} s; launches {countsl}; staging: " + "; ".join(
-                f"{names[mid]} {offload.nbytes(pipel.modules[names[mid]]) / 1e9:.3f} GB in "
-                f"{s:.3f} s ({offload.nbytes(pipel.modules[names[mid]]) / s / 1e9:.1f} GB/s)"
-                for kind, mid, s in events if kind == "in"))
-        if countsl != want:
-            raise AssertionError(f"LoRA CLI launches {countsl}, expected {want}")
-        if together:
-            raise AssertionError("the two video experts were staged together")
-        if not all(t.is_pinned() for m in pipel.modules.values() for t in m.parameters()):
-            raise AssertionError("a LoRA master is not in page-locked host memory")
-        scaling = LORA_ALPHA / LORA_RANK * LORA_SCALE
-        for mod, name in (("video_dit", "blocks.0.self_attn.q.weight"),
-                          ("video_dit_2",
-                           f"blocks.{cfg.video_dit.num_layers - 1}.cross_attn.o.weight"),
-                          ("bridge", f"video_to_audio_conditioners."
-                                     f"{cfg.bridge.interaction_layers()[-1]}.inner.k.weight")):
-            a, b = (torch.from_numpy(x).cuda() for x in factors[(mod, name)])
-            w = source[mod].get_parameter(name).float()
-            want32 = w + scaling * (b @ a)
-            got = pipel.modules[mod].get_parameter(name).cuda()
-            # W + delta rounded once to bf16: within half a bf16 step of the fp32 value,
-            # give or take a few fp32 steps for another order of the sums
-            step = torch.ldexp(torch.ones_like(want32), torch.frexp(want32)[1] - 8)
-            slack = 4 * torch.finfo(torch.float32).eps * (w.abs() + (b @ a).abs() * scaling)
-            err = (got.float() - want32).abs()
-            exact = float((got == want32.bfloat16()).float().mean())
-            log(f"[cli] merged {mod}.{name}: max |merged - fp32 reference| / half step "
-                f"{float((err / (0.5 * step)).max()):.4f}; bit-equal to the reference "
-                f"rounded once in {exact:.6f} of values; |delta| max "
-                f"{float((b @ a).abs().max()) * scaling:.3e}")
-            if got.dtype != torch.bfloat16 or bool((err > 0.5 * step + slack).any()):
-                raise AssertionError(f"merged {mod}.{name} is not W + (alpha/r) * scale * B A")
-        _check_result(resl, REQUEST)
-        if np.array_equal(resl.video, base.video):
-            raise AssertionError("the LoRA left the video unchanged")
-        rel = float(np.linalg.norm(resl.video.astype(np.float32) - base.video.astype(np.float32))
-                    / np.linalg.norm(base.video.astype(np.float32)))
-        log(f"[cli] LoRA video rel L2 against the base request {rel:.3e}")
-        written.append(_write_av(os.path.join(root, "lora.mp4"), resl))
-
-        # 5. the files
-        log("[cli] wrote " + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB"
-                                       for p in written))
-        return {"launches": counts["exact"] + counts8["exact"] + countsl["exact"],
-                "write_s": write_s}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    lora_pt = os.path.join(save_dir, "step-3", "lora_weights.pt")
+    request = ["--prompt", first["prompt"], "--negative_prompt", first["negative"],
+               "--seed", str(first["seed"]), "--ref_path", "unused (first frame given)",
+               "--height", str(REQUEST["height"]), "--width", str(REQUEST["width"]),
+               "--num_frames", str(REQUEST["num_frames"]), "--fps", str(REQUEST["video_fps"]),
+               "--num_inference_steps", str(REQUEST["num_inference_steps"]),
+               "--cfg_scale", str(REQUEST["cfg_scale"]),
+               "--sigma_shift", str(REQUEST["sigma_shift"])]
+    args = lora_cli.parse_args(["--base_model", ckpt, "--lora_path", lora_pt] + request)
+    t0 = time.perf_counter()
+    (res, pipe), counts = _count_flash(lambda: lora_cli.run(args, tokenizer=ByteTokenizer(),
+                                                            image=first["image"]))
+    log(f"[traincli] the exported {os.path.relpath(lora_pt, root)} through "
+        f"`cli.inference_single_lora` (load, merge, generate) {time.perf_counter() - t0:.2f} "
+        f"s; launches {counts}")
+    _check_result(res, REQUEST)
+    rel = float(np.linalg.norm(res.video.astype(np.float32) - first["video"].astype(np.float32))
+                / np.linalg.norm(first["video"].astype(np.float32)))
+    log(f"[traincli] video uint8 {res.video.shape}; rel L2 against phase 17's base video "
+        f"(phase 5's first request) {rel:.3e}")
+    want = {"exact": LAUNCHES_PER_REQUEST, "cap": 0, "sage": 0}
+    if counts != want:
+        raise AssertionError(f"LoRA CLI launches {counts}, expected {want}")
+    if np.array_equal(res.video, first["video"]):
+        raise AssertionError("the trained LoRA left the video unchanged")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"launches": launches, "serve": counts["exact"], "rel": rel}
 
 
 def main() -> int:
@@ -2314,7 +2667,21 @@ def main() -> int:
     options = timed_phase("options", phase_sampler_options)
     gc.collect()
     torch.cuda.empty_cache()
-    ckpt = timed_phase("cli", phase_checkpoint_cli, first)
+    import shutil
+    import tempfile
+
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = timed_phase("cli", phase_checkpoint_cli, first, ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lowres = timed_phase("lowres", phase_train_low_resource, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_cli = timed_phase("traincli", phase_train_cli, first, ckpt["ckpt"], ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    lr_l, cli_l = lowres["launches"], train_cli["launches"]
 
     video_self, train_self = rows[0], bwd_rows[0]
     cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
@@ -2327,7 +2694,8 @@ def main() -> int:
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
         "launches": (serve_launches + train["fwd"] + train720["fwd"] + full["launches"]
                      + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
-                     + options["cfg_cache_interval_2"] + ckpt["launches"]),
+                     + options["cfg_cache_interval_2"] + ckpt["launches"] + lr_l["fwd"]
+                     + cli_l["fwd"] + train_cli["serve"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -2337,7 +2705,10 @@ def main() -> int:
                              "serve_cfg_batch_mask_ctx_pad": options["cfg_batch"],
                              "serve_mask_ctx_pad": options["unbatched"],
                              "serve_cfg_cache_interval_2": options["cfg_cache_interval_2"],
-                             "serve_cli_checkpoint": ckpt["launches"]},
+                             "serve_cli_checkpoint": ckpt["launches"],
+                             "train_low_resource_full_depth": lr_l["fwd"],
+                             "train_cli": cli_l["fwd"], "serve_cli_trained_lora":
+                             train_cli["serve"]},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),
@@ -2361,8 +2732,11 @@ def main() -> int:
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:365",
-        "launches": train["bwd"] + train720["bwd"],
-        "launches_by_path": {"serve": 0, "train": train["bwd"], "train_720p": train720["bwd"]},
+        "launches": train["bwd"] + train720["bwd"] + lr_l["bwd"] + cli_l["bwd"],
+        "launches_by_path": {"serve": 0, "train": train["bwd"], "train_720p": train720["bwd"],
+                             "train_low_resource_full_depth": lr_l["bwd"],
+                             "train_cli": cli_l["bwd"]},
+        "train_low_resource_peak_gib": lowres["peak_gib"],
         "max_abs_err": max(bwd_max_abs["bwd"], max_abs_720p["fused"]),
         "ms": train_self["bwd_ms"],
         "plain_ms": train_self["bwd_plain_ms"],
@@ -2381,9 +2755,11 @@ def main() -> int:
         "replaces": "dualforce_tpu/ops/flash_attention.py:284 and :321",
         "mode": "split: the dq pass (_bwd_dq_kernel) and the dk/dv pass (_bwd_dkv_kernel), "
                 "one launch of each per backward, where Sq >= 98,305",
-        "launches": train720["split"],
+        "launches": train720["split"] + lr_l["split"] + cli_l["split"],
         "launches_by_path": {"serve": 0, "train": train["split"],
-                             "train_720p": train720["split"]},
+                             "train_720p": train720["split"],
+                             "train_low_resource_full_depth": lr_l["split"],
+                             "train_cli": cli_l["split"]},
         "max_abs_err": max_abs_720p["split"],
         "ms": split_self["bwd_ms"],
         "plain_ms": split_self["bwd_plain_ms_2_heads"],
@@ -2406,9 +2782,11 @@ def main() -> int:
         "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:484 (delta in `_bwd_prepare`, jnp "
                     "code beside the Pallas kernels)",
-        "launches": train["prep"] + train720["prep"],
+        "launches": train["prep"] + train720["prep"] + lr_l["prep"] + cli_l["prep"],
         "launches_by_path": {"serve": 0, "train": train["prep"],
-                             "train_720p": train720["prep"]},
+                             "train_720p": train720["prep"],
+                             "train_low_resource_full_depth": lr_l["prep"],
+                             "train_cli": cli_l["prep"]},
         "max_abs_err": max(bwd_max_abs["prep"], max_abs_720p["prep"]),
         "ms": split_self["preprocess"]["ms"],
         "plain_ms": split_self["preprocess"]["plain_ms"],

@@ -7,8 +7,9 @@ DAC) -> a timestep id in the expert's range (expert 0: high noise, ids
 merged dual-tower step -> v-target MSE, video plus audio. Randomness comes
 from an explicit `torch.Generator` (drawn on the host, so the numbers do not
 depend on the device); `jax.random` is not reproduced, so tests pin the
-timestep id (`timestep_id`) and the noise (`noise_override`). Full
-fine-tuning is not ported.
+timestep id (`timestep_id`) and the noise (`noise_override`). The base
+weights may be stored in fp8 (their LoRA merge runs in the compute dtype,
+ROADMAP C caveat 9). Full fine-tuning is not ported.
 """
 
 from __future__ import annotations
@@ -162,7 +163,11 @@ def training_loss(lora: Optional[lora_mod.Lora], modules: Dict[str, torch.nn.Mod
     `encoded` (tensors or numpy) is `encode_batch`'s output. The timestep id
     is drawn from `generator` unless `timestep_id` pins it; the video and
     then the audio noise are drawn from it (on the host) unless
-    `noise_override` = (video noise, audio noise) gives them."""
+    `noise_override` = (video noise, audio noise) gives them. The LoRA is
+    merged into each target where its layer reads it
+    (`engine.lora.MergedWeights`). `modules` may hold fp8-stored weights
+    (`nn.cast_modules_fp8`), whose merged targets are in `compute_dtype`,
+    and may be staged copies of host-resident modules."""
     if full_finetune_params is not None:
         raise NotImplementedError("full fine-tuning is not ported")
     device = resolve_device(device)
@@ -183,10 +188,11 @@ def training_loss(lora: Optional[lora_mod.Lora], modules: Dict[str, torch.nn.Mod
     tower = "video_dit" if expert == 0 or "video_dit_2" not in modules else "video_dit_2"
     params = None
     if lora:
-        merged = lora_mod.merge_pipeline_lora(modules, lora, alpha=lora_alpha,
-                                              names=(tower, "audio_dit", "bridge"))
-        params = {"video": merged.get(tower), "audio": merged.get("audio_dit"),
-                  "bridge": merged.get("bridge")}
+        # merged where each layer reads its weights (inside its remat block)
+        params = {key: lora_mod.MergedWeights(modules[m], lora[m], lora_alpha,
+                                              upcast=compute_dtype)
+                  for key, m in (("video", tower), ("audio", "audio_dit"), ("bridge", "bridge"))
+                  if lora.get(m)}
     b = x_v.shape[0]
     model_in = torch.cat([noisy_v.to(compute_dtype),
                           encoded["condition"].to(compute_dtype)], dim=1)

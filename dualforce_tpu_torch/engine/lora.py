@@ -10,11 +10,17 @@ sqrt(in) and `b` at zero, so the first merge is the identity.
 
 `merge_pipeline_lora` gives W' = W + (a b)^T * alpha / r * scale per targeted
 weight in fp32, cast to W's dtype, as {module: {name: W'}}. The training
-step hands those to `dual_tower_step(params=...)`, which applies them
+step hands the same W' to `dual_tower_step(params=...)` as `MergedWeights`,
+which merges each weight where its layer reads it; the layers apply them
 functionally (`torch.func.functional_call`), so the base modules stay frozen
-and as they are; gradients reach only the factors. `merge_lora_into` writes
-the same W' into a module's own weights, one at a time, for inference (the
-LoRA CLI), so no second copy of a module is held.
+and as they are; gradients reach only the factors. There a weight stored in
+fp8 merges into `upcast` (the compute dtype, to which `nn.Fp8Linear`
+upcasts it at use): the JAX package casts W' back to fp8 (`merge_lora`),
+which rounds most of a small delta away and its gradient with it (ROADMAP
+C, caveat 9); the port computes what JAX computes on the fp8 tree upcast
+first. `merge_lora_into` writes the same W' into a module's own weights, one
+at a time, for inference (the LoRA CLI, which merges before any fp8 cast),
+so no second copy of a module is held.
 
 `save_lora` / `load_lora` read and write the JAX package's format: one npz of
 `{module}::{path}::{a|b}` arrays stacked over layers ([L, in, r], [L, r, out],
@@ -28,10 +34,12 @@ import json
 import math
 import os
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from dualforce_tpu_torch.nn import FP8_DTYPES
 
 TARGET_RE = r"(self_attn|cross_attn|inner)\.(q|k|v|o)\.weight$"
 EXCLUDE_RE = r"(time_projection|time_embedding|patch_embedding)"
@@ -49,27 +57,28 @@ def lora_targets(module: torch.nn.Module) -> List[str]:
             if re.search(TARGET_RE, n) and not re.search(EXCLUDE_RE, n)]
 
 
-def init_lora(module: torch.nn.Module, rank: int, generator: torch.Generator
-              ) -> Dict[str, Dict[str, torch.Tensor]]:
+def init_lora(module: torch.nn.Module, rank: int, generator: torch.Generator,
+              device=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """{name: {"a": [in, r] normal / sqrt(in), "b": [r, out] zeros}} in fp32
-    for every target, drawn on the host from `generator` and moved to the
-    module's device, leaves that require grad."""
+    for every target, drawn on the host from `generator` and moved to
+    `device` (default: the module's), leaves that require grad."""
     out = {}
     for name in lora_targets(module):
         w = module.get_parameter(name)
         fan_out, fan_in = w.shape
         a = torch.randn(fan_in, rank, generator=generator) / math.sqrt(fan_in)
         b = torch.zeros(rank, fan_out)
-        out[name] = {"a": a.to(w.device).requires_grad_(),
-                     "b": b.to(w.device).requires_grad_()}
+        dev = w.device if device is None else device
+        out[name] = {"a": a.to(dev).requires_grad_(), "b": b.to(dev).requires_grad_()}
     return out
 
 
 def init_pipeline_lora(modules: Dict[str, torch.nn.Module], rank: int,
                        generator: torch.Generator,
-                       names: Sequence[str] = DEFAULT_MODULES) -> Lora:
-    """LoRA factors for the trainable modules present in `modules`."""
-    return {m: init_lora(modules[m], rank, generator) for m in names if m in modules}
+                       names: Sequence[str] = DEFAULT_MODULES, device=None) -> Lora:
+    """LoRA factors for the trainable modules present in `modules`, on
+    `device` (default: each module's)."""
+    return {m: init_lora(modules[m], rank, generator, device) for m in names if m in modules}
 
 
 def lora_parameters(lora: Lora) -> List[torch.Tensor]:
@@ -79,11 +88,13 @@ def lora_parameters(lora: Lora) -> List[torch.Tensor]:
 
 
 def _merged(w: torch.Tensor, ab: Dict[str, torch.Tensor], alpha: float,
-            scale: float) -> torch.Tensor:
-    """W + (a b)^T * alpha / r * scale in fp32 on W's device, cast to W's dtype."""
+            scale: float, upcast: Optional[torch.dtype] = None) -> torch.Tensor:
+    """W + (a b)^T * alpha / r * scale in fp32 on W's device, cast to W's
+    dtype, or to `upcast` where W is stored in fp8 and `upcast` is given."""
     a, b = (ab[part].to(w.device, torch.float32) for part in ("a", "b"))
     delta = (a @ b).t() * ((alpha / b.shape[-2]) * scale)
-    return (w.float() + delta).to(w.dtype)
+    dtype = upcast if upcast is not None and w.dtype in FP8_DTYPES else w.dtype
+    return (w.float() + delta).to(dtype)
 
 
 def merge_lora(module: torch.nn.Module, tree: Dict[str, Dict[str, torch.Tensor]],
@@ -91,6 +102,35 @@ def merge_lora(module: torch.nn.Module, tree: Dict[str, Dict[str, torch.Tensor]]
     """{name: W + (a b)^T * alpha / r * scale}, in fp32, cast to W's dtype."""
     return {name: _merged(module.get_parameter(name), ab, alpha, scale)
             for name, ab in tree.items()}
+
+
+class MergedWeights(Mapping):
+    """`merge_lora`'s {name: W'} for one module, each W' computed when it is
+    read. The training step hands these to the towers, whose layers read
+    their own weights inside their rematerialised block
+    (`models/dual_tower.py`): a layer's merged weights then live only while
+    it runs and are merged again when the backward recomputes it, and their
+    gradients reach the factors as soon as the layer's backward is done.
+    Merged all at once before the forward instead, a full-depth expert's
+    bf16 targets (15.6 GiB) are held through the step, and autograd, which
+    runs the merges' backward after every later node, holds their gradients
+    too until the whole backward is done."""
+
+    def __init__(self, module: torch.nn.Module, tree: Dict[str, Dict[str, torch.Tensor]],
+                 alpha: float = 16.0, scale: float = 1.0,
+                 upcast: Optional[torch.dtype] = None):
+        self.module, self.tree = module, tree
+        self.alpha, self.scale, self.upcast = alpha, scale, upcast
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return _merged(self.module.get_parameter(name), self.tree[name], self.alpha,
+                       self.scale, self.upcast)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.tree)
+
+    def __len__(self) -> int:
+        return len(self.tree)
 
 
 def merge_pipeline_lora(modules: Dict[str, torch.nn.Module], lora: Lora,

@@ -1,17 +1,34 @@
 """LoRA trainer (counterpart of `dualforce_tpu/engine/trainer.py`).
 
-One device, no mesh, weights resident (the JAX package's `offload="none"`).
-Loop: the video expert alternates per micro-batch (expert 0, the high-noise
-tower, on even micro-steps), frozen encodes, LoRA grads through the
+One device, no mesh. Loop: frozen encodes, LoRA grads through the
 (rematerialised) dual tower, gradient accumulation as a running mean, then
-global-norm clip and AdamW under the warmup schedule; log every
+the optimizer ("AdamW": global-norm clip and AdamW; "AdamW8bit": the same
+with block-wise int8 moments) under the warmup schedule; log every
 `log_interval` steps, save every `save_interval` and at the end, resume from
 the latest `step-N` under `save_dir`. Randomness (LoRA init, timestep ids,
 noise) comes from one host `torch.Generator` seeded with `seed`, saved and
-restored with the checkpoint.
+restored with the checkpoint. The LoRA factors and the optimizer state live
+on the device.
 
-Not ported, and refused: full fine-tuning (`mode="full"`), component offload,
-AdamW8bit, meshes and sequence parallelism.
+Two regimes, as in the JAX package:
+- `offload="none"`: the modules stay on the device; the video expert
+  alternates per micro-batch (expert 0, the high-noise tower, on even
+  micro-steps), so with accumulation both experts collect grads within one
+  optimizer step.
+- `offload="component"`, the one-card low-resource recipe
+  (`configs/training/lora_low_resource.py`): the modules wait in page-locked
+  host memory (`offload.to_host`, fp8-stored or not) and are staged to the
+  device (`offload.staged`) for the phase that uses them: the text encoder
+  and both VAEs around each encode, then the active expert, the audio tower
+  and the bridge for the loss and backward, kept there across micro-steps
+  until the expert changes; the other expert is evicted first, so the two
+  are never on the device together. The expert follows
+  `(global_step // expert_switch_interval) % 2` for whole optimizer steps.
+
+Base weights stored in fp8 train in both regimes: the LoRA merges into the
+compute dtype (ROADMAP C, caveat 9). Not ported, and refused: full
+fine-tuning (`mode="full"`), `remat_save_attention`, meshes and sequence
+parallelism.
 
 Clips of any length train; at 720p (1280x720, 193 frames, 176,400 video
 tokens) the attention backwards take the split kernels, and an 80 GB card
@@ -22,15 +39,18 @@ first CUDA allocation).
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 
-from dualforce_tpu_torch import nn as dnn
+from dualforce_tpu_torch import offload as off
 from dualforce_tpu_torch import resolve_device
 from dualforce_tpu_torch.config import MOVAConfig
+from dualforce_tpu_torch.convert.lora_export import save_reference_lora
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.diffusion.step import make_rope_pack
 from dualforce_tpu_torch.diffusion.training import (TimestepConfig, accumulate,
@@ -62,6 +82,9 @@ class TrainerConfig:
     seed: int = 0
     video_fps: float = 24.0
     remat: bool = True
+    # the JAX package's switch to keep the flash residuals across the remat
+    # boundary; not ported (ROADMAP A5), so only False is accepted
+    remat_save_attention: bool = False
     compute_dtype: Any = torch.bfloat16
     attn_impl: str = "auto"
     optimizer: str = "AdamW"
@@ -69,7 +92,10 @@ class TrainerConfig:
     trainable_modules: tuple = ("video_dit", "video_dit_2", "audio_dit", "bridge")
     # k micro-batches per optimizer step
     grad_accum_steps: int = 1
+    # "none" or "component" (host-staged base weights, see the module docstring)
     offload: str = "none"
+    # with offload: the expert changes every K optimizer steps
+    expert_switch_interval: int = 1
     weighting_scheme: str = "uniform"
     logit_mean: float = 0.0
     logit_std: float = 1.0
@@ -79,19 +105,24 @@ class TrainerConfig:
 class LoRATrainer:
     def __init__(self, cfg: MOVAConfig, modules: Dict[str, torch.nn.Module],
                  tcfg: TrainerConfig, device="cuda"):
-        """modules: the pipeline's modules on `device` (the encoders, the
-        towers, the bridge); they stay frozen."""
+        """modules: the pipeline's modules (the encoders, the towers, the
+        bridge), on `device` (offload "none") or in host memory (offload
+        "component"; page-locked for a CUDA device); they stay frozen."""
         if tcfg.mode == "full":
             raise NotImplementedError("full fine-tuning is not ported")
         if tcfg.mode != "lora":
             raise ValueError(f"unknown trainer mode {tcfg.mode!r}")
-        if tcfg.offload == "component":
-            raise NotImplementedError("component offload is not ported")
-        if tcfg.offload != "none":
+        if tcfg.remat_save_attention:
+            raise NotImplementedError("remat_save_attention is not ported (ROADMAP A5)")
+        if tcfg.offload not in ("none", "component"):
             raise ValueError(f"unknown trainer offload {tcfg.offload!r}")
-        if any(p.dtype in dnn.FP8_DTYPES for m in modules.values() for p in m.parameters()):
-            raise NotImplementedError("LoRA training on fp8-stored weights is not ported")
         self.device = resolve_device(device)
+        home = self.device.type if tcfg.offload == "none" else "cpu"
+        for name, m in modules.items():
+            p = next(m.parameters())
+            if p.device.type != home:
+                raise ValueError(f"{name} is on {p.device}; offload {tcfg.offload!r} wants "
+                                 f"it on {home}")
         self.cfg = cfg
         self.modules = modules
         self.tcfg = tcfg
@@ -100,7 +131,7 @@ class LoRATrainer:
         self.tables = build_train_tables(scheduler, cfg.boundary_ratio)
         self.generator = torch.Generator().manual_seed(tcfg.seed)
         self.lora = lora_mod.init_pipeline_lora(modules, tcfg.lora_rank, self.generator,
-                                                tcfg.trainable_modules)
+                                                tcfg.trainable_modules, device=self.device)
         self._schedule = warmup_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.max_steps,
                                          tcfg.lr_schedule)
         self.optimizer = build_optimizer(
@@ -112,6 +143,10 @@ class LoRATrainer:
         self.global_step = 0
         self.logger = build_logger(tcfg.logger, tcfg.save_dir)
         self._rope_cache: Dict[Any, Any] = {}
+        # offload: {name: (the ExitStack holding its staging, the staged copy)}
+        self._staged: Dict[str, Any] = {}
+        self._measure = False
+        self._stage_s = 0.0
         self._maybe_resume()
 
     # --- checkpointing ------------------------------------------------------
@@ -135,9 +170,43 @@ class LoRATrainer:
         print(f"[trainer] resumed from step {self.global_step}")
 
     def save(self):
-        path = save_checkpoint(self.tcfg.save_dir, self.global_step, self._state())
-        lora_mod.save_lora(self.lora, f"{path}/lora_weights.npz",
-                           alpha=self.tcfg.lora_alpha, rank=self.tcfg.lora_rank)
+        """`step-N/`: the LoRA in the JAX package's format (`lora_weights.npz`,
+        `.json`) and in the reference trainer's (`lora_weights.pt`,
+        `lora_config.pt`), then the resumable state (`state.pt`, and
+        `meta.json`, written last, which marks the directory complete)."""
+        t = self.tcfg
+        path = os.path.join(os.path.abspath(t.save_dir), f"step-{self.global_step}")
+        lora_mod.save_lora(self.lora, f"{path}/lora_weights.npz", alpha=t.lora_alpha,
+                           rank=t.lora_rank)
+        save_reference_lora(self.lora, path, alpha=t.lora_alpha, rank=t.lora_rank)
+        save_checkpoint(t.save_dir, self.global_step, self._state())
+
+    # --- component staging (offload "component") ---------------------------
+    def _stage(self, *names: str) -> Dict[str, torch.nn.Module]:
+        """The modules with `names` on the device: the resident modules, or
+        (offload "component") staged copies, made on first use and kept
+        until `_evict`."""
+        if self.tcfg.offload == "none":
+            return {n: self.modules[n] for n in names if n in self.modules}
+        for n in names:
+            if n in self.modules and n not in self._staged:
+                if self._measure and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                stack = contextlib.ExitStack()
+                self._staged[n] = (stack, stack.enter_context(
+                    off.staged(self.modules[n], self.device)))
+                if self._measure and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._stage_s += time.perf_counter() - t0
+        return {n: self._staged[n][1] for n in names if n in self._staged}
+
+    def _evict(self, *names: str) -> None:
+        """Free the staged copies of `names` (all when none are named)."""
+        for n in names or list(self._staged):
+            entry = self._staged.pop(n, None)
+            if entry is not None:
+                entry[0].close()
 
     # --- one micro-step -----------------------------------------------------
     def _rope_pack(self, encoded):
@@ -153,13 +222,23 @@ class LoRATrainer:
                 self.tcfg.video_fps, self.device)
         return self._rope_cache[key]
 
+    _ENCODERS = ("text_encoder", "video_vae", "audio_vae")
+
     def _encode(self, batch):
-        return encode_batch(self.modules, self.cfg, batch,
-                            compute_dtype=self.tcfg.compute_dtype, device=self.device)
+        try:
+            return encode_batch(self._stage(*self._ENCODERS), self.cfg, batch,
+                                compute_dtype=self.tcfg.compute_dtype, device=self.device)
+        finally:
+            self._evict(*self._ENCODERS)
 
     def _grads(self, encoded, expert: int):
         t = self.tcfg
-        return lora_grads(self.lora, self.modules, self.cfg, self.tables, encoded,
+        tower = "video_dit" if expert == 0 else "video_dit_2"
+        if t.offload == "component":
+            # the other expert leaves first: the two are never staged together
+            self._evict("video_dit_2" if expert == 0 else "video_dit")
+        modules = self._stage(tower, "audio_dit", "bridge")
+        return lora_grads(self.lora, modules, self.cfg, self.tables, encoded,
                           self.generator, expert, lora_alpha=t.lora_alpha,
                           video_fps=t.video_fps, compute_dtype=t.compute_dtype,
                           remat=t.remat, attn_impl=t.attn_impl,
@@ -188,30 +267,51 @@ class LoRATrainer:
         `on_micro_step`, if given, is called after each micro-batch with a
         record of it: `expert`; `encode_s`, `loss_backward_s` and
         `optimizer_s` (0 when the micro-batch ends no optimizer step), each
-        timed with the device synchronised around it; `flash_fwd`,
+        timed with the device synchronised around it, and `stage_s`, the
+        seconds of that spent staging modules (offload "component"; the
+        other three exclude it); `flash_fwd`,
         `flash_bwd` and `flash_bwd_split`, the flash kernel launches of its
         loss and backward (forward, fused backward, split backward); its
         loss metrics as floats; and `grad_norm` when it ends a step. The
         synchronisation makes a measured run slower: pass it only to measure.
         """
-        measure = on_micro_step is not None
+        self._measure = on_micro_step is not None
+        try:
+            return self._train(data_iter, on_micro_step)
+        finally:
+            self._evict()
+            self._measure = False
+
+    def _train(self, data_iter, on_micro_step) -> int:
+        measure = self._measure
         t0 = time.time()
         accum = max(self.tcfg.grad_accum_steps, 1)
+        period = max(self.tcfg.expert_switch_interval, 1)
         grad_acc, micro = None, 0
         for batch in data_iter:
             if self.global_step >= self.tcfg.max_steps:
                 break
-            # the expert alternates per micro-batch, so with accumulation both
-            # experts collect grads within one window
-            expert = (self.global_step * accum + micro) % 2
+            if self.tcfg.offload == "component":
+                # one expert for whole optimizer steps, so a staging serves
+                # expert_switch_interval of them
+                expert = (self.global_step // period) % 2
+            else:
+                # per micro-batch: with accumulation both experts collect
+                # grads within one window
+                expert = (self.global_step * accum + micro) % 2
             if "video_dit_2" not in self.modules:
                 expert = 0
+            self._stage_s = 0.0
             encoded, encode_s = self._timed(measure, self._encode, batch)
+            encode_stage_s = self._stage_s
             fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
             split = flash_attention_bwd.split_launches
             (grads, metrics), grads_s = self._timed(measure, self._grads, encoded, expert)
-            record = {"expert": expert, "encode_s": encode_s, "loss_backward_s": grads_s,
-                      "optimizer_s": 0.0, "flash_fwd": flash_attention.launches - fwd,
+            stage_s = self._stage_s
+            record = {"expert": expert, "encode_s": encode_s - encode_stage_s,
+                      "loss_backward_s": grads_s - (stage_s - encode_stage_s),
+                      "stage_s": stage_s, "optimizer_s": 0.0,
+                      "flash_fwd": flash_attention.launches - fwd,
                       "flash_bwd": flash_attention_bwd.launches - bwd,
                       "flash_bwd_split": flash_attention_bwd.split_launches - split}
             if accum > 1:

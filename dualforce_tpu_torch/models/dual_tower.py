@@ -45,8 +45,10 @@ def forward_dual_tower(
     """params: optional {"video" | "audio" | "bridge": {name: tensor}}, tensors
     that stand in for the towers' and the bridge's own parameters of those
     names (named from the tower, `blocks.{i}.self_attn.q.weight`, and from
-    the bridge): the LoRA-merged weights of training. They are applied inside
-    each (rematerialised) layer, so a recompute sees them too."""
+    the bridge): the LoRA-merged weights of training. They are read inside
+    each (rematerialised) layer, so a recompute sees them too; a mapping that
+    computes each as it is read (`engine.lora.MergedWeights`) is computed
+    there, again in the recompute, and not kept between."""
     bcfg = bridge.cfg
     interact = set(bcfg.interaction_layers())
     vis_freqs = cross_rope[0] if cross_rope is not None else None

@@ -76,12 +76,14 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
 def call(module: nn.Module, params: Optional[Dict[str, torch.Tensor]], prefix: str,
          *args):
     """`module(*args)` with some parameters replaced: the entries of `params`
-    (a flat {name: tensor} dict, named from an enclosing module) whose names
-    start with `prefix`, prefix stripped, stand in for the module's own
-    parameters of those names for this call (`torch.func.functional_call`).
+    (a flat {name: tensor} mapping, named from an enclosing module) whose
+    names start with `prefix`, prefix stripped, stand in for the module's
+    own parameters of those names for this call (`torch.func.functional_call`).
     The LoRA-merged weights of training reach the layers this way, so the
-    base parameters stay as they are. No matching entry: a plain call."""
-    sub = ({k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+    base parameters stay as they are; only the matching entries are read
+    (`engine.lora.MergedWeights` computes each as it is read). No matching
+    entry: a plain call."""
+    sub = ({k[len(prefix):]: params[k] for k in params if k.startswith(prefix)}
            if params else None)
     if not sub:
         return module(*args)

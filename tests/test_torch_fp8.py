@@ -170,10 +170,12 @@ def test_fp8_pipeline_matches_jax(trees):
     np.testing.assert_allclose(res.audio, jres.audio, rtol=1e-4, atol=1e-4)
 
 
-def test_fp8_towers_quantize_and_trainer_refuses_them(trees):
+def test_fp8_towers_quantize_and_trainer_refuses_them(trees, tmp_path):
     """fp8 towers quantize to int8 from their fp8 weights (as the JAX
-    package's do) and serve; LoRA training on fp8-stored weights is not
-    ported and refuses them."""
+    package's do) and serve; the LoRA trainer, which refused fp8-stored
+    weights before LoRA training on them was ported, now takes them: its
+    factors are fp32, one pair per fp8-stored target (the training itself
+    is held in `tests/test_torch_train_offload.py`)."""
     from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
 
     cfg, _, _, fp8 = trees
@@ -183,5 +185,9 @@ def test_fp8_towers_quantize_and_trainer_refuses_them(trees):
     image = np.random.default_rng(1).uniform(-1, 1, (32, 32, 3)).astype(np.float32)
     res = pipe("a cat", image, seed=2, **dict(REQUEST, num_inference_steps=2))
     assert res.video.shape == (5, 32, 32, 3) and np.isfinite(res.audio).all()
-    with pytest.raises(NotImplementedError):
-        LoRATrainer(cfg, fp8, TrainerConfig(), device="cpu")
+    trainer = LoRATrainer(cfg, fp8, TrainerConfig(logger="none", save_dir=str(tmp_path)),
+                          device="cpu")
+    for name, tree in trainer.lora.items():
+        assert tree and all(fp8[name].get_parameter(w).dtype == torch.float8_e4m3fn
+                            and ab["a"].dtype == ab["b"].dtype == torch.float32
+                            for w, ab in tree.items())

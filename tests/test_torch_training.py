@@ -355,7 +355,7 @@ def test_lora_training_learns_one_batch(tiny):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny, tmp_path):
-    for kw in (dict(mode="full"), dict(offload="component"), dict(optimizer="AdamW8bit")):
+    for kw in (dict(mode="full"), dict(remat_save_attention=True)):
         with pytest.raises(NotImplementedError):
             _trainer(tiny, tmp_path / "x", **kw)
     with pytest.raises(NotImplementedError):
