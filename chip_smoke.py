@@ -179,7 +179,34 @@ Phases, each of which must pass:
    `cli.inference_single_lora.run` with the exported
    `step-3/lora_weights.pt`: 112 launches, a uint8 video of the right shape
    that differs from phase 17's base video (its relative L2 printed). The
-   checkpoint's directory is removed.
+   checkpoint stays for phase 20.
+20. serving over HTTP: phase 17's checkpoint through the port's server,
+   `cli.serve.build_server` with `examples/serve_360p.sh`'s settings
+   (`--weight_dtype fp8 --cfg_cache_interval 3 --max_batch 2`, plus
+   `--warmup 640x352x193x4`) and `ByteTokenizer`, on 127.0.0.1 at a free
+   port, the studio's proxy (`workflow/studio.py`) at another; requests
+   through the port's `VideoClient`, each with a PNG reference from seed-0
+   numpy noise: two of phase 5's geometry (4 steps, CFG 5) submitted
+   together must run as one backend call of 2; one submitted while they
+   run and cancelled must end `cancelled` and never reach the backend; one
+   whose reference bytes are no image must end `failed` with PIL's error;
+   one of 49 frames through the studio must show a non-decreasing progress
+   ending at 1.0; `POST /workflow/full` with no LLM provider must complete
+   on the offline first frame and list its artifacts. The flash kernel
+   must launch exactly 14 (193 frames) or 8 (49 frames) times per forward
+   pass, with 7 passes per request (`cfg_passes`: 4 positive, a negative
+   at each expert's first step and at step 3), per backend call, and
+   never for the cancelled or failed request; `peak_memory_mb` must equal
+   `torch.cuda.max_memory_allocated` / 1e6; every clip downloaded over
+   HTTP (the 49-frame one through the studio) must decode, and its file
+   be byte-equal, to the same group run again in process through
+   `pipe.generate` and saved with `save_video_with_audio`. Then the eval
+   CLI (`python -m dualforce_tpu_torch.cli.eval CLIP --first_frame REF`)
+   on a downloaded clip: its JSON's first-frame, temporal and audio
+   numbers must be finite. Prints the load, each request's queue wait,
+   `inference_time_s`, submit-to-download and download seconds and MB, and
+   each group's prepare, step and decode seconds. The checkpoint's
+   directory is removed.
 
 Every phase prints its wall time. The run sets
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the environment sets
@@ -2621,6 +2648,326 @@ def phase_train_cli(first, ckpt: str, root: str):
     return {"launches": launches, "serve": counts["exact"], "rel": rel}
 
 
+# phase 20: the port's server over HTTP, with examples/serve_360p.sh's settings (fp8 weights,
+# the CFG negative pass cached every 3 steps, same-geometry requests batched by 2) and a warmup
+# of the request's bucket. Per pass at the depth cut, 352x640x193 takes the flash kernel 14
+# times (2 shared layers x 6 attentions + 1 tail layer x 2), 352x640x49 8 times (its 103 audio
+# tokens take plain attention: 2 x 3 + 1 x 2); a group of B launches each at batch B
+SERVE_FLAGS = ["--weight_dtype", "fp8", "--cfg_cache_interval", "3", "--max_batch", "2",
+               "--warmup", "640x352x193x4"]
+SERVE_CACHE_INTERVAL = 3
+SERVE_SHORT_FRAMES = 49
+SERVE_CALLS = {193: 2 * 6 + 1 * 2, SERVE_SHORT_FRAMES: 2 * 3 + 1 * 2}
+# the workflow's LLM providers read these; unset, the full workflow runs its offline fallbacks
+PROVIDER_ENV = ("GEMINI_API_KEY", "DASHSCOPE_API_KEY", "DUALFORCE_LLM_API_BASE",
+                "DUALFORCE_LLM_API_KEY", "DUALFORCE_IMAGE_API_BASE", "DUALFORCE_IMAGE_API_KEY")
+
+
+def cfg_passes(steps: int, boundary: int, interval: int) -> int:
+    """Forward passes of a CFG request under `cfg_cache_interval` (the sampler's
+    rule in `diffusion/sampler._denoise`): a positive pass every step; a negative
+    one at each expert phase's first step (the cache is reset per phase) and at
+    every step i with i % interval == 0."""
+    neg = sum(i == start or i % interval == 0
+              for start, stop in ((0, boundary), (boundary, steps))
+              for i in range(start, stop))
+    return steps + neg
+
+
+def phase_serve_http(ckpt: str, root: str):
+    """Phase 20: phase 17's checkpoint served by the port's own server
+    (`cli.serve.build_server`) over HTTP on 127.0.0.1, with the studio's proxy
+    in front of one request, then the eval CLI on a downloaded clip."""
+    import dataclasses
+    import io
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dualforce_tpu_torch.cli import serve as serve_cli
+    from dualforce_tpu_torch.data.transforms import crop_and_resize, image_to_tensor
+    from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
+    from dualforce_tpu_torch.diffusion.sampler import build_plan
+    from dualforce_tpu_torch.ops import sage_attention as sa
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention
+    from dualforce_tpu_torch.serving.client import VideoClient
+    from dualforce_tpu_torch.serving.server import serve_in_thread
+    from dualforce_tpu_torch.utils.av_io import (ffmpeg_available, read_mjpeg_avi,
+                                                 save_video_with_audio)
+    from dualforce_tpu_torch.workflow.studio import Studio, parse_servers
+
+    t_phase = time.perf_counter()
+    for name in PROVIDER_ENV:
+        os.environ.pop(name, None)
+    out_dir = os.path.join(root, "serve_out")
+    args = serve_cli.parse_args(["--ckpt_path", ckpt, "--host", "127.0.0.1",
+                                 "--out_dir", out_dir] + SERVE_FLAGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = serve_cli.build_server(args, tokenizer=ByteTokenizer())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pipe = server.pipe
+    sched = FlowMatchPairScheduler(pipe.cfg.scheduler)
+    sched.set_timesteps(REQUEST["num_inference_steps"], shift=REQUEST["sigma_shift"])
+    boundary = build_plan(sched, pipe.cfg.boundary_ratio).boundary_step
+    passes = cfg_passes(REQUEST["num_inference_steps"], boundary, SERVE_CACHE_INTERVAL)
+    want_launches = {f: calls * passes for f, calls in SERVE_CALLS.items()}
+    log(f"[serve] build_server (checkpoint load in fp8, pipeline, warmup, server, UI) "
+        f"{load_s:.2f} s; boundary_step={boundary}: {passes} passes per request under "
+        f"cfg_cache_interval={SERVE_CACHE_INTERVAL}, so {want_launches[193]} flash launches "
+        f"per 193-frame group and {want_launches[SERVE_SHORT_FRAMES]} per "
+        f"{SERVE_SHORT_FRAMES}-frame one, whatever the group's size")
+
+    # the backend, watched: each group's tasks, launches, prepare / step / decode seconds
+    groups, started = [], threading.Event()
+    real = server.batch_backend
+
+    def spy(tasks, out, progress=None):
+        rec = {"ids": [t.task_id for t in tasks], "start": time.time(), "steps": []}
+        groups.append(rec)
+        started.set()
+        mark = [time.perf_counter()]
+        prepare = pipe.prepare_state
+
+        def timed_prepare(*a, **kw):
+            state = prepare(*a, **kw)
+            torch.cuda.synchronize(pipe.device)
+            now = time.perf_counter()
+            rec["prepare_s"], mark[0] = now - mark[0], now
+            return state
+
+        def on_progress(frac):
+            torch.cuda.synchronize(pipe.device)
+            now = time.perf_counter()
+            rec["steps"].append(now - mark[0])
+            mark[0] = now
+            progress(frac)
+
+        before = (flash_attention.launches, flash_attention.cap_launches,
+                  sa.sage_attention.launches)
+        pipe.prepare_state = timed_prepare
+        try:
+            return real(tasks, out, progress=on_progress)
+        finally:
+            del pipe.prepare_state
+            rec["rest_s"] = time.perf_counter() - mark[0]
+            rec["launches"] = flash_attention.launches - before[0]
+            rec["other"] = (flash_attention.cap_launches - before[1],
+                            sa.sage_attention.launches - before[2])
+            rec["peak_mb"] = torch.cuda.max_memory_allocated(pipe.device) / 1e6
+
+    server.batch_backend = spy
+    rng = np.random.default_rng(0)
+    h, w = REQUEST["height"], REQUEST["width"]
+
+    def png():
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "PNG")
+        return buf.getvalue()
+
+    negative = "blurry, low quality, distorted audio"
+    common = dict(size=f"{w}x{h}", fps=REQUEST["video_fps"],
+                  guidance_scale=REQUEST["cfg_scale"],
+                  num_inference_steps=REQUEST["num_inference_steps"], negative_prompt=negative)
+    requests = {}
+
+    def submit(client, name, prompt, seed, image, frames):
+        requests[name] = dict(prompt=prompt, seed=seed, image=image, frames=frames,
+                              t0=time.perf_counter(), negative=negative)
+        task = client.submit_video_task(prompt, image, num_frames=frames, seed=seed, **common)
+        requests[name]["id"] = task.task_id
+        return task
+
+    def download(client, name, task):
+        if task.status != "completed":
+            raise AssertionError(f"request {name} ended {task.status}: {task.error}")
+        ext = os.path.splitext(task.file_path)[1]
+        dest = os.path.join(root, "serve_downloads", f"{name}{ext}")
+        t0 = time.perf_counter()
+        client.download(dataclasses.replace(task, file_path=None), dest)     # over HTTP
+        requests[name].update(clip=dest, download_s=time.perf_counter() - t0,
+                              done_s=time.perf_counter() - requests[name]["t0"], task=task)
+
+    base, stop_server = serve_in_thread(server.app)
+    studio_base, stop_studio = serve_in_thread(
+        Studio(parse_servers(f"mova-360p={base}")).app)
+    client = VideoClient(base, timeout=120)
+    via_studio = VideoClient(studio_base, timeout=120)
+    try:
+        flash_attention.launches = flash_attention.cap_launches = 0   # the count starts here
+        sa.sage_attention.launches = 0
+        # 1. two requests of one geometry, submitted together: one group of 2 (the batching
+        # window is widened while they arrive; it closes as soon as the second is in)
+        window, server.batch_window_s = server.batch_window_s, 30.0
+        a = submit(client, "a", "a cat playing the piano in a sunlit room", 0, png(), 193)
+        b = submit(client, "b", "ocean waves at dusk, gulls calling over the surf", 1, png(),
+                   193)
+        if not started.wait(120):
+            raise AssertionError("the worker never started the first group")
+        server.batch_window_s = window
+        # 3. a request cancelled while the group runs: still queued, so cancelled outright
+        c = submit(client, "c", "a request cancelled in the queue", 2, png(), 193)
+        cancel = client.cancel(c.task_id)
+        log(f"[serve] cancel of a queued request answered {cancel.status!r}")
+        for name, task in (("a", a), ("b", b)):
+            download(client, name, client.wait_for_completion(task.task_id, 0.1, 900))
+        # 4. reference bytes that are no image: failed with PIL's error
+        d = submit(client, "d", "a request whose reference is not an image", 3,
+                   b"these bytes are not an image", 193)
+        d = client.wait_for_completion(d.task_id, 0.1, 300)
+        # 2. a 49-frame request through the studio's proxy, its progress polled there
+        e = submit(via_studio, "e", "a violinist on a quiet street at night", 4, png(),
+                   SERVE_SHORT_FRAMES)
+        seen = []
+        deadline = time.time() + 600
+        while time.time() < deadline:
+            st = via_studio.get_task(e.task_id)
+            seen.append(st.progress)
+            if st.status in ("completed", "failed", "cancelled"):
+                break
+            time.sleep(0.05)
+        download(via_studio, "e", st)
+        # 5. the full workflow with no provider: the offline first frame, the idea as prompt
+        body = json.dumps({"idea": "a drummer on a rooftop at sunset", "size": f"{w}x{h}",
+                           "num_frames": SERVE_SHORT_FRAMES,
+                           "num_inference_steps": REQUEST["num_inference_steps"],
+                           "seed": 5}).encode()
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/workflow/full", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            full = json.load(r)
+        with urllib.request.urlopen(f"{base}/workflow/tasks/{full['task_id']}/first_frame.png",
+                                    timeout=60) as r:
+            frame_png = r.read()
+        requests["f"] = dict(prompt=full["rewritten_prompt"], seed=5, image=frame_png,
+                             frames=SERVE_SHORT_FRAMES, t0=t0, negative="",
+                             id=full["task_id"])
+        download(client, "f", client.wait_for_completion(full["task_id"], 0.1, 600))
+        with urllib.request.urlopen(f"{base}/workflow/tasks/{full['task_id']}",
+                                    timeout=60) as r:
+            artifacts = json.load(r)
+        launches = flash_attention.launches                   # ... and is read here
+        other = (flash_attention.cap_launches, sa.sage_attention.launches)
+        final = {n: client.get_task(r["id"]) for n, r in requests.items()}
+    finally:
+        stop_studio()
+        stop_server()
+    serve_wall = time.perf_counter() - t_phase
+
+    # statuses, groups, launches, memory
+    statuses = {n: t.status for n, t in final.items()}
+    want_status = dict(a="completed", b="completed", c="cancelled", d="failed", e="completed",
+                       f="completed")
+    log(f"[serve] statuses {statuses}; d's error: {final['d'].error!r}")
+    if statuses != want_status or cancel.status != "cancelled":
+        raise AssertionError(f"statuses {statuses} (cancel answered {cancel.status!r}), "
+                             f"expected {want_status}: " + "; ".join(
+                                 f"{n}: {t.error}" for n, t in final.items() if t.error))
+    if "cannot identify image file" not in (final["d"].error or ""):
+        raise AssertionError(f"the failed request's error is not PIL's: {final['d'].error!r}")
+    ids = {r["id"]: n for n, r in requests.items()}
+    by_group = [[ids[i] for i in g["ids"]] for g in groups]
+    want_groups = [["a", "b"], ["d"], ["e"], ["f"]]
+    want_group_launches = [want_launches[193], 0, want_launches[SERVE_SHORT_FRAMES],
+                           want_launches[SERVE_SHORT_FRAMES]]
+    log(f"[serve] backend calls {by_group}; flash launches per call "
+        f"{[g['launches'] for g in groups]} (predicted {want_group_launches}); phase total "
+        f"{launches}; cap and sage launches {other}")
+    if by_group != want_groups:
+        raise AssertionError(f"backend calls {by_group}, expected {want_groups}")
+    if [g["launches"] for g in groups] != want_group_launches or \
+            launches != sum(want_group_launches) or other != (0, 0) or \
+            any(g["other"] != (0, 0) for g in groups):
+        raise AssertionError("serve launches differ from the prediction")
+    for n, t in final.items():
+        if t.status != "completed":
+            continue
+        g = next(g for g in groups if t.task_id in g["ids"])
+        if t.peak_memory_mb != g["peak_mb"]:
+            raise AssertionError(f"{n}: peak_memory_mb {t.peak_memory_mb}, "
+                                 f"max_memory_allocated / 1e6 {g['peak_mb']}")
+        if t.progress != 1.0 or t.file_path.endswith(".avi") == ffmpeg_available():
+            raise AssertionError(f"{n}: progress {t.progress}, file {t.file_path}")
+    if seen != sorted(seen) or seen[-1] != 1.0:
+        raise AssertionError(f"the studio-polled progress {seen} is not monotonic to 1.0")
+    if {"first_frame.png", "idea.txt", "elements.txt", "prompt.txt"} - set(
+            artifacts["artifacts"]) or artifacts.get("status") != "completed":
+        raise AssertionError(f"full-workflow artifacts {artifacts}")
+    for n in ("a", "b", "e", "f"):
+        r, t = requests[n], final[n]
+        g = next(g for g in groups if t.task_id in g["ids"])
+        log(f"[serve] request {n} ({r['frames']} frames): queue wait "
+            f"{g['start'] - t.raw['created_at']:.3f} s, inference_time_s {t.inference_time_s:.3f}, "
+            f"submit to download {r['done_s']:.3f} s; download "
+            f"{os.path.getsize(r['clip']) / 1e6:.2f} MB in {r['download_s']:.3f} s; "
+            f"peak_memory_mb {t.peak_memory_mb:.1f}")
+    for g, names in zip(groups, by_group):
+        if g["steps"]:
+            log(f"[serve] group {names}: prepare {g['prepare_s']:.3f} s, steps "
+                f"{', '.join(f'{s:.3f}' for s in g['steps'])} s, decode and write "
+                f"{g['rest_s']:.3f} s")
+    log(f"[serve] studio-polled progress of e: {len(seen)} polls, values "
+        f"{sorted(set(seen))}; full workflow's prompt {full['rewritten_prompt']!r}, "
+        f"artifacts {sorted(artifacts['artifacts'])}")
+
+    # every downloaded clip against its group run again in process, saved the same way
+    for names in (["a", "b"], ["e"], ["f"]):
+        rs = [requests[n] for n in names]
+        images = [image_to_tensor(crop_and_resize(Image.open(io.BytesIO(r["image"]))
+                                                  .convert("RGB"), h, w)) for r in rs]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            results = pipe.generate(
+                [r["prompt"] for r in rs], images, negative_prompts=[r["negative"] for r in rs],
+                seeds=[r["seed"] for r in rs], height=h, width=w, num_frames=rs[0]["frames"],
+                video_fps=REQUEST["video_fps"],
+                num_inference_steps=REQUEST["num_inference_steps"],
+                cfg_scale=REQUEST["cfg_scale"], cfg_scale_bridge=0.0,
+                cfg_cache_interval=SERVE_CACHE_INTERVAL)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        for n, r, res in zip(names, rs, results):
+            _check_result(res, dict(REQUEST, num_frames=r["frames"]))
+            path = save_video_with_audio(os.path.join(root, "serve_in_process", f"{n}.mp4"),
+                                         res.video, res.audio, fps=res.fps,
+                                         sample_rate=res.sample_rate)
+            got, want = read_mjpeg_avi(r["clip"]), read_mjpeg_avi(path)
+            with open(r["clip"], "rb") as f, open(path, "rb") as g:
+                same_bytes = f.read() == g.read()
+            same = (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+                    and got[2:] == want[2:])
+            log(f"[serve] {n}: the downloaded clip decodes to the in-process group's "
+                f"({gen_s:.2f} s): {same}; files byte-equal: {same_bytes}")
+            if not (same and same_bytes):
+                raise AssertionError(f"{n}: the served clip differs from the in-process one")
+
+    # the eval CLI on a downloaded clip, against its reference frame
+    ref = os.path.join(root, "serve_downloads", "a_ref.png")
+    with open(ref, "wb") as f:
+        f.write(requests["a"]["image"])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dualforce_tpu_torch.cli.eval",
+                           requests["a"]["clip"], "--first_frame", ref],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the eval CLI failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    numbers = {f"{k}.{m}": v for k in ("first_frame", "temporal", "audio")
+               for m, v in report[k].items()}
+    log(f"[serve] eval CLI on a's clip in {time.perf_counter() - t0:.2f} s: {numbers}")
+    if not all(math.isfinite(v) for v in numbers.values()):
+        raise AssertionError(f"the eval CLI's numbers are not finite: {numbers}")
+    log(f"[serve] from build_server to the last download {serve_wall:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     # Freed blocks of any size serve later requests of any size: without it the
     # 720p training phase loses some 11 GiB of the card to fragmentation and
@@ -2679,6 +3026,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_cli = timed_phase("traincli", phase_train_cli, first, ckpt["ckpt"], ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_http = timed_phase("serve", phase_serve_http, ckpt["ckpt"], ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     lr_l, cli_l = lowres["launches"], train_cli["launches"]
@@ -2695,7 +3045,7 @@ def main() -> int:
         "launches": (serve_launches + train["fwd"] + train720["fwd"] + full["launches"]
                      + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
                      + options["cfg_cache_interval_2"] + ckpt["launches"] + lr_l["fwd"]
-                     + cli_l["fwd"] + train_cli["serve"]),
+                     + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -2708,7 +3058,7 @@ def main() -> int:
                              "serve_cli_checkpoint": ckpt["launches"],
                              "train_low_resource_full_depth": lr_l["fwd"],
                              "train_cli": cli_l["fwd"], "serve_cli_trained_lora":
-                             train_cli["serve"]},
+                             train_cli["serve"], "serve_http": serve_http["launches"]},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),

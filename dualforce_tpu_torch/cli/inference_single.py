@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import argparse
 
+# the attention routes of `MOVAPipeline(attn_impl=...)` (`ops.attention.ATTN_IMPLS`)
+ATTN_TYPES = ["auto", "fast", "sage", "pallas", "ref"]
+
 
 def add_common_args(p: argparse.ArgumentParser, output: str, quantize) -> None:
     """The flags both inference CLIs share."""
@@ -40,8 +43,7 @@ def add_common_args(p: argparse.ArgumentParser, output: str, quantize) -> None:
                    help="sequence parallelism: not ported yet (ROADMAP A7), 1 only")
     p.add_argument("--fsdp_size", type=int, default=1,
                    help="weight sharding: not ported yet (ROADMAP A7), 1 only")
-    p.add_argument("--attn_type", type=str, default="auto",
-                   choices=["auto", "fast", "sage", "pallas", "ref"],
+    p.add_argument("--attn_type", type=str, default="auto", choices=ATTN_TYPES,
                    help="attention route (`MOVAPipeline(attn_impl=...)`)")
     p.add_argument("--offload", type=str, default="none",
                    choices=["none", "cpu", "group", "component"],

@@ -386,6 +386,28 @@ class MOVAPipeline:
         audio = dac_vae.decode(modules["audio_vae"], audio_latents)
         return video, audio[0, 0].cpu().numpy()
 
+    # --- serving warmup -------------------------------------------------------
+    def warmup(self, height: int = 352, width: int = 640, num_frames: int = 193,
+               num_inference_steps: int = 50, sigma_shift: float = 5.0,
+               cfg_scale: float = 5.0, video_fps: float = 24.0,
+               batch_size: int = 1, cfg_batch: bool = False,
+               cfg_cache_interval: int = 1,
+               cfg_scale_bridge: float = 0.0) -> None:
+        """Prepare a geometry bucket for serving WITHOUT running it (the
+        counterpart of the JAX package's AOT compile of the denoise program).
+        The port compiles no program per geometry: what a first request
+        would pay is loading the CUDA kernels of the attention route
+        (`ops/_build.py`), built with nvcc where the checkout holds no build
+        yet, and that is done here. The geometry arguments keep the JAX
+        signature; the kernels take any shape. Nothing runs on the device,
+        and on the CPU (plain versions) or for "ref" and callable routes
+        there is nothing to load."""
+        if self.device.type != "cuda" or callable(self.attn_impl) or self.attn_impl == "ref":
+            return
+        from dualforce_tpu_torch.ops import _build
+
+        _build.load("sage_fwd" if self.attn_impl == "sage" else "flash_fwd")
+
     def __call__(self, prompt: str, image: np.ndarray, negative_prompt: str = "",
                  seed: int = 42, **kwargs) -> GenerationResult:
         """One request; keyword arguments as for `prepare_state`."""
