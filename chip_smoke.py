@@ -205,8 +205,31 @@ Phases, each of which must pass:
    on a downloaded clip: its JSON's first-frame, temporal and audio
    numbers must be finite. Prints the load, each request's queue wait,
    `inference_time_s`, submit-to-download and download seconds and MB, and
-   each group's prepare, step and decode seconds. The checkpoint's
-   directory is removed.
+   each group's prepare, step and decode seconds.
+21. full fine-tuning: `cli.train.run` with `configs/training/lora_360p.py`
+   from phase 17's checkpoint, `--set mesh={} trainer.mode=full` (video_dit,
+   video_dit_2, audio_dit and the bridge train in bf16 with AdamW; lr 1e-4
+   after one warmup step, constant) on phase 19's clips for 4 steps
+   (experts 0, 1, 0, 1): finite losses and norms; per micro-step 16 forward,
+   8 fused backward and 8 preprocess launches; the expert a step does not
+   run bit-equal across it, its AdamW moments too (zeros before it first
+   trains); every trained module differs from the checkpoint afterwards,
+   the encoders do not. The step's per-module export loads back bit-equal
+   through `load_module`; with phase 17's encoders linked beside it, it
+   serves one 49-frame request through `cli.inference_single` (64 launches)
+   whose clip is bit-equal to the same request in process on the trainer's
+   modules. Then the first two steps again with
+   `trainer.remat_save_attention=true`: the same losses bit for bit (the
+   first step's lr is 0, so both see the checkpoint's weights), grad norms
+   within 1e-2 relative (B2's dQ sums in a varying order), and 8 forward,
+   8 fused backward and 8 preprocess launches per micro-step. Last, each of
+   the sixteen registry optimizers takes two steps on 8.5 MB of fp32 and
+   bf16 parameters on the card and on CPU copies: finite, the updates'
+   relative L2 gap within 5e-3 (fp32) and 5e-2 (bf16). Prints per step the
+   encode, loss+backward and optimizer seconds, the peaks with and without
+   remat_save_attention, the export's and the resume state's GB and
+   seconds, each line beside the card's name and power limit. The
+   checkpoint's directory is removed.
 
 Every phase prints its wall time. The run sets
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the environment sets
@@ -2968,6 +2991,436 @@ def phase_serve_http(ckpt: str, root: str):
     return {"launches": launches}
 
 
+# phase 21: full fine-tuning through the training CLI (configs/training/lora_360p.py on one
+# card, `trainer.mode=full`: video_dit, video_dit_2, audio_dit and the bridge train, AdamW),
+# the per-module export served back through the inference CLI, remat_save_attention, and the
+# optimizer registry on the card. Per micro-step (352x640x49) the 8 flash calls of phase 8;
+# full remat runs each forward twice, remat_save_attention once
+FULL_FT_STEPS = 4
+FULL_FT_SAVE_STEPS = 2
+FULL_FT_SETS = ["mesh={}", "trainer.mode=full", "trainer.warmup_steps=1",
+                "trainer.lr_schedule=constant", "trainer.logger=jsonl",
+                "trainer.log_interval=1", "trainer.save_interval=1000", "data.num_workers=1"]
+FULL_FT_LAUNCHES = {False: (2 * TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS),
+                    True: (TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS)}
+# B2's dQ sums over key tiles in an order that varies between runs, so two runs' grads
+# differ in their last bits: the global grad norms within the first relative gap, each
+# parameter's gradient norm within the second (the largest gaps read on an H100: global
+# 2.3e-6, per parameter 3.1e-4)
+FULL_FT_NORM_REL_TOL = 1e-5
+FULL_FT_LEAF_REL_TOL = 1e-3
+# one AdamW step from fresh moments on a repeated batch (timestep and noise pinned) of
+# the expert step 4 trained, at the run's lr and below it: the loss must fall at each lr
+# below the run's (at the run's lr, Adam's first step moves every bf16 weight by ~lr at
+# once and overshoots)
+FULL_FT_PROBE_LRS = (1e-4, 1e-5, 1e-6)
+LORA_360P_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                "training", "lora_360p.py")
+# the registry on the card against CPU copies: the relative L2 gap between the two
+# updates (parameter after two steps minus before), fp32 and bf16 parameters. The
+# gradients (1e-2 a value, clipped to global norm 1 at both steps) and each family's lr
+# make every family's bf16 update span at least REGISTRY_MIN_ULPS bf16 steps of the
+# parameter (median; 8-60), so the bf16 gap measures arithmetic, not rounding. The
+# largest gaps read on an H100: fp32 3.9e-7; bf16 1.05e-2 (Adadelta: PyTorch's CPU
+# kernels round the scalar of `bf16 tensor + eps` to bf16 before adding, its CUDA
+# kernels add it in fp32), 3.0e-3 (Adafactor, RMSprop, likewise), the rest <= 5.1e-4
+REGISTRY_REL_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+REGISTRY_PARAMS = [("float32", (1024, 1024)), ("bfloat16", (2048, 1024)),
+                   ("float32", (4096,)), ("bfloat16", (136, 130))]
+REGISTRY_LR = {"SGD": 1.0, "RAdam": 1.0, "Adagrad": 0.3, "Adadelta": 1.0, "Novograd": 1.0,
+               "LAMB": 3e-2, "Adafactor": 3e-2}
+REGISTRY_DEFAULT_LR = 1e-3
+REGISTRY_MIN_ULPS = 4
+
+
+def _patch(obj, name: str, make):
+    """Replace obj.name by make(original); returns the restore function."""
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    return lambda: setattr(obj, name, real)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def _train_full_ft(argv, held=None):
+    """`cli.train.run(argv)` with each micro-step's record kept (the trainer's
+    `on_micro_step`) with `leaf_norms`, each parameter's gradient norm, the
+    save timed and, with `held`, the expert each step holds checked bit-equal
+    across it, its AdamW moments too (the checks' seconds are taken out of
+    `optimizer_s`). Returns (trainer, records, {"export_s", "state_s"}, peak
+    GiB, the last micro-step's encoded batch)."""
+    import torch
+
+    from dualforce_tpu_torch.cli import train as train_cli
+    from dualforce_tpu_torch.engine import trainer as trainer_mod
+
+    records, saves, checks, encoded = [], {}, [], [None]
+    Trainer = trainer_mod.LoRATrainer
+
+    def train(real):
+        return lambda self, data, on_micro_step=None: real(self, data, records.append)
+
+    def encode(real):
+        def run(self, batch):
+            encoded[0] = real(self, batch)
+            return encoded[0]
+        return run
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def apply(real):
+        def run(self, grads, frozen=None):
+            t0 = synced()
+            norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                                 for g in grads]).cpu()
+            if held is not None:
+                params = [p for p, f in zip(self.optimizer.params, frozen or []) if f]
+                state = self.optimizer.opt.state
+                before = [p.clone() for p in params]
+                moments = [{k: v.clone() for k, v in state[p].items() if k != "step"}
+                           for p in params]
+            t1 = synced()
+            out = real(self, grads, frozen)
+            t2 = synced()
+            if held is not None:
+                same = all(torch.equal(p, b) for p, b in zip(params, before))
+                kept = all(torch.equal(state[p][k], v)
+                           for p, m in zip(params, moments) for k, v in m.items())
+                # a parameter held before it ever trained gets optax's zero moments
+                zero = all(not state[p]["exp_avg"].any() and not state[p]["exp_avg_sq"].any()
+                           for p, m in zip(params, moments) if not m)
+                held.append({"params": len(params), "equal": same and kept and zero})
+            checks.append((norms, t1 - t0 + synced() - t2))
+            return out
+        return run
+
+    def timed(key, real):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            saves[key] = time.perf_counter() - t0
+            return out
+        return run
+
+    restores = [_patch(Trainer, "train", train), _patch(Trainer, "_apply", apply),
+                _patch(Trainer, "_encode", encode),
+                _patch(trainer_mod.lc, "export_trained_modules",
+                       lambda real: timed("export_s", real)),
+                _patch(trainer_mod, "save_checkpoint", lambda real: timed("state_s", real))]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = train_cli.run(argv, tokenizer=ByteTokenizer())
+    finally:
+        for restore in restores:
+            restore()
+    for record, (norms, check_s) in zip(records, checks):
+        record["leaf_norms"] = norms
+        record["optimizer_s"] -= check_s
+    return trainer, records, saves, torch.cuda.max_memory_allocated() / 2**30, encoded[0]
+
+
+def _leaf_gap(a, b) -> float:
+    """The largest relative gap between two runs' per-parameter gradient norms
+    (a parameter whose gradient is zero in both counts 0)."""
+    import torch
+
+    top = torch.maximum(a, b)
+    return float(torch.where(top > 0, (a - b).abs() / top.clamp_min(1e-30), 0.0).max())
+
+
+def _repeat_batch_losses(trainer, encoded, expert: int):
+    """[(lr, loss before, loss after)]: one AdamW step from fresh moments (the
+    trainer's weight decay and clipping, constant lr) on `encoded` with its
+    timestep and noise pinned, for each of FULL_FT_PROBE_LRS; the step trains
+    the expert, audio_dit and the bridge, whose weights are put back after
+    each lr."""
+    import torch
+
+    from dualforce_tpu_torch.diffusion import training as ttr
+    from dualforce_tpu_torch.engine.optim import AdamW
+
+    t = trainer.tcfg
+    tower = "video_dit" if expert == 0 else "video_dit_2"
+    trainable = {m: trainer.trainable[m] for m in (tower, "audio_dit", "bridge")}
+    params = ttr.trainable_parameters(trainable)
+    saved = [p.detach().clone() for p in params]
+    gen = torch.Generator().manual_seed(21)
+    tid = ttr.sample_timestep_id(gen, trainer.tables, expert, trainer.timestep_config)
+    noise = tuple(torch.randn(encoded[k].shape, generator=gen)
+                  for k in ("video_latents", "audio_latents"))
+    kwargs = dict(video_fps=t.video_fps, compute_dtype=t.compute_dtype, remat=t.remat,
+                  attn_impl=t.attn_impl, rope_pack=trainer._rope_pack(encoded),
+                  timestep_config=trainer.timestep_config, noise_override=noise,
+                  timestep_id=tid, device=trainer.device)
+    out = []
+    for lr in FULL_FT_PROBE_LRS:
+        opt = AdamW(params, lr=lr, betas=t.betas, weight_decay=t.weight_decay,
+                    max_grad_norm=t.max_grad_norm)
+        before = ttr.full_ft_step(trainable, opt, trainer.modules, trainer.cfg,
+                                  trainer.tables, encoded, None, expert, **kwargs)["loss"]
+        del opt
+        with torch.no_grad():
+            after, _ = ttr.training_loss(None, trainer.modules, trainer.cfg, trainer.tables,
+                                         encoded, None, expert,
+                                         full_finetune_params=trainable, **kwargs)
+            for p, x in zip(params, saved):
+                p.copy_(x)
+        out.append((lr, float(before), float(after)))
+    return out
+
+
+def _request_args(cli, ckpt: str, first, frames: int):
+    return cli.parse_args(
+        ["--ckpt_path", ckpt, "--prompt", first["prompt"], "--negative_prompt",
+         first["negative"], "--seed", str(first["seed"]), "--ref_path",
+         "unused (first frame given)", "--height", str(REQUEST["height"]), "--width",
+         str(REQUEST["width"]), "--num_frames", str(frames), "--fps",
+         str(REQUEST["video_fps"]), "--num_inference_steps",
+         str(REQUEST["num_inference_steps"]), "--cfg_scale", str(REQUEST["cfg_scale"]),
+         "--sigma_shift", str(REQUEST["sigma_shift"])])
+
+
+def _registry_on_card(tag: str):
+    """Each registry optimizer, two steps on the card and on CPU copies of the
+    same parameters and gradients; returns {name: {dtype: worst relative gap}}."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.engine import optim
+
+    rng = np.random.default_rng(21)
+    init = [(dt, rng.standard_normal(shape).astype(np.float32) * 0.02)
+            for dt, shape in REGISTRY_PARAMS]
+    grads = [[rng.standard_normal(x.shape).astype(np.float32) * 1e-2 for _, x in init]
+             for _ in range(2)]
+    n_bytes = sum(x.size * (4 if dt == "float32" else 2) for dt, x in init)
+    worst, spans = {}, {}
+    for name in sorted(optim.OPTIMIZERS):
+        ends = {}
+        for device in ("cuda", "cpu"):
+            params = [torch.tensor(x, device=device, dtype=getattr(torch, dt))
+                      for dt, x in init]
+            kwargs = dict(lr=REGISTRY_LR.get(name, REGISTRY_DEFAULT_LR), betas=(0.9, 0.999),
+                          weight_decay=1e-2, max_grad_norm=1.0)
+            try:
+                opt = optim.build_optimizer(name, params, **kwargs)
+            except TypeError:
+                kwargs.pop("betas")
+                opt = optim.build_optimizer(name, params, **kwargs)
+            for step in grads:
+                opt.step([torch.from_numpy(g).to(device=device, dtype=p.dtype)
+                          for g, p in zip(step, params)])
+            ends[device] = [p.float().cpu() for p in opt.params]
+        gaps = {}
+        for (dt, x), got, want in zip(init, ends["cuda"], ends["cpu"]):
+            base = torch.from_numpy(x).to(getattr(torch, dt)).float()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: non-finite parameters on the card")
+            if dt == "bfloat16":
+                # the update in bf16 steps of the parameter (2^(exponent - 7))
+                step = torch.exp2(torch.floor(torch.log2(base.abs().clamp_min(1e-30))) - 7)
+                span = float(((want - base).abs() / step).median())
+                spans[name] = min(span, spans.get(name, span))
+                if span < REGISTRY_MIN_ULPS:
+                    raise AssertionError(f"{name} {tuple(x.shape)}: the bf16 update spans "
+                                         f"{span} steps, fewer than {REGISTRY_MIN_ULPS}")
+            gap = rel_err(got - base, want - base)
+            gaps[dt] = max(gap, gaps.get(dt, 0.0))
+            if gap > REGISTRY_REL_TOL[dt]:
+                raise AssertionError(f"{name} {dt} {tuple(x.shape)}: the card's update is "
+                                     f"{gap:.3e} from the CPU's (limit {REGISTRY_REL_TOL[dt]})")
+        worst[name] = gaps
+    log(f"[fullft] the sixteen registry optimizers, two steps each on {n_bytes / 1e6:.1f} MB "
+        f"of fp32 and bf16 parameters on the card against CPU copies: relative L2 gap of "
+        f"the updates, fp32 / bf16 (lr; median bf16 steps the update spans): " + ", ".join(
+            f"{k} {v['float32']:.2e} / {v['bfloat16']:.2e} "
+            f"({REGISTRY_LR.get(k, REGISTRY_DEFAULT_LR):g}; {spans[k]:g})"
+            for k, v in worst.items())
+        + f" (limits {REGISTRY_REL_TOL}); {tag}")
+    return worst
+
+
+def phase_full_ft(first, ckpt: str, root: str, smi: str):
+    """Phase 21: full fine-tuning of the four diffusion modules through the
+    training CLI from phase 17's checkpoint, the export served back, the
+    remat_save_attention run, and the registry on the card."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.cli import inference_single as cli
+    from dualforce_tpu_torch.convert import load_checkpoint as lc
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+
+    tag = f"card: {smi}"
+    meta = _write_clips(os.path.join(root, "clips"))
+    base = [LORA_360P_RECIPE, "--set", f"pipeline.ckpt_path={ckpt}",
+            f"data.metadata_path={meta}"] + FULL_FT_SETS
+
+    # (a) four steps, experts 0, 1, 0, 1; the held expert checked at each
+    save_dir = os.path.join(root, "full_ft")
+    held = []
+    trainer, steps, saves, peak, last_batch = _train_full_ft(
+        base + [f"trainer.save_dir={save_dir}", f"trainer.max_steps={FULL_FT_STEPS}"], held)
+    cfg = trainer.cfg
+    n_train = sum(p.numel() for m in trainer.trainable.values() for p in m.parameters())
+    for i, st in enumerate(steps):
+        log(f"[fullft] step {i + 1}: expert {st['expert']} loss {st['loss']:.5f} grad_norm "
+            f"{st['grad_norm']:.5f}; encode {st['encode_s']:.3f} s, loss+backward "
+            f"{st['loss_backward_s']:.3f} s, optimizer {st['optimizer_s']:.3f} s; launches "
+            f"fwd {st['flash_fwd']} bwd {st['flash_bwd']} preprocess "
+            f"{st['flash_bwd_preprocess']}; {tag}")
+    step_dir = os.path.join(save_dir, f"step-{FULL_FT_STEPS}")
+    export_gb = sum(_dir_bytes(os.path.join(step_dir, lc.MODULES[n][0]))
+                    for n in trainer.trainable) / 1e9
+    state_gb = os.path.getsize(os.path.join(step_dir, "state.pt")) / 1e9
+    log(f"[fullft] full fine-tuning of {sorted(trainer.trainable)} ({n_train / 1e9:.3f} B "
+        f"parameters, bf16, AdamW): peak {peak:.2f} GiB without remat_save_attention; "
+        f"export {export_gb:.3f} GB in {saves['export_s']:.2f} s; resume state (state.pt: "
+        f"optimizer and generator; the weights are the export) {state_gb:.3f} GB in "
+        f"{saves['state_s']:.2f} s; {tag}")
+    if trainer.global_step != FULL_FT_STEPS or [s["expert"] for s in steps] != [0, 1, 0, 1]:
+        raise AssertionError(f"step {trainer.global_step}, experts "
+                             f"{[s['expert'] for s in steps]}")
+    for st in steps:
+        if not all(math.isfinite(st[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"non-finite metrics {st}")
+        got = (st["flash_fwd"], st["flash_bwd"], st["flash_bwd_preprocess"])
+        if got != FULL_FT_LAUNCHES[False] or st["flash_bwd_split"]:
+            raise AssertionError(f"launches per micro-step {got}, split "
+                                 f"{st['flash_bwd_split']}; expected {FULL_FT_LAUNCHES[False]}")
+    if len(held) != FULL_FT_STEPS or not all(h["equal"] and h["params"] for h in held):
+        raise AssertionError(f"the held expert moved: {held}")
+    changed = {}
+    for name in list(trainer.trainable) + list(trainer._ENCODERS):
+        ref = lc.load_module(ckpt, name, cfg, dtype=torch.bfloat16, device="cuda")
+        changed[name] = any(not torch.equal(p, q) for p, q in
+                            zip(trainer.modules[name].parameters(), ref.parameters()))
+        del ref
+    log(f"[fullft] held expert bit-equal across each step, AdamW moments too: "
+        f"{[h['params'] for h in held]} tensors; differs from the checkpoint: {changed}")
+    if not all(changed[n] for n in trainer.trainable) or any(
+            changed[n] for n in trainer._ENCODERS):
+        raise AssertionError(f"trained modules must differ and encoders not: {changed}")
+
+    # (b) the export loads back bit-equal and serves as a checkpoint
+    for name, module in trainer.trainable.items():
+        back = lc.load_module(step_dir, name, cfg, dtype=torch.bfloat16, device="cuda")
+        if not all(torch.equal(p, q) for p, q in zip(back.parameters(), module.parameters())):
+            raise AssertionError(f"the exported {name} differs from the trainer's")
+        del back
+    served = os.path.join(root, "full_ft_served")
+    os.makedirs(served)
+    for name in lc.module_names(ckpt):
+        sub = lc.MODULES[name][0]
+        src = step_dir if name in trainer.trainable else ckpt
+        os.symlink(os.path.join(src, sub), os.path.join(served, sub))
+    shutil.copy(os.path.join(ckpt, "model_index.json"), served)
+    args = _request_args(cli, served, first, SERVE_SHORT_FRAMES)
+    t0 = time.perf_counter()
+    (res, pipe), counts = _count_flash(lambda: cli.run(args, tokenizer=ByteTokenizer(),
+                                                       image=first["image"]))
+    serve_s = time.perf_counter() - t0
+    del pipe
+    torch.cuda.empty_cache()
+    pipe = MOVAPipeline(cfg, trainer.modules, tokenizer=ByteTokenizer(),
+                        compute_dtype=torch.bfloat16, device="cuda", attn_impl=args.attn_type,
+                        quantize=args.quantize, offload="none", mask_ctx_pad=args.mask_ctx_pad)
+    with torch.no_grad():
+        again = pipe(prompt=args.prompt, image=cli.first_frame(args, first["image"]),
+                     negative_prompt=args.negative_prompt, seed=args.seed,
+                     height=args.height, width=args.width, num_frames=args.num_frames,
+                     video_fps=args.fps, num_inference_steps=args.num_inference_steps,
+                     sigma_shift=args.sigma_shift, visual_shift=args.visual_shift,
+                     audio_shift=args.audio_shift, cfg_scale=args.cfg_scale,
+                     cfg_batch=args.cfg_batch, cfg_cache_interval=args.cfg_cache_interval,
+                     cfg_scale_bridge=args.cfg_scale_bridge)
+    request = {**REQUEST, "num_frames": SERVE_SHORT_FRAMES}
+    _check_result(res, request)
+    want = SERVE_CALLS[SERVE_SHORT_FRAMES] * 2 * REQUEST["num_inference_steps"]
+    same = np.array_equal(res.video, again.video) and np.array_equal(res.audio, again.audio)
+    log(f"[fullft] the export with phase 17's encoders linked in, through "
+        f"`cli.inference_single` (load, generate) {serve_s:.2f} s: launches {counts}; video "
+        f"{res.video.shape} and audio bit-equal to the same request in process on the "
+        f"trainer's modules: {same}; {tag}")
+    if counts != {"exact": want, "cap": 0, "sage": 0} or not same:
+        raise AssertionError(f"served from the export: launches {counts} (want {want}), "
+                             f"bit-equal {same}")
+    del pipe
+    trainer.optimizer = None                # its moments leave the card for the probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the update's direction: a repeated batch's loss after one step, at the run's lr
+    # and below it
+    expert = steps[-1]["expert"]
+    probe = _repeat_batch_losses(trainer, last_batch, expert)
+    log(f"[fullft] step {FULL_FT_STEPS}'s batch again (expert {expert}, timestep and noise "
+        f"pinned), one AdamW step from fresh moments: " + ", ".join(
+            f"lr {lr:g}: loss {b:.5f} -> {a:.5f}" for lr, b, a in probe) + f"; {tag}")
+    if len({b for _, b, _ in probe}) != 1 or not all(
+            math.isfinite(a) for _, _, a in probe) or not all(a < b for _, b, a in probe[1:]):
+        raise AssertionError(f"the repeated batch's loss must fall at each lr below "
+                             f"{FULL_FT_PROBE_LRS[0]:g}, from one start: {probe}")
+    del trainer, last_batch
+    shutil.rmtree(save_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the first two steps again with remat_save_attention
+    trainer, kept, _, peak_kept, _ = _train_full_ft(
+        base + [f"trainer.save_dir={os.path.join(root, 'full_ft_remat_save')}",
+                f"trainer.max_steps={FULL_FT_SAVE_STEPS}",
+                "trainer.remat_save_attention=true"])
+    for i, (a, b) in enumerate(zip(steps, kept)):
+        log(f"[fullft] remat_save_attention step {i + 1}: loss {b['loss']:.6f} (full remat "
+            f"{a['loss']:.6f}), grad_norm {b['grad_norm']:.6f} ({a['grad_norm']:.6f}), "
+            f"relative gap {abs(b['grad_norm'] - a['grad_norm']) / a['grad_norm']:.2e}, "
+            f"worst per-parameter gradient norm gap "
+            f"{_leaf_gap(a['leaf_norms'], b['leaf_norms']):.2e} over "
+            f"{len(a['leaf_norms'])} tensors; loss+backward {b['loss_backward_s']:.3f} s "
+            f"({a['loss_backward_s']:.3f}); launches fwd {b['flash_fwd']} bwd "
+            f"{b['flash_bwd']} preprocess {b['flash_bwd_preprocess']}; {tag}")
+    log(f"[fullft] peak {peak_kept:.2f} GiB with remat_save_attention, {peak:.2f} without; "
+        f"{tag}")
+    if not trainer.tcfg.remat_save_attention or len(kept) != FULL_FT_SAVE_STEPS:
+        raise AssertionError(f"remat_save_attention {trainer.tcfg.remat_save_attention}, "
+                             f"{len(kept)} steps")
+    for a, b in zip(steps, kept):
+        got = (b["flash_fwd"], b["flash_bwd"], b["flash_bwd_preprocess"])
+        gap = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+        leaf = _leaf_gap(a["leaf_norms"], b["leaf_norms"])
+        if got != FULL_FT_LAUNCHES[True] or b["loss"] != a["loss"] \
+                or gap > FULL_FT_NORM_REL_TOL or leaf > FULL_FT_LEAF_REL_TOL:
+            raise AssertionError(f"remat_save_attention: launches {got} (want "
+                                 f"{FULL_FT_LAUNCHES[True]}), loss {b['loss']} vs "
+                                 f"{a['loss']}, grad_norm gap {gap:.3e} (limit "
+                                 f"{FULL_FT_NORM_REL_TOL}), per-parameter {leaf:.3e} "
+                                 f"(limit {FULL_FT_LEAF_REL_TOL})")
+    del trainer
+    shutil.rmtree(os.path.join(root, "full_ft_remat_save"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the registry on the card
+    registry = _registry_on_card(tag)
+
+    def total(records):
+        return {k: sum(st[f"flash_{k}"] for st in records)
+                for k in ("fwd", "bwd", "bwd_split", "bwd_preprocess")}
+
+    return {"launches": total(steps), "launches_save": total(kept), "peak_gib": peak,
+            "peak_save_gib": peak_kept, "registry": registry}
+
+
 def main() -> int:
     # Freed blocks of any size serve later requests of any size: without it the
     # 720p training phase loses some 11 GiB of the card to fragmentation and
@@ -3029,9 +3482,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serve_http = timed_phase("serve", phase_serve_http, ckpt["ckpt"], ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        full_ft = timed_phase("fullft", phase_full_ft, first, ckpt["ckpt"], ckpt_root, smi)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     lr_l, cli_l = lowres["launches"], train_cli["launches"]
+    ft_l, ft_save_l = full_ft["launches"], full_ft["launches_save"]
 
     video_self, train_self = rows[0], bwd_rows[0]
     cap_self, sage_self = prec_rows["cap"][0], prec_rows["sage"][0]
@@ -3045,7 +3502,8 @@ def main() -> int:
         "launches": (serve_launches + train["fwd"] + train720["fwd"] + full["launches"]
                      + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
                      + options["cfg_cache_interval_2"] + ckpt["launches"] + lr_l["fwd"]
-                     + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]),
+                     + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]
+                     + ft_l["fwd"] + ft_save_l["fwd"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -3058,7 +3516,9 @@ def main() -> int:
                              "serve_cli_checkpoint": ckpt["launches"],
                              "train_low_resource_full_depth": lr_l["fwd"],
                              "train_cli": cli_l["fwd"], "serve_cli_trained_lora":
-                             train_cli["serve"], "serve_http": serve_http["launches"]},
+                             train_cli["serve"], "serve_http": serve_http["launches"],
+                             "train_full_ft": ft_l["fwd"],
+                             "train_full_ft_remat_save": ft_save_l["fwd"]},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),
@@ -3082,11 +3542,15 @@ def main() -> int:
         "route": "cuda",
         "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:365",
-        "launches": train["bwd"] + train720["bwd"] + lr_l["bwd"] + cli_l["bwd"],
+        "launches": (train["bwd"] + train720["bwd"] + lr_l["bwd"] + cli_l["bwd"]
+                     + ft_l["bwd"] + ft_save_l["bwd"]),
         "launches_by_path": {"serve": 0, "train": train["bwd"], "train_720p": train720["bwd"],
                              "train_low_resource_full_depth": lr_l["bwd"],
-                             "train_cli": cli_l["bwd"]},
+                             "train_cli": cli_l["bwd"], "train_full_ft": ft_l["bwd"],
+                             "train_full_ft_remat_save": ft_save_l["bwd"]},
         "train_low_resource_peak_gib": lowres["peak_gib"],
+        "train_full_ft_peak_gib": full_ft["peak_gib"],
+        "train_full_ft_remat_save_peak_gib": full_ft["peak_save_gib"],
         "max_abs_err": max(bwd_max_abs["bwd"], max_abs_720p["fused"]),
         "ms": train_self["bwd_ms"],
         "plain_ms": train_self["bwd_plain_ms"],
@@ -3105,11 +3569,14 @@ def main() -> int:
         "replaces": "dualforce_tpu/ops/flash_attention.py:284 and :321",
         "mode": "split: the dq pass (_bwd_dq_kernel) and the dk/dv pass (_bwd_dkv_kernel), "
                 "one launch of each per backward, where Sq >= 98,305",
-        "launches": train720["split"] + lr_l["split"] + cli_l["split"],
+        "launches": (train720["split"] + lr_l["split"] + cli_l["split"]
+                     + ft_l["bwd_split"] + ft_save_l["bwd_split"]),
         "launches_by_path": {"serve": 0, "train": train["split"],
                              "train_720p": train720["split"],
                              "train_low_resource_full_depth": lr_l["split"],
-                             "train_cli": cli_l["split"]},
+                             "train_cli": cli_l["split"],
+                             "train_full_ft": ft_l["bwd_split"],
+                             "train_full_ft_remat_save": ft_save_l["bwd_split"]},
         "max_abs_err": max_abs_720p["split"],
         "ms": split_self["bwd_ms"],
         "plain_ms": split_self["bwd_plain_ms_2_heads"],
@@ -3132,11 +3599,14 @@ def main() -> int:
         "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:484 (delta in `_bwd_prepare`, jnp "
                     "code beside the Pallas kernels)",
-        "launches": train["prep"] + train720["prep"] + lr_l["prep"] + cli_l["prep"],
+        "launches": (train["prep"] + train720["prep"] + lr_l["prep"] + cli_l["prep"]
+                     + ft_l["bwd_preprocess"] + ft_save_l["bwd_preprocess"]),
         "launches_by_path": {"serve": 0, "train": train["prep"],
                              "train_720p": train720["prep"],
                              "train_low_resource_full_depth": lr_l["prep"],
-                             "train_cli": cli_l["prep"]},
+                             "train_cli": cli_l["prep"],
+                             "train_full_ft": ft_l["bwd_preprocess"],
+                             "train_full_ft_remat_save": ft_save_l["bwd_preprocess"]},
         "max_abs_err": max(bwd_max_abs["prep"], max_abs_720p["prep"]),
         "ms": split_self["preprocess"]["ms"],
         "plain_ms": split_self["preprocess"]["plain_ms"],

@@ -1,23 +1,33 @@
-"""LoRA training from a MOVA checkpoint (counterpart of `scripts/train.py`):
+"""LoRA or full fine-tuning from a MOVA checkpoint (counterpart of
+`scripts/train.py`):
 
     python -m dualforce_tpu_torch.cli.train configs/training/lora_low_resource.py \\
         --set pipeline.ckpt_path=CKPT data.metadata_path=clips/metadata.json \\
         trainer.save_dir=out/lora trainer.max_steps=100 [--device cpu]
 
+    python -m dualforce_tpu_torch.cli.train configs/training/lora_360p.py --set mesh={} \\
+        pipeline.ckpt_path=CKPT data.metadata_path=clips/metadata.json \\
+        trainer.mode=full "trainer.trainable_modules=['audio_dit','bridge']" \\
+        trainer.optimizer=Lion trainer.remat_save_attention=true trainer.save_dir=out/ft
+
 The config is a Python file defining a dict `config` with `pipeline`
 (`ckpt_path`, optional `weight_dtype="fp8"`), `mesh`, `data` and `trainer`
 (`TrainerConfig`'s fields) sections; `--set dotted.key=value` overrides an
-entry, the value read as a Python literal where it parses as one and as a
-string otherwise. It runs on the CUDA card unless `--device cpu` asks for
-the CPU. Under `trainer.offload="component"` the modules are loaded into
+entry, the value read as a Python literal where it parses as one (and
+`true` / `false` as booleans) and as a string otherwise. `trainer.optimizer`
+takes any name of the JAX registry (`engine.optim.OPTIMIZERS`). It runs on
+the CUDA card unless `--device cpu` asks for the CPU. Under `trainer.offload="component"` the modules are loaded into
 page-locked host memory and staged per phase. A mesh over more than one
 device (`lora_360p.py`'s fsdp 2 x cp 4) exits before anything is read: it
 needs data and sequence parallelism, not ported yet (ROADMAP A7); `--set
 mesh={}` runs such a recipe on one device. Each `step-N/` under
 `trainer.save_dir` holds `state.pt` (resumed from on the next run),
 `lora_weights.npz` (+ `.json`, the JAX package's format) and
-`lora_weights.pt` + `lora_config.pt` (the reference trainer's). Importing
-this module loads no model code, so `--help` is quick.
+`lora_weights.pt` + `lora_config.pt` (the reference trainer's), or under
+`trainer.mode=full` one HF-layout directory per trained module
+(`video_dit/`, `dual_tower_bridge/`, ...: `config.json`,
+`model.safetensors`). Importing this module loads no model code, so
+`--help` is quick.
 """
 
 from __future__ import annotations
@@ -37,10 +47,13 @@ def load_config(path: str) -> dict:
     return mod.config
 
 
+_BOOLS = {"true": True, "false": False}
+
+
 def apply_overrides(cfg: dict, overrides: Optional[Sequence[str]]) -> dict:
     """Set each `dotted.key=value` in `cfg` (in place; returned): the value
-    as a Python literal (`ast.literal_eval`) where it parses, else the
-    string."""
+    as a Python literal (`ast.literal_eval`) where it parses, `true` and
+    `false` as booleans, else the string."""
     for ov in overrides or []:
         key, _, value = ov.partition("=")
         node = cfg
@@ -50,13 +63,14 @@ def apply_overrides(cfg: dict, overrides: Optional[Sequence[str]]) -> dict:
         try:
             node[parts[-1]] = ast.literal_eval(value)
         except (ValueError, SyntaxError):
-            node[parts[-1]] = value
+            node[parts[-1]] = _BOOLS.get(value.lower(), value)
     return cfg
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m dualforce_tpu_torch.cli.train",
-                                description="Train a LoRA on video+audio clips.")
+                                description="Train a LoRA, or fine-tune whole modules, on "
+                                            "video+audio clips.")
     p.add_argument("config")
     p.add_argument("--set", nargs="*", dest="overrides",
                    help="dotted config overrides, e.g. trainer.lr=2e-4")

@@ -418,11 +418,11 @@ def load_pipeline_params(ckpt_dir: str, cfg: Optional[MOVAConfig] = None,
 
 
 def save_pipeline_params(modules: Mapping[str, nn.Module], cfg: MOVAConfig,
-                         ckpt_dir: str) -> int:
+                         ckpt_dir: str, index: bool = True) -> int:
     """Write `modules` as a checkpoint `load_pipeline_params` reads: one
     directory per module with its config.json and `model.safetensors`, and
-    `model_index.json`. The towers and UMT5 in the dtype they hold, the
-    VAEs in fp32 with the DAC's convolutions weight-normed
+    (with `index`) `model_index.json`. The towers and UMT5 in the dtype they
+    hold, the VAEs in fp32 with the DAC's convolutions weight-normed
     (`weight_g` = the norm of each output channel, or input channel of a
     ConvTranspose1d; `weight_v` = the weight). Returns the bytes of tensor
     data written."""
@@ -444,9 +444,27 @@ def save_pipeline_params(modules: Mapping[str, nn.Module], cfg: MOVAConfig,
         total += save_state_dict(sd, os.path.join(path, "model.safetensors"))
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(configs[subdir], f, indent=1)
-    with open(os.path.join(ckpt_dir, "model_index.json"), "w") as f:
-        json.dump(configs["model_index"], f, indent=1)
+    if index:
+        with open(os.path.join(ckpt_dir, "model_index.json"), "w") as f:
+            json.dump(configs["model_index"], f, indent=1)
     return total
+
+
+# the modules full fine-tuning trains and exports
+DIFFUSION_MODULES = ("video_dit", "video_dit_2", "audio_dit", "bridge")
+
+
+def export_trained_modules(trained: Mapping[str, nn.Module], cfg: MOVAConfig,
+                           out_dir: str) -> int:
+    """Full fine-tuning's per-module export (counterpart of the JAX
+    package's `convert/torch_export.export_trained_modules`): each trained
+    diffusion module as `out_dir/<its checkpoint directory>/config.json` and
+    `model.safetensors` (`dual_tower_bridge/` for the bridge), written by
+    `save_pipeline_params` without `model_index.json`. Both packages'
+    `load_pipeline_params` read such a directory among a checkpoint's
+    others. Returns the bytes of tensor data written."""
+    return save_pipeline_params({n: m for n, m in trained.items() if n in DIFFUSION_MODULES},
+                                cfg, out_dir, index=False)
 
 
 def load_tokenizer(ckpt_dir: str):

@@ -9,7 +9,14 @@ from an explicit `torch.Generator` (drawn on the host, so the numbers do not
 depend on the device); `jax.random` is not reproduced, so tests pin the
 timestep id (`timestep_id`) and the noise (`noise_override`). The base
 weights may be stored in fp8 (their LoRA merge runs in the compute dtype,
-ROADMAP C caveat 9). Full fine-tuning is not ported.
+ROADMAP C caveat 9).
+
+Full fine-tuning (`full_finetune_params`: whole modules whose own
+parameters train, in place of the frozen ones) has `full_ft_grads`, the
+counterpart of `make_full_ft_accum_fns`' grad function, and
+`full_ft_step`, of `make_full_ft_step`: when both video experts train, the
+step leaves the one it does not exercise as it is, moments included, while
+the optimizer's count advances.
 """
 
 from __future__ import annotations
@@ -167,9 +174,13 @@ def training_loss(lora: Optional[lora_mod.Lora], modules: Dict[str, torch.nn.Mod
     merged into each target where its layer reads it
     (`engine.lora.MergedWeights`). `modules` may hold fp8-stored weights
     (`nn.cast_modules_fp8`), whose merged targets are in `compute_dtype`,
-    and may be staged copies of host-resident modules."""
+    and may be staged copies of host-resident modules.
+    `full_finetune_params`, {name: module}, takes the place of those
+    modules (no LoRA): the loss is then differentiable in their parameters."""
     if full_finetune_params is not None:
-        raise NotImplementedError("full fine-tuning is not ported")
+        if lora:
+            raise ValueError("training_loss takes a LoRA or full_finetune_params, not both")
+        modules = {**modules, **full_finetune_params}
     device = resolve_device(device)
     encoded = {k: _tensor(v, device) for k, v in encoded.items()}
     x_v, x_a = encoded["video_latents"], encoded["audio_latents"]
@@ -228,6 +239,50 @@ def accumulate(acc: Optional[Sequence[torch.Tensor]], grads: Sequence[torch.Tens
     if acc is None:
         return [g * scale for g in grads]
     return [a.add_(g, alpha=scale) for a, g in zip(acc, grads)]
+
+
+def trainable_parameters(trainable: Dict[str, torch.nn.Module]) -> List[torch.Tensor]:
+    """The parameters of full fine-tuning's modules, in the order the
+    optimizer and the gradients take them: by module name, then each
+    module's own order."""
+    return [p for m in sorted(trainable) for p in trainable[m].parameters()]
+
+
+def held_expert(trainable: Dict[str, torch.nn.Module], expert: int) -> List[bool]:
+    """Per parameter of `trainable_parameters`: True for the video expert a
+    step on `expert` does not run, where both experts train."""
+    held = ("video_dit_2" if expert == 0 else "video_dit") \
+        if {"video_dit", "video_dit_2"} <= set(trainable) else None
+    return [m == held for m in sorted(trainable) for _ in trainable[m].parameters()]
+
+
+def full_ft_grads(trainable: Dict[str, torch.nn.Module], *args, **kwargs
+                  ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """(gradients of `training_loss(None, *args, full_finetune_params=
+    trainable, **kwargs)` for every parameter of `trainable_parameters`,
+    metrics with "loss"). A parameter the loss does not reach (the inactive
+    expert's) gets exact zeros, as `jax.grad` gives it."""
+    params = trainable_parameters(trainable)
+    loss, metrics = training_loss(None, *args, full_finetune_params=trainable, **kwargs)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+
+
+def full_ft_step(trainable: Dict[str, torch.nn.Module], optimizer,
+                 modules: Dict[str, torch.nn.Module], cfg: MOVAConfig, tables: TrainTables,
+                 encoded: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+                 expert: int, **kwargs) -> Dict[str, torch.Tensor]:
+    """One full fine-tuning step on one batch (`make_full_ft_step`):
+    `full_ft_grads`, then the optimizer, the modules updated in place.
+    Where both video experts train, the one the step does not run is held
+    (`held_expert`: its parameters and optimizer state stay, the count
+    advances), so weight decay does not move it. Returns the metrics with
+    "grad_norm"."""
+    grads, metrics = full_ft_grads(trainable, modules, cfg, tables, encoded, generator,
+                                   expert, **kwargs)
+    norm = optimizer.step(grads, frozen=held_expert(trainable, expert))
+    return {**metrics, "grad_norm": norm}
 
 
 def lora_step(lora: lora_mod.Lora, optimizer, *args, **kwargs) -> Dict[str, torch.Tensor]:

@@ -1,14 +1,28 @@
-"""LoRA trainer (counterpart of `dualforce_tpu/engine/trainer.py`).
+"""LoRA and full fine-tuning trainer (counterpart of
+`dualforce_tpu/engine/trainer.py`).
 
-One device, no mesh. Loop: frozen encodes, LoRA grads through the
+One device, no mesh. Loop: frozen encodes, grads through the
 (rematerialised) dual tower, gradient accumulation as a running mean, then
-the optimizer ("AdamW": global-norm clip and AdamW; "AdamW8bit": the same
-with block-wise int8 moments) under the warmup schedule; log every
-`log_interval` steps, save every `save_interval` and at the end, resume from
-the latest `step-N` under `save_dir`. Randomness (LoRA init, timestep ids,
-noise) comes from one host `torch.Generator` seeded with `seed`, saved and
-restored with the checkpoint. The LoRA factors and the optimizer state live
-on the device.
+the optimizer (any name of the registry, `engine.optim.OPTIMIZERS`: "AdamW"
+by default, "AdamW8bit" with block-wise int8 moments, or one of optax's
+families; one that rejects `betas` is built again without them, as the JAX
+trainer does) under the warmup schedule; log every `log_interval` steps,
+save every `save_interval` and at the end, resume from the latest `step-N`
+under `save_dir`. Randomness (LoRA init, timestep ids, noise) comes from one
+host `torch.Generator` seeded with `seed`, saved and restored with the
+checkpoint. What trains and the optimizer state live on the device.
+
+Two modes, as in the JAX package:
+- `mode="lora"`: LoRA factors over the frozen modules.
+- `mode="full"`: the `trainable_modules` present (of video_dit,
+  video_dit_2, audio_dit, bridge) train in place, the rest stay frozen.
+  Without accumulation a step holds the video expert it does not run
+  (`diffusion.training.full_ft_step`: its weights and optimizer state stay,
+  the count advances); with accumulation both experts collect grads within
+  a step and none is held. `step-N/` holds the per-module export
+  (`convert.load_checkpoint.export_trained_modules`), from which a resume
+  reads the weights back, and `state.pt` with the optimizer and the
+  generator. Refused under `offload="component"`, as JAX refuses it.
 
 Two regimes, as in the JAX package:
 - `offload="none"`: the modules stay on the device; the video expert
@@ -26,9 +40,10 @@ Two regimes, as in the JAX package:
   `(global_step // expert_switch_interval) % 2` for whole optimizer steps.
 
 Base weights stored in fp8 train in both regimes: the LoRA merges into the
-compute dtype (ROADMAP C, caveat 9). Not ported, and refused: full
-fine-tuning (`mode="full"`), `remat_save_attention`, meshes and sequence
-parallelism.
+compute dtype (ROADMAP C, caveat 9). `remat_save_attention` keeps the flash
+forward's outputs across each layer's remat boundary
+(`ops.flash_attention.remat_save_attention`), set around each loss and
+backward. Not ported, and refused: meshes and sequence parallelism.
 
 Clips of any length train; at 720p (1280x720, 193 frames, 176,400 video
 tokens) the attention backwards take the split kernels, and an 80 GB card
@@ -50,18 +65,23 @@ import torch
 from dualforce_tpu_torch import offload as off
 from dualforce_tpu_torch import resolve_device
 from dualforce_tpu_torch.config import MOVAConfig
+from dualforce_tpu_torch.convert import load_checkpoint as lc
 from dualforce_tpu_torch.convert.lora_export import save_reference_lora
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.diffusion.step import make_rope_pack
 from dualforce_tpu_torch.diffusion.training import (TimestepConfig, accumulate,
                                                     build_train_tables, encode_batch,
-                                                    lora_grads)
+                                                    full_ft_grads, held_expert, lora_grads,
+                                                    trainable_parameters)
 from dualforce_tpu_torch.engine import lora as lora_mod
 from dualforce_tpu_torch.engine.checkpoint import (latest_step, restore_checkpoint,
                                                    save_checkpoint)
 from dualforce_tpu_torch.engine.logging import build_logger
 from dualforce_tpu_torch.engine.optim import build_optimizer, warmup_schedule
-from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+from dualforce_tpu_torch.nn import FP8_DTYPES
+from dualforce_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_bwd_preprocess,
+                                                     remat_save_attention)
 
 
 @dataclass
@@ -82,12 +102,13 @@ class TrainerConfig:
     seed: int = 0
     video_fps: float = 24.0
     remat: bool = True
-    # the JAX package's switch to keep the flash residuals across the remat
-    # boundary; not ported (ROADMAP A5), so only False is accepted
+    # with remat: keep the flash forward's outputs across the remat boundary
+    # instead of running the forward kernel again in the backward
     remat_save_attention: bool = False
     compute_dtype: Any = torch.bfloat16
     attn_impl: str = "auto"
-    optimizer: str = "AdamW"
+    optimizer: str = "AdamW"   # a name of engine.optim.OPTIMIZERS
+    # "lora" or "full" (whole modules of `trainable_modules` train)
     mode: str = "lora"
     trainable_modules: tuple = ("video_dit", "video_dit_2", "audio_dit", "bridge")
     # k micro-batches per optimizer step
@@ -107,15 +128,15 @@ class LoRATrainer:
                  tcfg: TrainerConfig, device="cuda"):
         """modules: the pipeline's modules (the encoders, the towers, the
         bridge), on `device` (offload "none") or in host memory (offload
-        "component"; page-locked for a CUDA device); they stay frozen."""
-        if tcfg.mode == "full":
-            raise NotImplementedError("full fine-tuning is not ported")
-        if tcfg.mode != "lora":
+        "component"; page-locked for a CUDA device); they stay frozen, but
+        for the trainable ones under `mode="full"`, which train in place."""
+        if tcfg.mode not in ("lora", "full"):
             raise ValueError(f"unknown trainer mode {tcfg.mode!r}")
-        if tcfg.remat_save_attention:
-            raise NotImplementedError("remat_save_attention is not ported (ROADMAP A5)")
         if tcfg.offload not in ("none", "component"):
             raise ValueError(f"unknown trainer offload {tcfg.offload!r}")
+        if tcfg.offload == "component" and tcfg.mode == "full":
+            raise ValueError("offload='component' trains LoRA only (full-FT params must be "
+                             "device-resident for the optimizer)")
         self.device = resolve_device(device)
         home = self.device.type if tcfg.offload == "none" else "cpu"
         for name, m in modules.items():
@@ -130,14 +151,35 @@ class LoRATrainer:
         scheduler.set_timesteps(cfg.scheduler.num_train_timesteps, training=True)
         self.tables = build_train_tables(scheduler, cfg.boundary_ratio)
         self.generator = torch.Generator().manual_seed(tcfg.seed)
-        self.lora = lora_mod.init_pipeline_lora(modules, tcfg.lora_rank, self.generator,
-                                                tcfg.trainable_modules, device=self.device)
+        if tcfg.mode == "full":
+            other = sorted(set(tcfg.trainable_modules) - set(lc.DIFFUSION_MODULES))
+            if other:
+                raise ValueError(f"full fine-tuning trains {lc.DIFFUSION_MODULES}, not {other}")
+            # the LoRA mode's state stays None: full fine-tuning's is the modules
+            self.lora = None
+            self.trainable = {m: modules[m] for m in tcfg.trainable_modules if m in modules}
+            params = trainable_parameters(self.trainable)
+            if any(p.dtype in FP8_DTYPES for p in params):
+                raise ValueError("full fine-tuning trains the modules' own weights, which "
+                                 "must not be stored in fp8")
+            for module in self.trainable.values():
+                module.requires_grad_(True)
+        else:
+            self.trainable = {}
+            self.lora = lora_mod.init_pipeline_lora(modules, tcfg.lora_rank, self.generator,
+                                                    tcfg.trainable_modules,
+                                                    device=self.device)
+            params = lora_mod.lora_parameters(self.lora)
         self._schedule = warmup_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.max_steps,
                                          tcfg.lr_schedule)
-        self.optimizer = build_optimizer(
-            tcfg.optimizer, lora_mod.lora_parameters(self.lora), lr=tcfg.lr,
-            betas=tcfg.betas, weight_decay=tcfg.weight_decay,
-            max_grad_norm=tcfg.max_grad_norm, schedule=self._schedule)
+        opt_kwargs = dict(lr=tcfg.lr, betas=tcfg.betas, weight_decay=tcfg.weight_decay,
+                          max_grad_norm=tcfg.max_grad_norm, schedule=self._schedule)
+        try:
+            self.optimizer = build_optimizer(tcfg.optimizer, params, **opt_kwargs)
+        except TypeError:
+            # SGD, RMSprop, Adagrad, Adadelta, Adafactor reject `betas`
+            opt_kwargs.pop("betas")
+            self.optimizer = build_optimizer(tcfg.optimizer, params, **opt_kwargs)
         self.timestep_config = TimestepConfig(tcfg.weighting_scheme, tcfg.logit_mean,
                                               tcfg.logit_std, tcfg.mode_scale)
         self.global_step = 0
@@ -151,8 +193,11 @@ class LoRATrainer:
 
     # --- checkpointing ------------------------------------------------------
     def _state(self):
-        return {"lora": self.lora, "optimizer": self.optimizer.state_dict(),
-                "generator": self.generator.get_state()}
+        state = {"optimizer": self.optimizer.state_dict(),
+                 "generator": self.generator.get_state()}
+        if self.lora is not None:
+            state["lora"] = self.lora
+        return state
 
     def _maybe_resume(self):
         step = latest_step(self.tcfg.save_dir)
@@ -160,7 +205,13 @@ class LoRATrainer:
             return
         state, meta = restore_checkpoint(self.tcfg.save_dir, step, map_location=self.device)
         with torch.no_grad():
-            for mod, tree in self.lora.items():
+            if self.lora is None:
+                step_dir = os.path.join(os.path.abspath(self.tcfg.save_dir), f"step-{step}")
+                for name, module in self.trainable.items():
+                    sd = lc.load_state_dict(os.path.join(step_dir, lc.MODULES[name][0]))
+                    for key, p in module.named_parameters():
+                        p.copy_(sd[key])
+            for mod, tree in (self.lora or {}).items():
                 for name, ab in tree.items():
                     for part, t in ab.items():
                         t.copy_(state["lora"][mod][name][part])
@@ -172,13 +223,17 @@ class LoRATrainer:
     def save(self):
         """`step-N/`: the LoRA in the JAX package's format (`lora_weights.npz`,
         `.json`) and in the reference trainer's (`lora_weights.pt`,
-        `lora_config.pt`), then the resumable state (`state.pt`, and
+        `lora_config.pt`), or under `mode="full"` each trained module's
+        HF-layout directory; then the resumable state (`state.pt`, and
         `meta.json`, written last, which marks the directory complete)."""
         t = self.tcfg
         path = os.path.join(os.path.abspath(t.save_dir), f"step-{self.global_step}")
-        lora_mod.save_lora(self.lora, f"{path}/lora_weights.npz", alpha=t.lora_alpha,
-                           rank=t.lora_rank)
-        save_reference_lora(self.lora, path, alpha=t.lora_alpha, rank=t.lora_rank)
+        if self.lora is None:
+            lc.export_trained_modules(self.trainable, self.cfg, path)
+        else:
+            lora_mod.save_lora(self.lora, f"{path}/lora_weights.npz", alpha=t.lora_alpha,
+                               rank=t.lora_rank)
+            save_reference_lora(self.lora, path, alpha=t.lora_alpha, rank=t.lora_rank)
         save_checkpoint(t.save_dir, self.global_step, self._state())
 
     # --- component staging (offload "component") ---------------------------
@@ -238,15 +293,21 @@ class LoRATrainer:
             # the other expert leaves first: the two are never staged together
             self._evict("video_dit_2" if expert == 0 else "video_dit")
         modules = self._stage(tower, "audio_dit", "bridge")
-        return lora_grads(self.lora, modules, self.cfg, self.tables, encoded,
-                          self.generator, expert, lora_alpha=t.lora_alpha,
-                          video_fps=t.video_fps, compute_dtype=t.compute_dtype,
-                          remat=t.remat, attn_impl=t.attn_impl,
-                          rope_pack=self._rope_pack(encoded),
-                          timestep_config=self.timestep_config, device=self.device)
+        kwargs = dict(video_fps=t.video_fps, compute_dtype=t.compute_dtype, remat=t.remat,
+                      attn_impl=t.attn_impl, rope_pack=self._rope_pack(encoded),
+                      timestep_config=self.timestep_config, device=self.device)
+        prev = remat_save_attention(t.remat_save_attention)
+        try:
+            if self.lora is None:
+                return full_ft_grads(self.trainable, modules, self.cfg, self.tables, encoded,
+                                     self.generator, expert, **kwargs)
+            return lora_grads(self.lora, modules, self.cfg, self.tables, encoded,
+                              self.generator, expert, lora_alpha=t.lora_alpha, **kwargs)
+        finally:
+            remat_save_attention(prev)
 
-    def _apply(self, grads):
-        return self.optimizer.step(grads)
+    def _apply(self, grads, frozen=None):
+        return self.optimizer.step(grads, frozen=frozen)
 
     def _timed(self, measure: bool, fn, *args):
         """fn(*args) and its seconds; with `measure`, the device is
@@ -269,11 +330,12 @@ class LoRATrainer:
         `optimizer_s` (0 when the micro-batch ends no optimizer step), each
         timed with the device synchronised around it, and `stage_s`, the
         seconds of that spent staging modules (offload "component"; the
-        other three exclude it); `flash_fwd`,
-        `flash_bwd` and `flash_bwd_split`, the flash kernel launches of its
-        loss and backward (forward, fused backward, split backward); its
-        loss metrics as floats; and `grad_norm` when it ends a step. The
-        synchronisation makes a measured run slower: pass it only to measure.
+        other three exclude it); `flash_fwd`, `flash_bwd`, `flash_bwd_split`
+        and `flash_bwd_preprocess`, the flash kernel launches of its loss and
+        backward (forward, fused backward, split backward, the backwards'
+        delta preprocess); its loss metrics as floats; and `grad_norm` when
+        it ends a step. The synchronisation makes a measured run slower: pass
+        it only to measure.
         """
         self._measure = on_micro_step is not None
         try:
@@ -305,7 +367,7 @@ class LoRATrainer:
             encoded, encode_s = self._timed(measure, self._encode, batch)
             encode_stage_s = self._stage_s
             fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
-            split = flash_attention_bwd.split_launches
+            split, prep = flash_attention_bwd.split_launches, flash_bwd_preprocess.launches
             (grads, metrics), grads_s = self._timed(measure, self._grads, encoded, expert)
             stage_s = self._stage_s
             record = {"expert": expert, "encode_s": encode_s - encode_stage_s,
@@ -313,7 +375,8 @@ class LoRATrainer:
                       "stage_s": stage_s, "optimizer_s": 0.0,
                       "flash_fwd": flash_attention.launches - fwd,
                       "flash_bwd": flash_attention_bwd.launches - bwd,
-                      "flash_bwd_split": flash_attention_bwd.split_launches - split}
+                      "flash_bwd_split": flash_attention_bwd.split_launches - split,
+                      "flash_bwd_preprocess": flash_bwd_preprocess.launches - prep}
             if accum > 1:
                 grad_acc = accumulate(grad_acc, grads, accum)
                 micro += 1
@@ -322,7 +385,11 @@ class LoRATrainer:
                         on_micro_step({**record, **{k: float(v) for k, v in metrics.items()}})
                     continue
                 grads, grad_acc, micro = grad_acc, None, 0
-            grad_norm, record["optimizer_s"] = self._timed(measure, self._apply, grads)
+                frozen = None
+            else:
+                # full fine-tuning holds the expert this step does not run
+                frozen = held_expert(self.trainable, expert) if self.lora is None else None
+            grad_norm, record["optimizer_s"] = self._timed(measure, self._apply, grads, frozen)
             metrics = {**metrics, "grad_norm": grad_norm}
             if measure:
                 on_micro_step({**record, **{k: float(v) for k, v in metrics.items()}})

@@ -7,7 +7,9 @@ Python loop serves both, looking each layer's conditioners up by index.
 With `remat`, each shared layer and each tail layer runs under
 `torch.utils.checkpoint` (non-reentrant), the counterpart of the JAX
 package's `jax.checkpoint` around its scan bodies: the backward recomputes
-the layer instead of keeping its activations.
+the layer instead of keeping its activations. Under
+`ops.flash_attention.remat_save_attention` the checkpoint keeps the flash
+forward's outputs (`checkpoint_context`), so the recompute skips it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dualforce_tpu_torch import nn as dnn
 from dualforce_tpu_torch.models.bridge import DualTowerBridge
+from dualforce_tpu_torch.ops.flash_attention import checkpoint_context
 
 
 def forward_dual_tower(
@@ -74,7 +77,9 @@ def forward_dual_tower(
         return vx, ax
 
     def run(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+        if not remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=checkpoint_context)
 
     for layer in range(bcfg.min_layers):
         visual_x, audio_x = run(shared_layer, visual_x, audio_x, layer)

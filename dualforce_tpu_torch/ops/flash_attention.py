@@ -36,10 +36,11 @@ the same function. There is no fallback from one to the other, and the split
 route never gives way to the fused kernel.
 
 `flash_attention` and `flash_attention_with_lse` are differentiable through
-`torch.autograd.Function`s (the counterparts of the JAX package's
-`jax.custom_vjp` glue `_flash` and `_flash_lse`): when an input requires
-grad, the forward runs with the LSE output and saves q, k, v, o and the LSE,
-and the backward runs `flash_attention_bwd`. Without grad (serving, under
+the custom op `dualforce_tpu::flash_fwd_lse` with its registered backward
+(the counterpart of the JAX package's `jax.custom_vjp` glue `_flash` and
+`_flash_lse`): when an input requires grad, the forward runs with the LSE
+output and saves q, k, v, o and the LSE, and the backward runs
+`flash_attention_bwd`. Without grad (serving, under
 `torch.no_grad()`) `flash_attention` runs the forward without the LSE.
 `flash_attention.launches` counts forward kernel launches in exact mode,
 `flash_attention.cap_launches` those in cap mode,
@@ -584,30 +585,87 @@ flash_attention_bwd.split_launches = 0
 
 # --- autograd ---------------------------------------------------------------
 
-class _FlashLse(torch.autograd.Function):
-    """(o, lse) = flash(q, k, v); the counterpart of `_flash` and `_flash_lse`
-    with their custom VJPs. An unused output's cotangent arrives as None: an
-    unused LSE adds nothing to delta, an unused o gives dO = 0. In cap mode
-    the forward saves the cap-mode LSE; the backward is the same (P =
-    exp(S / sqrt(D) - lse) is the softmax in both modes)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kv_valid_len, softmax_cap):
-        o, lse = _forward(q, k, v, kv_valid_len, with_lse=True, softmax_cap=softmax_cap)
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(q, k, v, o, lse, kv_valid_len)
-        return o, lse
-
-    @staticmethod
-    def backward(ctx, do, dlse):
-        q, k, v, o, lse, kv_valid_len = ctx.saved_tensors
-        do = torch.zeros_like(o) if do is None else do.to(q.dtype).contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, kv_valid_len, dlse)
-        return dq, dk, dv, None, None
-
-
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+@torch.library.custom_op("dualforce_tpu::flash_fwd_lse", mutates_args=())
+def _flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_valid_len: Optional[torch.Tensor],
+                   softmax_cap: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) = flash(q, k, v); the counterpart of `_flash` and `_flash_lse`
+    with their custom VJPs. A dispatcher op, so that a selective checkpoint
+    policy can see and keep its outputs (`checkpoint_context`). An unused
+    output's cotangent arrives as None: an unused LSE adds nothing to delta,
+    an unused o gives dO = 0. In cap mode the forward saves the cap-mode LSE;
+    the backward is the same (P = exp(S / sqrt(D) - lse) is the softmax in
+    both modes)."""
+    return _forward(q, k, v, kv_valid_len, with_lse=True, softmax_cap=softmax_cap)
+
+
+def _flash_fwd_lse_setup(ctx, inputs, output) -> None:
+    q, k, v, kv_valid_len, _ = inputs
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(q, k, v, *output, kv_valid_len)
+
+
+def _flash_fwd_lse_backward(ctx, do, dlse):
+    q, k, v, o, lse, kv_valid_len = ctx.saved_tensors
+    do = torch.zeros_like(o) if do is None else do.to(q.dtype).contiguous()
+    return (*flash_attention_bwd(q, k, v, o, lse, do, kv_valid_len, dlse), None, None)
+
+
+_flash_fwd_lse.register_autograd(_flash_fwd_lse_backward, setup_context=_flash_fwd_lse_setup)
+
+_REMAT_SAVE_ATTENTION = False
+
+
+def remat_save_attention(on: bool) -> bool:
+    """The JAX package's switch of the same name: with it on, a layer
+    checkpointed with `checkpoint_context` keeps the outputs of the
+    dispatcher op `dualforce_tpu::flash_fwd_lse`, o and the LSE, across the
+    remat boundary: its backward's recompute takes them from the forward
+    and launches no second forward kernel; q, k and v are recomputed. The
+    gradients are full remat's (the same backward on the same tensors). The
+    policy keeps `flash_attention_with_lse`'s outputs too, where JAX's
+    switch leaves that function alone; no checkpointed layer of the port
+    calls it. Read at each `checkpoint_context` call. Returns the previous
+    value.
+
+    The kept residuals cost, per attention that reaches the kernel, o [B,
+    Sq, N, D] in the compute dtype plus the LSE [B, N, Sq] in fp32, held
+    from the layer's forward to its backward: at 360p training (B 1, 11,440
+    video tokens, 40 heads) 117.1 + 1.8 MB for each of a layer's video self,
+    video text cross and a2v attentions (the 103-query audio side takes
+    plain attention), 357 MB per shared layer and 238 MB per tail layer; at
+    720p (176,400 video, 403 audio tokens) 1.806 GB + 28.2 MB for each of
+    the three video-side ones and 1.3 MB for each audio-side one, 5.51 GB
+    per shared layer."""
+    global _REMAT_SAVE_ATTENTION
+    prev = _REMAT_SAVE_ATTENTION
+    _REMAT_SAVE_ATTENTION = bool(on)
+    return prev
+
+
+def _keep_flash_outputs(ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if func is torch.ops.dualforce_tpu.flash_fwd_lse.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_context():
+    """The `context_fn` of `torch.utils.checkpoint` (non-reentrant) around a
+    rematerialised layer: PyTorch's selective checkpointing that keeps the
+    flash forward's outputs while `remat_save_attention` is on, else plain
+    checkpointing."""
+    from torch.utils.checkpoint import (create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+
+    if not _REMAT_SAVE_ATTENTION:
+        return noop_context_fn()
+    return create_selective_checkpoint_contexts(_keep_flash_outputs)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -618,10 +676,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors go to the kernel (bf16, D = 128, any Sq/Sk), which reads
     them through their strides; CPU tensors go to `flash_attention_plain`.
     `softmax_cap` selects the cap mode (`FAST_SOFTMAX_CAP` on the "fast"
-    route). Differentiable in q, k and v through `flash_attention_bwd`.
+    route). Differentiable in q, k and v through `flash_attention_bwd`
+    (`dualforce_tpu::flash_fwd_lse`).
     """
     if _needs_grad(q, k, v):
-        return _FlashLse.apply(q, k, v, kv_valid_len, softmax_cap)[0]
+        return _flash_fwd_lse(q, k, v, kv_valid_len, softmax_cap)[0]
     return _forward(q, k, v, kv_valid_len, with_lse=False, softmax_cap=softmax_cap)[0]
 
 
@@ -637,6 +696,6 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     both outputs: the inner attention of sequence-parallel combines.
     `softmax_cap` as for `flash_attention`."""
     if _needs_grad(q, k, v):
-        return _FlashLse.apply(q, k, v, kv_valid_len, softmax_cap)
+        return _flash_fwd_lse(q, k, v, kv_valid_len, softmax_cap)
     return _forward(q, k, v, kv_valid_len, with_lse=True, softmax_cap=softmax_cap)
 

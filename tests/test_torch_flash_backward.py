@@ -187,7 +187,7 @@ def test_no_grad_forward_skips_the_lse_and_autograd():
     with torch.no_grad():
         assert fa.flash_attention(tq, tk, tv).grad_fn is None
     out = fa.flash_attention(tq, tk, tv)
-    assert type(out.grad_fn).__name__ == "_FlashLseBackward"
+    assert type(out.grad_fn).__name__.startswith("GeneratedBackwardFor_dualforce_tpu_flash_fwd_lse")
 
 
 def test_lse_only_cotangent_matches_pallas_backward():

@@ -173,5 +173,6 @@ def test_build_optimizer_names():
     params = [torch.zeros(4, requires_grad=True)]
     assert isinstance(toptim.build_optimizer("AdamW8bit", params), toptim.AdamW8bit)
     assert isinstance(toptim.build_optimizer("AdamW", params), toptim.AdamW)
-    with pytest.raises(NotImplementedError, match="Lion"):
-        toptim.build_optimizer("Lion", params)
+    assert isinstance(toptim.build_optimizer("Lion", params), toptim.OptaxChain)
+    with pytest.raises(KeyError, match="Lions"):
+        toptim.build_optimizer("Lions", params)

@@ -10,6 +10,7 @@ and their backward; 1e-6 on optimizer updates; 1e-5 on schedules (optax
 evaluates them in fp32, the port in float64).
 """
 
+import copy
 import json
 
 import jax
@@ -355,9 +356,26 @@ def test_lora_training_learns_one_batch(tiny):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny, tmp_path):
-    for kw in (dict(mode="full"), dict(remat_save_attention=True)):
-        with pytest.raises(NotImplementedError):
-            _trainer(tiny, tmp_path / "x", **kw)
-    with pytest.raises(NotImplementedError):
-        ttr.training_loss(None, tiny["mods"], tiny["cfg"], tiny["tables"], _t(tiny["jenc"]),
-                          None, 0, full_finetune_params={}, device="cpu")
+    """`mode="full"` and `remat_save_attention`, once refused, now train (one
+    step each, on copies of the modules: full fine-tuning trains them in
+    place); `training_loss` takes `full_finetune_params`; full fine-tuning
+    under component offload stays refused, as the JAX package refuses it."""
+    for kw in (dict(mode="full", trainable_modules=("audio_dit",), dir="full"),
+               dict(remat_save_attention=True, remat=True, attn_impl="pallas", dir="save")):
+        mods = {k: copy.deepcopy(v) for k, v in tiny["mods"].items()}
+        tcfg = TrainerConfig(**{**dict(max_steps=1, save_dir=str(tmp_path / kw.popitem()[1]),
+                                       logger="none", lora_rank=2, lr=1e-3,
+                                       compute_dtype=torch.float32, attn_impl="ref",
+                                       remat=False), **kw})
+        trainer = LoRATrainer(tiny["cfg"], mods, tcfg, device="cpu")
+        records = []
+        assert trainer.train(iter([tiny["batch"]]), on_micro_step=records.append) == 1
+        assert np.isfinite(records[0]["loss"]) and records[0]["grad_norm"] > 0
+    loss, _ = ttr.training_loss(None, tiny["mods"], tiny["cfg"], tiny["tables"],
+                                _t(tiny["jenc"]), None, 0, compute_dtype=torch.float32,
+                                remat=False, attn_impl="ref", timestep_id=5,
+                                full_finetune_params={"audio_dit": tiny["mods"]["audio_dit"]},
+                                device="cpu")
+    assert np.isfinite(float(loss))
+    with pytest.raises(ValueError, match="LoRA only"):
+        _trainer(tiny, tmp_path / "y", mode="full", offload="component")
