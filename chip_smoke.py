@@ -109,17 +109,27 @@ Phases, each of which must pass:
    expert, 30 audio, 30 shared bridge layers, UMT5 24) from seed 0, each
    module drawn on the card and handed back in page-locked host memory
    (bf16 masters, 73.3 GiB: the card's host holds them, so the fp8
-   fallback for smaller hosts is not taken), then phase 5's request
+   fallback for smaller hosts is not taken), then phase 5's request at 2
+   steps (step 0 on the high-noise expert, step 1 on the low-noise one)
    through `MOVAPipeline(offload="component")`. It must give phase 5's
-   shapes, launch the flash kernel exactly 1,600 times, peak under both
+   shapes, launch the flash kernel exactly 800 times, peak under both
    experts' bf16 bytes (53.2 GiB, which no run holding both could stay
    under) and leave the allocated memory within 1 GiB of its level before
    the request. Prints prepare, step and decode seconds, each staging's
-   seconds and rate, the host's memory and lock limit.
-15. full depth, fp8: the same request with the towers and UMT5 stored in
-   fp8 (`init_pipeline_params(dtype=float8_e4m3fn)`) resident on the card:
-   1,600 launches; prints the fp8 modules' bytes against bf16's and the
-   peak.
+   seconds and rate, the host's memory and lock limit. Then the same
+   request through `MOVAPipeline(offload="group")` at group size 8 (6
+   groups), its denoise as two chained one-step ranges: video and audio
+   bit-equal to the staged request's, the same 800 launches, the
+   denoise's peak under one expert's bf16 bytes (26.6 GiB); prints per
+   step the bytes streamed, the copy stream's busy seconds and rate and
+   the step against the staged one, and the prepare, denoise and decode
+   peaks. Last, step 0 again with `offload_resident_small` (only the video
+   groups stream): 400 launches, latents bit-equal to the first range's,
+   its bytes against the full stream's.
+15. full depth, fp8: the same 2-step request with the towers and UMT5
+   stored in fp8 (`init_pipeline_params(dtype=float8_e4m3fn)`) resident on
+   the card: 800 launches; prints the fp8 modules' bytes against bf16's
+   and the peak.
 16. sampler options: at phase 5's geometry and depth cut (seed 0), one
    request with `cfg_batch` and `mask_ctx_pad`: exactly 56 launches, each at
    B = 2, the text cross-attentions with per-batch kv lengths, its decoded
@@ -230,8 +240,31 @@ Phases, each of which must pass:
    remat_save_attention, the export's and the resume state's GB and
    seconds, each line beside the card's name and power limit. The
    checkpoint's directory is removed.
+22. group streaming and the disk store through the CLI (run after phase
+   17, on its checkpoint): phase 5's first request through
+   `cli.inference_single.run` with `--offload group --offload_group_size 1
+   --offload_to_disk_path DIR` (the first run exports the store: the CLI
+   prints its GB and seconds), with `--offload component
+   --offload_to_disk_path DIR` (the manifest's fingerprint matches: no
+   export) and with `--offload group --offload_resident_small
+   --offload_resident_groups 1`: 112 launches each, each video bit-equal to
+   phase 5's. Then, in process on the last pipeline, the request's
+   `denoise_state` under `cfg_cache_interval` 2 as one call and as four
+   chained one-step calls: bit-equal, the same launches.
+23. the model code of A9: pooled AdaLN's per-frame pooling and AdaLN at
+   360p geometry (y 49 x 880 tokens of width 5,120 over 40 heads, x 403
+   tokens of width 1,536) in bf16 against the same functions in fp32 on
+   the card (relative L2 <= 2e-2); with cuDNN's TF32 off, the DAC at
+   MOVA's widths on phase 17's audio latents, `decompress` and `compress`
+   in windows of 128 frames against `decode` and `encode_mode` (relative
+   L2 <= 1e-4), and an RVQ DAC at the reference's defaults (9 codebooks of
+   1024 x 8): `decode_codes` against `decode(z_q)` (<= 1e-4) and
+   `compress`'s codes against the one pass's (>= 99 % equal, printed);
+   the Wan VAE's `encode_sample_streaming` at 352x640x193 bit-equal to
+   mean + exp(logvar / 2) * noise with the same noise.
 
-Every phase prints its wall time. The run sets
+Every phase prints its wall time, and a summary line before the kernels
+lists every phase's seconds and the script's. The run sets
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the environment sets
 it: phase 13 needs it to fit 193 frames on an 80 GB card.
 The line before the last is the card's name and power limit; the one
@@ -242,9 +275,11 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -449,11 +484,15 @@ def check_preprocess(fa, o, do, lse, dlse=None):
     return err, mae
 
 
+PHASE_SECONDS = {}
+
+
 def timed_phase(name: str, fn, *args):
-    """fn(*args), with its wall time printed."""
+    """fn(*args), with its wall time printed and kept for the summary."""
     t0 = time.perf_counter()
     out = fn(*args)
-    log(f"[{name}] phase wall time {time.perf_counter() - t0:.1f} s")
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"[{name}] phase wall time {PHASE_SECONDS[name]:.1f} s")
     return out
 
 
@@ -1745,7 +1784,15 @@ def phase_train_720p(cfg, modules, root: str):
 
 # a full-depth MOVA-360p request (4 steps, CFG 5): 30 shared layers x 6 attentions + 10
 # video-only tail layers x 2, per pass, x 2 passes x 4 steps
-FULL_DEPTH_LAUNCHES = (30 * 6 + 10 * 2) * 2 * 4
+# the full-depth requests of phases 14-15: phase 5's at 2 steps (step 0 on the high-noise
+# expert, step 1 on the low-noise one: shift 5 puts t = 833 below the 900 boundary), cut from
+# 4 to make room for the group-streamed requests; per request (30 shared layers x 6
+# attentions + 10 tail layers x 2) x 2 CFG passes x 2 steps
+FULL_DEPTH_STEPS = 2
+FULL_DEPTH_REQUEST = dict(REQUEST, num_inference_steps=FULL_DEPTH_STEPS)
+FULL_DEPTH_LAUNCHES = (30 * 6 + 10 * 2) * 2 * FULL_DEPTH_STEPS
+# the group-streamed request: the CLI's default group size
+GROUP_SIZE = 8
 # bf16 masters of the full-depth model fit the card's host: 101 GiB (`free -g` on the
 # H100's machine), of which the masters page-lock 73.3 GiB; fp8 masters (37.6 GiB) would
 # be the fallback for a smaller host, and are not needed there
@@ -1821,10 +1868,10 @@ def _staging_spy(offload):
     real, events = offload.staged, []
 
     @contextlib.contextmanager
-    def timed(module, device):
+    def timed(module, device, **kw):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        with real(module, device) as copy:
+        with real(module, device, **kw) as copy:
             torch.cuda.synchronize()
             events.append(("in", id(module), time.perf_counter() - start))
             try:
@@ -1839,7 +1886,7 @@ def _staging_spy(offload):
 def phase_full_depth_staged():
     """Phase 14: MOVA-360p at full depth through `offload="component"`, bf16
     masters in page-locked host memory (FULL_DEPTH_MASTER_DTYPE: the host
-    holds them)."""
+    holds them); then the same request through `offload="group"`."""
     import numpy as np
     import torch
 
@@ -1868,6 +1915,12 @@ def phase_full_depth_staged():
     peak_limit = sizes["video_dit"] + sizes["video_dit_2"]
     pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(), compute_dtype=torch.bfloat16,
                         device="cuda", offload="component")
+    plan = pipe._plan_for(dict(num_inference_steps=FULL_DEPTH_STEPS,
+                               sigma_shift=FULL_DEPTH_REQUEST["sigma_shift"],
+                               visual_shift=None, audio_shift=None))
+    if plan.boundary_step != 1:
+        raise AssertionError(f"boundary_step {plan.boundary_step}: step 0 must run the "
+                             "high-noise expert and step 1 the low-noise one")
     names = {id(m): n for n, m in modules.items()}
     events, restore = _staging_spy(offload)
     try:
@@ -1875,7 +1928,7 @@ def phase_full_depth_staged():
         mem0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         (res, prep_s, step_s, dec_s), counts = _count_flash(lambda: _serve_request(
-            pipe, "a cat playing the piano in a sunlit room", 0, REQUEST,
+            pipe, "a cat playing the piano in a sunlit room", 0, FULL_DEPTH_REQUEST,
             np.random.default_rng(14)))
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.synchronize()
@@ -1884,15 +1937,16 @@ def phase_full_depth_staged():
         restore()
     staging = [(names[mid], t) for kind, mid, t in events if kind == "in"]
     rss, free = _host_memory()
-    log(f"[full] staged bf16 request: prepare {prep_s:.2f} s, denoise steps "
-        f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {dec_s:.2f} s; launches {counts}")
+    log(f"[full] staged bf16 request ({FULL_DEPTH_STEPS} steps, boundary_step 1): prepare "
+        f"{prep_s:.2f} s, denoise steps {', '.join(f'{x:.2f}' for x in step_s)} s, decode "
+        f"{dec_s:.2f} s; launches {counts}")
     log("[full] staging: " + "; ".join(
         f"{n} {sizes[n] / 2**30:.2f} GiB in {t:.3f} s ({sizes[n] / t / 1e9:.1f} GB/s)"
         for n, t in staging))
     log(f"[full] max_memory_allocated {peak / 2**30:.2f} GiB (limit: both experts' bf16 "
         f"bytes, {peak_limit / 2**30:.2f} GiB); allocated {mem0 / 2**30:.3f} GiB before, "
         f"{after / 2**30:.3f} GiB after; host rss {rss:.2f} GiB; free -g: {free}")
-    _check_result(res, REQUEST)
+    _check_result(res, FULL_DEPTH_REQUEST)
     log(f"[full] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
         f"{res.audio.shape[0]} finite samples, rms {float(np.sqrt(np.mean(res.audio ** 2))):.4f}")
     want = {"exact": FULL_DEPTH_LAUNCHES, "cap": 0, "sage": 0}
@@ -1906,7 +1960,126 @@ def phase_full_depth_staged():
                              f"{mem0 / 2**30:.3f} GiB before")
     stats = {"launches": counts["exact"], "peak_gib": peak / 2**30, "step_s": step_s,
              "init_s": init_s, "staging": staging}
+    del pipe
+    stats.update(_full_depth_group(cfg, modules, res, counts, sizes, step_s))
     return stats
+
+
+def _full_depth_group(cfg, modules, staged, staged_counts, sizes, staged_step_s):
+    """Phase 14's request through `offload="group"` (group size 8) on the same
+    host masters, its denoise chained as two one-step ranges: bit-equal to
+    the staged request with the same launches, the denoise's peak under one
+    expert's bf16 bytes; then its first step again with `resident_small`,
+    bit-equal to the first range."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.diffusion.streamed import StreamStats, plan_groups
+
+    prompt, negative = "a cat playing the piano in a sunlit room", "blurry, low quality"
+    image = np.random.default_rng(14).uniform(
+        -1, 1, (REQUEST["height"], REQUEST["width"], 3)).astype("float32")
+    expert = sizes["video_dit"]
+    groups = plan_groups(cfg.bridge, cfg.video_dit.num_layers, GROUP_SIZE)
+
+    def streaming_pipe(**kw):
+        pipe = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(),
+                            compute_dtype=torch.bfloat16, device="cuda", offload="group",
+                            offload_group_size=GROUP_SIZE, **kw)
+        pipe.stream_stats = StreamStats()
+        steps, last = [], [0.0]
+
+        def on_step(step, total):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            nbytes, copy_s = pipe.stream_stats.take()
+            steps.append((now - last[0], nbytes, copy_s))
+            last[0] = now
+
+        pipe.progress_cb = on_step
+        return pipe, steps, last
+
+    pipe, steps, last = streaming_pipe()
+    peaks = {}
+
+    def request():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = pipe.prepare_state([prompt], [image], negative_prompts=[negative], seeds=[0],
+                                   **FULL_DEPTH_REQUEST)
+        torch.cuda.synchronize()
+        peaks["prepare"], prep_s = torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        last[0] = time.perf_counter()
+        first = pipe.denoise_state(state, max_steps=1)
+        done = pipe.denoise_state(first)
+        torch.cuda.synchronize()
+        peaks["denoise"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = pipe.finalize_state(done)[0]
+        torch.cuda.synchronize()
+        peaks["decode"], dec_s = torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+        return res, state, first, prep_s, dec_s
+
+    (res, state, first, prep_s, dec_s), counts = _count_flash(request)
+    top = max(peaks, key=peaks.get)
+    log(f"[full] group-streamed request (group size {GROUP_SIZE}, {len(groups)} groups, "
+        f"denoise as two chained one-step ranges): prepare {prep_s:.2f} s, denoise steps "
+        f"{', '.join(f'{t:.2f}' for t, _, _ in steps)} s (staged: "
+        f"{', '.join(f'{t:.2f}' for t in staged_step_s)} s), decode {dec_s:.2f} s; "
+        f"launches {counts}")
+    for i, (t, nbytes, copy_s) in enumerate(steps):
+        log(f"[full] group step {i}: {nbytes / 1e9:.3f} GB streamed, copy stream busy "
+            f"{copy_s:.3f} s ({nbytes / max(copy_s, 1e-9) / 1e9:.1f} GB/s) of the step's "
+            f"{t:.3f} s ({100 * copy_s / t:.1f} %); step minus staged step "
+            f"{t - staged_step_s[i]:+.3f} s")
+    log(f"[full] group peaks (max_memory_allocated): prepare {peaks['prepare'] / 2**30:.2f} "
+        f"GiB, denoise {peaks['denoise'] / 2**30:.2f} GiB (limit: one expert's bf16 bytes, "
+        f"{expert / 2**30:.2f} GiB), decode {peaks['decode'] / 2**30:.2f} GiB; the request's "
+        f"peak {peaks[top] / 2**30:.2f} GiB, set by the {top}")
+    same = np.array_equal(res.video, staged.video) and np.array_equal(res.audio, staged.audio)
+    log(f"[full] group video and audio bit-equal to the staged request's: {same}")
+    if not same:
+        diff = np.abs(res.video.astype(np.int16) - staged.video.astype(np.int16))
+        raise AssertionError(f"group-streamed request differs from the staged one: video "
+                             f"{int(diff.max())} levels at most, audio rel L2 "
+                             f"{np.linalg.norm(res.audio - staged.audio) / np.linalg.norm(staged.audio):.3e}")
+    if counts != staged_counts:
+        raise AssertionError(f"group launches {counts}, the staged request's {staged_counts}")
+    if peaks["denoise"] >= expert:
+        raise AssertionError(f"group denoise peak {peaks['denoise'] / 2**30:.2f} GiB, not "
+                             f"under one expert's {expert / 2**30:.2f} GiB")
+    del pipe
+
+    small, small_steps, small_last = streaming_pipe(offload_resident_small=True)
+
+    def one_step():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        small_last[0] = time.perf_counter()
+        out = small.denoise_state(state, max_steps=1)
+        torch.cuda.synchronize()
+        return out
+
+    out, small_counts = _count_flash(one_step)
+    small_peak = torch.cuda.max_memory_allocated()
+    t, nbytes, copy_s = small_steps[0]
+    equal = all(torch.equal(out[k], first[k]) for k in ("latents", "audio_latents"))
+    log(f"[full] resident_small step 0: {t:.2f} s, {nbytes / 1e9:.3f} GB streamed "
+        f"({100 * (1 - nbytes / steps[0][1]):.1f} % fewer than without), copy stream busy "
+        f"{copy_s:.3f} s ({nbytes / max(copy_s, 1e-9) / 1e9:.1f} GB/s); launches "
+        f"{small_counts}; peak {small_peak / 2**30:.2f} GiB; latents bit-equal to the "
+        f"group request's first range: {equal}")
+    if not equal or small_counts["exact"] != FULL_DEPTH_LAUNCHES // FULL_DEPTH_STEPS:
+        raise AssertionError(f"resident_small step: bit-equal {equal}, launches "
+                             f"{small_counts}")
+    return {"group_launches": counts["exact"], "group_peaks_gib": {
+                k: v / 2**30 for k, v in peaks.items()},
+            "group_steps": steps, "small_launches": small_counts["exact"],
+            "small_bytes": nbytes}
 
 
 def phase_full_depth_fp8():
@@ -1936,13 +2109,13 @@ def phase_full_depth_fp8():
                         device="cuda")
     torch.cuda.reset_peak_memory_stats()
     (res, prep_s, step_s, dec_s), counts = _count_flash(lambda: _serve_request(
-        pipe, "a cat playing the piano in a sunlit room", 0, REQUEST,
+        pipe, "a cat playing the piano in a sunlit room", 0, FULL_DEPTH_REQUEST,
         np.random.default_rng(14)))
     peak = torch.cuda.max_memory_allocated()
     log(f"[fp8] resident fp8 request: prepare {prep_s:.2f} s, denoise steps "
         f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {dec_s:.2f} s; launches {counts}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    _check_result(res, REQUEST)
+    _check_result(res, FULL_DEPTH_REQUEST)
     log(f"[fp8] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
         f"{res.audio.shape[0]} finite samples, rms {float(np.sqrt(np.mean(res.audio ** 2))):.4f}")
     want = {"exact": FULL_DEPTH_LAUNCHES, "cap": 0, "sage": 0}
@@ -2342,7 +2515,231 @@ def phase_checkpoint_cli(first, root: str):
     log("[cli] wrote " + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB"
                                    for p in written))
     return {"launches": counts["exact"] + counts8["exact"] + countsl["exact"],
-            "write_s": write_s, "ckpt": ckpt}
+            "write_s": write_s, "ckpt": ckpt, "request": request,
+            "audio_latents": kept["audio_latents"]}
+
+
+# phase 22: the group-streamed and disk-backed CLIs on phase 17's checkpoint. Each request
+# is phase 5's first (4 steps; 112 launches) and must give its video bit for bit.
+GROUP_CLI_RUNS = [
+    ("serve_cli_group_disk", ["--offload", "group", "--offload_group_size", "1",
+                              "--offload_to_disk_path", "STORE"]),
+    ("serve_cli_component_disk", ["--offload", "component", "--offload_to_disk_path", "STORE"]),
+    ("serve_cli_group_resident", ["--offload", "group", "--offload_resident_small",
+                                  "--offload_resident_groups", "1"]),
+]
+
+
+def phase_group_cli(first, ckpt: dict, root: str):
+    """Phase 22: phase 17's checkpoint through `cli.inference_single.run` with
+    group streaming and the disk-backed store (the first run exports it, the
+    second reads its manifest alone), each video bit-equal to phase 5's first
+    request; then, in process on the last run's pipeline, `denoise_state`
+    chained one step at a time under `cfg_cache_interval` 2 against one whole
+    call."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.cli import inference_single as cli
+
+    store = os.path.join(root, "store")
+    want = {"exact": LAUNCHES_PER_REQUEST, "cap": 0, "sage": 0}
+    launches, pipe = {}, None
+    for name, flags in GROUP_CLI_RUNS:
+        flags = [store if f == "STORE" else f for f in flags]
+        args = cli.parse_args(["--ckpt_path", ckpt["ckpt"]] + flags + ckpt["request"])
+        manifest = os.path.join(store, "manifest.json")
+        before = os.path.getmtime(manifest) if os.path.exists(manifest) else None
+        pipe = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (res, pipe), counts = _count_flash(lambda: cli.run(
+            args, tokenizer=ByteTokenizer(), image=first["image"]))
+        seconds = time.perf_counter() - t0
+        exported = before is None or os.path.getmtime(manifest) != before
+        same = np.array_equal(res.video, first["video"])
+        disk = ("" if "--offload_to_disk_path" not in flags else
+                f"store exported ({_dir_bytes(store) / 1e9:.3f} GB on disk); " if exported
+                else "store read from its manifest, no export; ")
+        log(f"[groupcli] {name}: {' '.join(flags)}: load and generate {seconds:.2f} s; "
+            f"launches {counts}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{disk}video bit-equal to phase 5's first request: {same}")
+        _check_result(res, REQUEST)
+        if counts != want or not same:
+            raise AssertionError(f"{name}: launches {counts} (expected {want}), video "
+                                 f"bit-equal {same}")
+        if name == "serve_cli_component_disk" and exported:
+            raise AssertionError("the second run exported the store again")
+        launches[name] = counts["exact"]
+
+    # partial ranges with the negative cache, in process on the last run's pipeline
+    kw = dict(height=REQUEST["height"], width=REQUEST["width"],
+              num_frames=REQUEST["num_frames"], video_fps=REQUEST["video_fps"],
+              num_inference_steps=REQUEST["num_inference_steps"],
+              sigma_shift=REQUEST["sigma_shift"], cfg_scale=REQUEST["cfg_scale"],
+              cfg_cache_interval=2)
+    state = pipe.prepare_state([first["prompt"]], [first["image"]],
+                               negative_prompts=[first["negative"]], seeds=[first["seed"]], **kw)
+    t0 = time.perf_counter()
+    whole, counts_whole = _count_flash(lambda: pipe.denoise_state(state))
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+
+    def chained():
+        part = state
+        for _ in range(REQUEST["num_inference_steps"]):
+            part = pipe.denoise_state(part, max_steps=1)
+        return part
+
+    t0 = time.perf_counter()
+    part, counts_part = _count_flash(chained)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(part[k], whole[k]) for k in ("latents", "audio_latents"))
+    log(f"[groupcli] denoise_state under cfg_cache_interval 2: one call {whole_s:.2f} s, "
+        f"launches {counts_whole}; four chained one-step calls "
+        f"{time.perf_counter() - t0:.2f} s, launches {counts_part}; bit-equal: {equal}")
+    if not equal or counts_part != counts_whole:
+        raise AssertionError(f"chained ranges: bit-equal {equal}, launches {counts_part} "
+                             f"against {counts_whole}")
+    launches["serve_group_partial_ranges"] = counts_whole["exact"] + counts_part["exact"]
+    del pipe
+    shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+# phase 23: the model code A9 ported. Pooled AdaLN at 360p token geometry in bf16 against
+# fp32 on the same inputs; the DAC checks run with cuDNN's TF32 off (fp32 convolutions), so
+# a window and the one pass differ only by the convolution algorithms' summation order.
+POOL_REL_TOL = 2e-2
+# (latent frames, height, width) of the 360p video tokens, the query-side heads, the video
+# and audio widths, the audio tokens
+POOL_GEOMETRY = dict(grid=(49, 22, 40), heads=40, kv_dim=5120, dim=1536, tokens=403)
+DAC_WINDOW_REL_TOL = 1e-4
+DAC_CHUNK_FRAMES = 128
+RVQ_CODE_SHARE = 0.99
+
+
+def phase_model_code(audio_latents):
+    """Phase 23: pooled AdaLN's pooling and AdaLN at 360p geometry; the DAC's
+    `decompress`/`compress` against `decode`/`encode_mode` at MOVA's widths
+    with windows forced; an RVQ DAC at the reference's defaults
+    (`encode_quantized`, `decode_codes` against `decode(z_q)`, `compress`'s
+    codes against the one pass); the Wan VAE's `encode_sample_streaming`
+    against its moments and the same noise."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.models import dac_vae, wan_vae
+    from dualforce_tpu_torch.models.bridge import (_AdaLN, PerFramePooling,
+                                                   adaln_from_pooled,
+                                                   per_frame_attention_pooling)
+    from dualforce_tpu_torch.models.factory import _build, _init_weights
+
+    cfg = main_path_config()
+    gen = torch.Generator("cuda").manual_seed(23)
+    out = {}
+
+    # 1. pooled AdaLN: y = 49 latent frames x 880 tokens at width 5120, 40 heads; x = the
+    # 403 audio tokens at width 1536
+    g = POOL_GEOMETRY
+    grid, heads = g["grid"], g["heads"]
+    pool = PerFramePooling(g["kv_dim"], cfg.bridge.eps, device="cuda", dtype=torch.bfloat16)
+    adaln = _AdaLN(g["kv_dim"], g["dim"], device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for m in (pool, adaln):
+            _init_weights(m, gen)
+        y = torch.randn(1, math.prod(grid), g["kv_dim"], generator=gen,
+                        device="cuda").bfloat16()
+        x = torch.randn(1, g["tokens"], g["dim"], generator=gen, device="cuda").bfloat16()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pooled = per_frame_attention_pooling(pool, y, grid, heads)
+        got = adaln_from_pooled(adaln, x, pooled)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        pool32, adaln32 = copy.deepcopy(pool).float(), copy.deepcopy(adaln).float()
+        pooled32 = per_frame_attention_pooling(pool32, y.float(), grid, heads)
+        want = adaln_from_pooled(adaln32, x.float(), pooled32)
+    pool_err, out_err = rel_err(pooled, pooled32), rel_err(got, want)
+    log(f"[model] pooled AdaLN at 360p geometry (y {tuple(y.shape)}, grid {grid}, {heads} "
+        f"heads, x {tuple(x.shape)}) in bf16: {ms:.2f} ms (first call); against fp32 on the "
+        f"card (TF32 "
+        f"matmuls off): pooled rel L2 {pool_err:.3e}, conditioned x {out_err:.3e} (limit "
+        f"{POOL_REL_TOL}); finite {bool(torch.isfinite(got).all())}")
+    if not (pool_err <= POOL_REL_TOL and out_err <= POOL_REL_TOL
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError("pooled AdaLN on the card disagrees with its fp32 run")
+    out["pool_rel"] = out_err
+    del pool, adaln, pool32, adaln32, y
+
+    flags = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    with torch.no_grad(), torch.backends.cudnn.flags(**flags):
+        # 2. the shipped DAC: windows against the one pass on the 360p request's latents
+        dac = _build(dac_vae.DACVAE, cfg.audio_vae, torch.device("cuda"), torch.float32, gen)
+        z = audio_latents.to("cuda").float()
+        t0 = time.perf_counter()
+        wav = dac_vae.decode(dac, z)
+        wav_w = dac_vae.decompress(dac, z, chunk_frames=DAC_CHUNK_FRAMES)
+        mean = dac_vae.encode_mode(dac, wav)
+        mean_w = dac_vae.compress(dac, wav, chunk_frames=DAC_CHUNK_FRAMES)
+        torch.cuda.synchronize()
+        dec_err, enc_err = rel_err(wav_w, wav), rel_err(mean_w, mean)
+        log(f"[model] DAC at MOVA's widths, {z.shape[-1]} latent frames in windows of "
+            f"{DAC_CHUNK_FRAMES} (+ {dac_vae.decoder_receptive_frames(cfg.audio_vae)} / "
+            f"{dac_vae.encoder_receptive_frames(cfg.audio_vae)} frames of overlap): "
+            f"decompress against decode rel L2 {dec_err:.3e}, compress against encode_mode "
+            f"{enc_err:.3e} (limit {DAC_WINDOW_REL_TOL}); {time.perf_counter() - t0:.2f} s")
+        if wav_w.shape != wav.shape or mean_w.shape != mean.shape or not (
+                dec_err <= DAC_WINDOW_REL_TOL and enc_err <= DAC_WINDOW_REL_TOL):
+            raise AssertionError("the DAC's windows disagree with its one pass")
+        del dac
+
+        # 3. an RVQ DAC at the reference's defaults (9 codebooks of 1024 x 8)
+        rvq_cfg = dataclasses.replace(cfg.audio_vae, continuous=False)
+        rvq = _build(dac_vae.DACVAE, rvq_cfg, torch.device("cuda"), torch.float32, gen)
+        t0 = time.perf_counter()
+        z_q, codes, _, commit, _ = dac_vae.encode_quantized(rvq, wav)
+        from_codes = dac_vae.decode_codes(rvq, codes)
+        from_zq = dac_vae.decode(rvq, z_q)
+        codes_w = dac_vae.compress(rvq, wav, chunk_frames=DAC_CHUNK_FRAMES)
+        torch.cuda.synchronize()
+        rvq_err = rel_err(from_codes, from_zq)
+        share = float((codes_w == codes).float().mean())
+        stage0 = float((codes_w[:, 0] == codes[:, 0]).float().mean())
+        log(f"[model] RVQ DAC ({rvq_cfg.n_codebooks} x {rvq_cfg.codebook_size} x "
+            f"{rvq_cfg.codebook_dim}): codes {tuple(codes.shape)} {codes.dtype}, commitment "
+            f"{float(commit):.4f}; decode_codes against decode(z_q) rel L2 {rvq_err:.3e} "
+            f"(limit {DAC_WINDOW_REL_TOL}); compress's codes equal to the one pass's in "
+            f"{share:.6f} of them (stage 0 {stage0:.6f}; limit {RVQ_CODE_SHARE}); "
+            f"{time.perf_counter() - t0:.2f} s")
+        if rvq_err > DAC_WINDOW_REL_TOL or share < RVQ_CODE_SHARE or \
+                codes.shape != (1, rvq_cfg.n_codebooks, z.shape[-1]):
+            raise AssertionError("the RVQ DAC disagrees with itself")
+        del rvq, wav, wav_w
+
+    # 4. the Wan VAE's sampled streaming encode at 360p (193 frames), TF32 convolutions
+    # as the pipeline runs them, deterministic algorithms so that two encodes agree
+    with torch.no_grad(), torch.backends.cudnn.flags(**dict(flags, allow_tf32=True)):
+        vae = _build(wan_vae.WanVAE, cfg.video_vae, torch.device("cuda"), torch.float32, gen)
+        video = torch.rand(1, REQUEST["num_frames"], REQUEST["height"], REQUEST["width"], 3,
+                           generator=gen, device="cuda") * 2 - 1
+        t0 = time.perf_counter()
+        mean, logvar = wan_vae.encode_moments_streaming(vae, video)
+        noise = torch.randn(mean.shape, generator=gen, device="cuda")
+        sample = wan_vae.encode_sample_streaming(vae, video, noise=noise)
+        torch.cuda.synchronize()
+        by_hand = mean + torch.exp(0.5 * logvar.clamp(-30.0, 20.0)) * noise
+        equal = torch.equal(sample, by_hand)
+        log(f"[model] Wan VAE encode_sample_streaming at {REQUEST['height']}x"
+            f"{REQUEST['width']}x{REQUEST['num_frames']}: latents {tuple(sample.shape)}, "
+            f"bit-equal to mean + exp(logvar / 2) * noise: {equal}; two encodes "
+            f"{time.perf_counter() - t0:.2f} s")
+        if not equal:
+            raise AssertionError("encode_sample_streaming is not its moments' draw")
+    return out
 
 
 # phase 18: the low-resource LoRA recipe (configs/training/lora_low_resource.py) at full
@@ -3421,6 +3818,9 @@ def phase_full_ft(first, ckpt: str, root: str, smi: str):
             "peak_save_gib": peak_kept, "registry": registry}
 
 
+START = time.perf_counter()
+
+
 def main() -> int:
     # Freed blocks of any size serve later requests of any size: without it the
     # 720p training phase loses some 11 GiB of the card to fragmentation and
@@ -3475,6 +3875,12 @@ def main() -> int:
         ckpt = timed_phase("cli", phase_checkpoint_cli, first, ckpt_root)
         gc.collect()
         torch.cuda.empty_cache()
+        group_cli = timed_phase("groupcli", phase_group_cli, first, ckpt, ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed_phase("model", phase_model_code, ckpt["audio_latents"])
+        gc.collect()
+        torch.cuda.empty_cache()
         lowres = timed_phase("lowres", phase_train_low_resource, root)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3500,8 +3906,10 @@ def main() -> int:
         "source": "dualforce_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:132",
         "launches": (serve_launches + train["fwd"] + train720["fwd"] + full["launches"]
+                     + full["group_launches"] + full["small_launches"]
                      + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
-                     + options["cfg_cache_interval_2"] + ckpt["launches"] + lr_l["fwd"]
+                     + options["cfg_cache_interval_2"] + ckpt["launches"]
+                     + sum(group_cli.values()) + lr_l["fwd"]
                      + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]
                      + ft_l["fwd"] + ft_save_l["fwd"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
@@ -3509,17 +3917,21 @@ def main() -> int:
                              "serve_fast_int4": prec["fast"]["exact"],
                              "train_720p": train720["fwd"],
                              "serve_full_depth_staged": full["launches"],
+                             "serve_full_depth_group": full["group_launches"],
+                             "serve_full_depth_group_resident_small":
+                             full["small_launches"],
                              "serve_full_depth_fp8": fp8["launches"],
                              "serve_cfg_batch_mask_ctx_pad": options["cfg_batch"],
                              "serve_mask_ctx_pad": options["unbatched"],
                              "serve_cfg_cache_interval_2": options["cfg_cache_interval_2"],
-                             "serve_cli_checkpoint": ckpt["launches"],
+                             "serve_cli_checkpoint": ckpt["launches"], **group_cli,
                              "train_low_resource_full_depth": lr_l["fwd"],
                              "train_cli": cli_l["fwd"], "serve_cli_trained_lora":
                              train_cli["serve"], "serve_http": serve_http["launches"],
                              "train_full_ft": ft_l["fwd"],
                              "train_full_ft_remat_save": ft_save_l["fwd"]},
         "full_depth_staged_peak_gib": full["peak_gib"],
+        "full_depth_group_peaks_gib": full["group_peaks_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),
         "ms": video_self["kernel_ms"],
@@ -3678,6 +4090,10 @@ def main() -> int:
                  "its int8 codes and the plain version's); the other shapes are on the "
                  "[kernel] lines",
     }]
+    log("[summary] phase seconds: " + ", ".join(f"{n} {t:.1f}"
+                                                for n, t in PHASE_SECONDS.items())
+        + f"; phases {sum(PHASE_SECONDS.values()):.1f} s, script "
+        f"{time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,14 @@
 
 It runs on the CUDA card unless `--device cpu` asks for the CPU (the plain
 PyTorch path, for tiny checkpoints). Weights stay resident on the card
-(`--offload none`) or wait in page-locked host memory and are staged per
-phase (`--offload cpu` or `component`). Flags of parts not yet ported exit
-with a message that names their ROADMAP item. Importing this module loads
-neither the model code, PIL nor transformers, so `--help` is quick.
+(`--offload none`), wait in page-locked host memory and are staged per
+phase (`--offload cpu` or `component`), or besides stream the active expert
+through the card in layer groups in every pass (`--offload group`);
+`--offload_to_disk_path DIR` keeps them as memmaps of a store in DIR
+instead (exported from the checkpoint on the first run). Flags of parts not
+yet ported exit with a message that names their ROADMAP item. Importing
+this module loads neither the model code, PIL nor transformers, so
+`--help` is quick.
 """
 
 from __future__ import annotations
@@ -49,9 +53,10 @@ def add_common_args(p: argparse.ArgumentParser, output: str, quantize) -> None:
                    choices=["none", "cpu", "group", "component"],
                    help="'cpu'/'component': the modules wait in page-locked host "
                         "memory and each is staged to the card for its phase (the "
-                        "two video experts never together); 'group' (layer-group "
-                        "streaming) is not ported yet (ROADMAP A9); default keeps "
-                        "the weights resident on the card")
+                        "two video experts never together); 'group' besides streams "
+                        "the active expert's blocks through the card in layer groups "
+                        "in every pass (the smallest footprint); default keeps the "
+                        "weights resident on the card")
     p.add_argument("--offload_group_size", type=int, default=8,
                    help="with --offload group: DiT layers per streamed group")
     p.add_argument("--weight_dtype", type=str, default="bf16", choices=["bf16", "fp8"],
@@ -77,11 +82,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--visual_shift", type=float, default=None)
     p.add_argument("--audio_shift", type=float, default=None)
     p.add_argument("--offload_resident_small", action="store_true",
-                   help="group offload only: not ported yet (ROADMAP A9)")
+                   help="group offload: keep the audio tower and the bridge on the card, "
+                        "stream only the video tower")
     p.add_argument("--offload_resident_groups", "--resident_groups", type=int, default=0,
-                   help="group offload only: not ported yet (ROADMAP A9), 0 only")
+                   help="group offload: keep the first N video layer groups on the card "
+                        "across passes (--resident_groups is accepted as an alias)")
     p.add_argument("--offload_to_disk_path", type=str, default=None, metavar="DIR",
-                   help="disk-backed weights: not ported yet (ROADMAP A9)")
+                   help="with --offload: keep the weights as memmaps of a store in DIR "
+                        "(exported on the first run), so the host holds page cache "
+                        "instead of the weights")
     p.add_argument("--remove_video_dit", action="store_true",
                    help="accepted and unused, as in the JAX CLI (which parses it "
                         "and never reads it)")
@@ -108,24 +117,62 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit, naming the ROADMAP item, where a flag asks for a part that is
-    not ported yet."""
+    not ported yet, or (as the JAX CLI does) for a disk store without
+    offload."""
     if args.cp_size > 1 or args.fsdp_size > 1:
         raise SystemExit("--cp_size and --fsdp_size above 1 need sequence and data "
                          "parallelism, which are not ported yet (ROADMAP A7)")
-    if (args.offload == "group" or getattr(args, "offload_resident_small", False)
-            or getattr(args, "offload_resident_groups", 0) > 0
-            or getattr(args, "offload_to_disk_path", None)):
-        raise SystemExit("--offload group, --offload_resident_small, "
-                         "--offload_resident_groups and --offload_to_disk_path need "
-                         "group streaming, which is not ported yet (ROADMAP A9)")
+    if getattr(args, "offload_to_disk_path", None) and args.offload == "none":
+        raise SystemExit("--offload_to_disk_path requires --offload cpu/group/component")
     if getattr(args, "vae_encode_dtype", None) == "bf16":
         raise SystemExit("--vae_encode_dtype bf16 is not ported yet (ROADMAP A1); the "
                          "VAE encodes fp32 tensors")
 
 
 def offload_mode(args: argparse.Namespace) -> str:
-    """The pipeline's offload mode for `--offload`."""
-    return "component" if args.offload in ("cpu", "component") else "none"
+    """The pipeline's offload mode for `--offload` ("cpu" is "component")."""
+    return {"cpu": "component"}.get(args.offload, args.offload)
+
+
+def offload_kwargs(args: argparse.Namespace) -> dict:
+    """`MOVAPipeline`'s offload arguments from the flags (those a CLI lacks
+    at their defaults)."""
+    return dict(offload=offload_mode(args), offload_group_size=args.offload_group_size,
+                offload_resident_small=getattr(args, "offload_resident_small", False),
+                offload_resident_video_groups=getattr(args, "offload_resident_groups", 0))
+
+
+def load_modules(args: argparse.Namespace, ckpt: str, cfg, dtype, device):
+    """The checkpoint's modules for the pipeline: resident on `device`, in
+    page-locked host memory under `--offload`, or, with
+    `--offload_to_disk_path`, memmaps of the store there. The store is
+    exported (one module at a time) unless its manifest's fingerprint
+    (checkpoint path, `--weight_dtype`, newest mtime, as the JAX CLI's)
+    matches; a matching store is read from the manifest alone."""
+    import os
+
+    from dualforce_tpu_torch.convert.load_checkpoint import load_pipeline_params
+
+    offload = offload_mode(args)
+    store = getattr(args, "offload_to_disk_path", None)
+    if not store:
+        return load_pipeline_params(ckpt, cfg, dtype=dtype, device=device,
+                                    host=offload != "none")
+    from dualforce_tpu_torch.convert import disk_store
+
+    ckpt = os.path.abspath(ckpt)
+    mtime = max((os.path.getmtime(os.path.join(ckpt, e)) for e in os.listdir(ckpt)),
+                default=0.0)
+    fp = f"{ckpt}|{args.weight_dtype}|{mtime:.0f}"
+    if not disk_store.store_matches(None, store, fingerprint=fp):
+        print(f"[info] exporting params to {store} (one-time)", flush=True)
+        nbytes, seconds = disk_store.export_checkpoint(ckpt, cfg, dtype, device, store, fp)
+        print(f"[info] store written: {nbytes / 1e9:.3f} GB in {seconds:.2f} s", flush=True)
+    else:
+        print(f"[info] store {store} matches the checkpoint; no export", flush=True)
+    print("[info] params are disk-backed memmaps; modules stream disk -> card per phase",
+          flush=True)
+    return disk_store.load_modules_mmap(store, cfg)
 
 
 def first_frame(args: argparse.Namespace, image=None):
@@ -161,25 +208,22 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
 
     from dualforce_tpu_torch import resolve_device
     from dualforce_tpu_torch.convert.load_checkpoint import (config_from_checkpoint,
-                                                             load_pipeline_params,
                                                              load_tokenizer)
     from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
     from dualforce_tpu_torch.utils.misc import device_timer, hbm_in_use_gb, profile_trace
 
     device = resolve_device(args.device)
-    offload = offload_mode(args)
     dtype = dtype or torch.bfloat16
     cfg = config_from_checkpoint(args.ckpt_path)
     wdtype = torch.float8_e4m3fn if args.weight_dtype == "fp8" else dtype
-    modules = load_pipeline_params(args.ckpt_path, cfg, dtype=wdtype, device=device,
-                                   host=offload != "none")
+    modules = load_modules(args, args.ckpt_path, cfg, wdtype, device)
     if device.type == "cuda":
         print(f"[info] card memory in use after loading: {hbm_in_use_gb(device):.2f} GB",
               flush=True)
     pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
-                        quantize=args.quantize, offload=offload,
-                        mask_ctx_pad=args.mask_ctx_pad)
+                        quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad,
+                        **offload_kwargs(args))
     frame = first_frame(args, image)
     with profile_trace(args.profile), device_timer("generation", device):
         result = pipe(prompt=args.prompt, image=frame, negative_prompt=args.negative_prompt,

@@ -13,7 +13,8 @@ fp8 cast (merging into fp8 storage would lose the delta). Each module is
 merged on the device it is loaded on; with `--offload cpu` or `component`
 it is page-locked only after that, one module at a time. (The JAX CLI
 merges on the host under `--offload`, where a TPU's memory cannot hold a
-tower beside the factors; the H100's 80 GB can.)
+tower beside the factors; the H100's 80 GB can.) `--offload group` streams
+the merged experts through the card in layer groups.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import os
 import time
 
 from dualforce_tpu_torch.cli.inference_single import (add_common_args, first_frame,
-                                                      offload_mode, refuse_unported, save)
+                                                      offload_kwargs, offload_mode,
+                                                      refuse_unported, save)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,7 +112,7 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
           f"weight_dtype={args.weight_dtype}) in {merge_s:.2f} s", flush=True)
     pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.base_model),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
-                        quantize=args.quantize, offload=offload_mode(args))
+                        quantize=args.quantize, **offload_kwargs(args))
     frame = first_frame(args, image)
     with device_timer("generation", device):
         result = pipe(prompt=args.prompt, image=frame, negative_prompt=args.negative_prompt,

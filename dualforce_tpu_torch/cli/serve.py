@@ -58,8 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--offload", type=str, default="none",
                     choices=["none", "component", "group"],
                     help="'component': the modules wait in page-locked host memory "
-                         "and each is staged to the card for its phase; 'group' "
-                         "(layer-group streaming) is not ported yet (ROADMAP A9)")
+                         "and each is staged to the card for its phase; 'group' besides "
+                         "streams the active expert's blocks through the card in layer "
+                         "groups in every pass")
     ap.add_argument("--offload_group_size", type=int, default=8,
                     help="with --offload group: DiT layers per streamed group")
     ap.add_argument("--cfg_cache_interval", type=int, default=1,
@@ -91,7 +92,8 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
     tokenizer: the checkpoint's (`load_tokenizer`) unless given; dtype: the
     towers' and UMT5's weight dtype under `--weight_dtype bf16` and the
     compute dtype (bf16 unless given). The pipeline is `server.pipe`."""
-    from dualforce_tpu_torch.cli.inference_single import offload_mode, refuse_unported
+    from dualforce_tpu_torch.cli.inference_single import (offload_kwargs, offload_mode,
+                                                          refuse_unported)
 
     refuse_unported(args)
     import torch
@@ -115,8 +117,8 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
                                    host=offload != "none")
     pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
-                        quantize=args.quantize, offload=offload,
-                        mask_ctx_pad=args.mask_ctx_pad)
+                        quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad,
+                        **offload_kwargs(args))
     print(f"[serve] checkpoint loaded and pipeline built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     if args.warmup:

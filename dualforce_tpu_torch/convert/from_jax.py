@@ -119,10 +119,16 @@ def bridge_state_dict(params, cfg: BridgeConfig) -> StateDict:
         for name, key in (("audio_to_video_conditioners", "a2v"),
                           ("video_to_audio_conditioners", "v2a")):
             p = _unstack(params[key], pos)
-            if "pool" in p:
-                raise NotImplementedError("pooled_adaln bridges are not ported")
             _ln(sd, f"{name}.{layer}.y_norm", p["y_norm"])
             _attn(sd, f"{name}.{layer}.inner", p["inner"])
+            if "pool" in p:
+                pool, pre = p["pool"], f"{name}.{layer}.per_frame_pooling"
+                sd[f"{pre}.probe"] = _np32(pool["probe"])
+                sd[f"{pre}.attention.in_proj_weight"] = _np32(pool["in_proj"]["kernel"]).T
+                sd[f"{pre}.attention.in_proj_bias"] = _np32(pool["in_proj"]["bias"])
+                _lin(sd, f"{pre}.attention.out_proj", pool["out_proj"])
+                _ln(sd, f"{pre}.layernorm", pool["ln"])
+                _lin(sd, f"{name}.{layer}.adaln.linear", p["adaln"]["linear"])
     if "condition_scale" in params:
         sd["condition_scale"] = _np32(params["condition_scale"])
     return sd
@@ -250,8 +256,15 @@ def dac_state_dict(params, cfg: DACVAEConfig) -> StateDict:
             unit(f"{pre}.{2 + j}", b[ru])
     snake(f"decoder.model.{1 + n_dec}", dec["snake_out"])
     conv(f"decoder.model.{2 + n_dec}", dec["conv_out"])
-    conv("quant_conv", params["quant_conv"])
-    conv("post_quant_conv", params["post_quant_conv"])
+    if "quantizer" in params:
+        for i, q in enumerate(params["quantizer"]):
+            pre = f"quantizer.quantizers.{i}"
+            conv(f"{pre}.in_proj", q["in_proj"])
+            conv(f"{pre}.out_proj", q["out_proj"])
+            sd[f"{pre}.codebook.weight"] = _np32(q["codebook"])
+    else:
+        conv("quant_conv", params["quant_conv"])
+        conv("post_quant_conv", params["post_quant_conv"])
     return sd
 
 

@@ -248,7 +248,10 @@ def config_from_checkpoint(ckpt_dir: str) -> MOVAConfig:
             decoder_rates=tuple(av.get("decoder_rates", (8, 5, 4, 3, 2))),
             latent_dim=av.get("latent_dim", 128),
             sample_rate=av.get("sample_rate", 48000),
-            continuous=av.get("continuous", True)),
+            continuous=av.get("continuous", True),
+            n_codebooks=av.get("n_codebooks", 9),
+            codebook_size=av.get("codebook_size", 1024),
+            codebook_dim=av.get("codebook_dim", 8)),
         text_encoder=text_encoder,
         boundary_ratio=pipe_cfg.get("boundary_ratio", 0.9),
         audio_vae_type=pipe_cfg.get("audio_vae_type", "dac"),
@@ -285,7 +288,8 @@ def config_dicts(cfg: MOVAConfig) -> Dict[str, Dict[str, Any]]:
                             "attn_scales", "temperal_downsample", "latents_mean",
                             "latents_std"),
         "audio_vae": fields(cfg.audio_vae, "encoder_dim", "encoder_rates", "decoder_dim",
-                            "decoder_rates", "latent_dim", "sample_rate", "continuous"),
+                            "decoder_rates", "latent_dim", "sample_rate", "continuous",
+                            "n_codebooks", "codebook_size", "codebook_dim"),
         "text_encoder": fields(te, "vocab_size", "d_model", "d_kv", "d_ff", "num_layers",
                                "num_heads", "relative_attention_num_buckets",
                                "relative_attention_max_distance", "layer_norm_epsilon"),

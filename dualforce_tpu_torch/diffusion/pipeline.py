@@ -4,8 +4,10 @@ Prompt clean -> UMT5 encode (padded to 512) -> video latents (streaming Wan
 VAE encode of the first frame + 4-channel temporal mask) -> audio latents ->
 paired flow-match denoise with the two-expert switch and text CFG -> bf16
 streaming Wan VAE decode and fp32 DAC decode. Weights stay resident on the
-device (offload "none") or wait in host memory and reach the card for the
-phase that uses them (offload "component"); attention takes the route
+device (offload "none"), wait in host memory and reach the card for the
+phase that uses them (offload "component"), or besides stream the active
+expert through the card in layer groups in every pass (offload "group",
+`diffusion/streamed.py`); attention takes the route
 `attn_impl` names; the DiT towers and the bridge may be quantized
 (`quantize`); the tokenizer is passed in.
 """
@@ -28,6 +30,7 @@ from dualforce_tpu_torch.config import MOVAConfig
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.diffusion.sampler import build_plan, denoise_range
 from dualforce_tpu_torch.diffusion.step import make_rope_pack
+from dualforce_tpu_torch.diffusion.streamed import denoise_streamed
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
 from dualforce_tpu_torch.ops.attention import ATTN_IMPLS
 
@@ -70,12 +73,14 @@ class MOVAPipeline:
     """Holds the modules and configs; drives tokenisation, encode, denoise and
     decode. modules: video_dit, video_dit_2 (optional), audio_dit, bridge,
     video_vae, audio_vae, text_encoder, all on `device` (offload "none") or
-    all in host memory (offload "component")."""
+    all in host memory (offload "component" or "group")."""
 
     def __init__(self, cfg: MOVAConfig, modules: Dict[str, torch.nn.Module],
                  tokenizer=None, compute_dtype: torch.dtype = torch.bfloat16,
                  device="cuda", attn_impl="auto", quantize: str = "none",
-                 offload: str = "none", mask_ctx_pad: bool = False):
+                 offload: str = "none", mask_ctx_pad: bool = False,
+                 offload_group_size: int = 8, offload_resident_small: bool = False,
+                 offload_resident_video_groups: int = 0):
         """attn_impl: "auto" | "fast" | "sage" | "pallas" | "ref" | a callable,
         the route of every attention (`ops.attention.attention`).
 
@@ -98,8 +103,17 @@ class MOVAPipeline:
         whole denoise with each video expert for its own steps (the two
         experts are never on the device together), both VAEs for the decode.
         With `quantize`, each tower is staged, quantized on the device and
-        moved back to host memory before the next one. "group" (layerwise
-        streaming) is not ported.
+        moved back to host memory before the next one. "group": as
+        "component", but the denoise stages only what the towers hold
+        besides their blocks, and each pass streams the active expert's
+        blocks, the audio tower's and the bridge's conditioners through the
+        card `offload_group_size` layers at a time, two groups in flight
+        (`diffusion/streamed.py`); `offload_resident_small` keeps the audio
+        tower and the bridge on the card for each expert's phase instead, so
+        only the video groups stream, and `offload_resident_video_groups`
+        keeps the first K video groups there. Modules in pageable memory
+        (the disk-backed store's memmaps, `convert/disk_store.py`) stage
+        from it as they are.
 
         mask_ctx_pad: the text cross-attentions attend only each prompt's
         tokens (the per-batch kv mask) instead of the zero-padded 512, as
@@ -110,10 +124,14 @@ class MOVAPipeline:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if offload not in ("none", "component", "group"):
             raise ValueError(f"unknown offload mode {offload!r}")
-        if offload == "group":
-            raise NotImplementedError("offload 'group' is not ported")
         self.device = resolve_device(device)
         self.offload = offload
+        self.offload_group_size = int(offload_group_size)
+        self.offload_resident_small = bool(offload_resident_small)
+        self.offload_resident_video_groups = int(offload_resident_video_groups)
+        # stream_stats: a streamed.StreamStats that group offload's sweeps count
+        # into (bytes, copy-stream time), or None
+        self.stream_stats = None
         home = self.device.type if offload == "none" else "cpu"
         for name, m in modules.items():
             p = next(m.parameters())
@@ -147,7 +165,7 @@ class MOVAPipeline:
     @contextlib.contextmanager
     def _staged(self, *names: str):
         """The modules with `names` on the device for the block: the resident
-        modules themselves, or (offload "component") staged copies of them,
+        modules themselves, or (offload "component", "group") staged copies of them,
         freed when the block ends."""
         if self.offload == "none":
             yield self.modules
@@ -282,6 +300,7 @@ class MOVAPipeline:
             "latents": latents, "condition": condition, "audio_latents": audio_latents,
             "ctx_pos": ctx_pos, "ctx_neg": ctx_neg,
             "ctx_len_pos": ctx_len_pos, "ctx_len_neg": ctx_len_neg,
+            "neg_cache_v": None, "neg_cache_a": None,
         }
 
     def _plan_for(self, s: Dict[str, Any]):
@@ -301,9 +320,13 @@ class MOVAPipeline:
     @torch.no_grad()
     def denoise_state(self, state: Dict[str, Any],
                       max_steps: Optional[int] = None) -> Dict[str, Any]:
-        """Run the denoise steps: all of them, as JAX does outside group
-        offload (a partial range, `max_steps` or a state past step 0, raises;
-        group offload is not ported). State arrays may be numpy or tensors."""
+        """Advance the denoise by up to `max_steps` steps (all that remain when
+        None). Partial ranges need offload "group", as in the JAX package:
+        a state past step 0 or a `max_steps` short of the end raises
+        otherwise. Under "group" the state carries the CFG negative cache
+        (`neg_cache_v`, `neg_cache_a`), which a range resumed mid-phase
+        continues from (never across the expert switch), so chained ranges
+        give the whole range's bits. State arrays may be numpy or tensors."""
         s = state["settings"]
         plan = self._plan_for(s)
         n = plan.num_steps
@@ -311,9 +334,8 @@ class MOVAPipeline:
         stop = n if max_steps is None else min(n, start + int(max_steps))
         if start >= stop:
             return state
-        if start != 0 or stop != n:
-            raise ValueError("partial denoise_state ranges require offload='group', "
-                             "which is not ported")
+        if self.offload != "group" and (start != 0 or stop != n):
+            raise ValueError("partial denoise_state ranges require offload='group'")
 
         def dev(x):
             return None if x is None else _to_device(x, self.device)
@@ -337,12 +359,34 @@ class MOVAPipeline:
                   ctx_len_neg=dev(state.get("ctx_len_neg")), attn_impl=self.attn_impl)
         # each expert for its own steps: with offload, one on the device at a time
         split = plan.boundary_step if "video_dit_2" in self.modules else n
-        with self._staged("audio_dit", "bridge") as shared:
-            for tower, p0, p1 in (("video_dit", 0, split), ("video_dit_2", split, n)):
-                if p1 > p0:
-                    latents, audio_latents = self._phase(tower, shared, args, p0, p1, kw)
-                    args = (latents, condition, audio_latents) + args[3:]
-        return dict(state, step=n, latents=latents, audio_latents=audio_latents)
+        phases = (("video_dit", 0, split), ("video_dit_2", split, n))
+        cache = None
+        if self.offload == "group":
+            if state.get("neg_cache_v") is not None:
+                cache = (dev(state["neg_cache_v"]), dev(state["neg_cache_a"]))
+            for tower, p0, p1 in phases:
+                a, b = max(p0, start), min(p1, stop)
+                if b <= a:
+                    continue
+                # the cache carries only into a range resumed mid-phase: at an
+                # expert switch the other expert's negative must not seed it
+                carry = cache if a == start and a > p0 else None
+                latents, audio_latents, cache = denoise_streamed(
+                    self.modules[tower], self.modules["audio_dit"], self.modules["bridge"],
+                    *args[:5], plan, a, b, group_size=self.offload_group_size,
+                    resident_small=self.offload_resident_small,
+                    resident_video_groups=self.offload_resident_video_groups,
+                    neg_cache=carry, return_neg_cache=True, stats=self.stream_stats, **kw)
+                args = (latents, condition, audio_latents) + args[3:]
+        else:
+            with self._staged("audio_dit", "bridge") as shared:
+                for tower, p0, p1 in phases:
+                    if p1 > p0:
+                        latents, audio_latents = self._phase(tower, shared, args, p0, p1, kw)
+                        args = (latents, condition, audio_latents) + args[3:]
+        neg_v, neg_a = cache if cache is not None else (None, None)
+        return dict(state, step=stop, latents=latents, audio_latents=audio_latents,
+                    neg_cache_v=neg_v, neg_cache_a=neg_a)
 
     def _phase(self, tower: str, shared, args, start: int, stop: int, kw):
         """Steps [start, stop) with the expert `tower` staged for them alone."""

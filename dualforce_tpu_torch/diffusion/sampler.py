@@ -5,13 +5,15 @@ low-noise video expert at `boundary_step`, text CFG as a second pass or
 batched with the first, a cached negative pass, dual CFG, per-item context
 lengths, and per-modality Euler updates on independent sigma columns. The
 JAX package compiles the loop into one XLA program per expert phase; here
-it is a Python loop. `denoise_range` runs one expert's phase.
+it is a Python loop. `denoise_range` runs one expert's phase. `denoise_steps`
+holds the step (its passes, the CFG combine, the Euler update) for both the
+resident passes and the layer-group streamed ones (`diffusion/streamed.py`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +46,38 @@ def build_plan(scheduler: FlowMatchPairScheduler, boundary_ratio: float) -> Samp
     return SamplePlan(pair_timesteps=pairs.astype(np.float32),
                       sigmas_visual=sig_v, sigmas_audio=sig_a,
                       boundary_step=boundary_step)
+
+
+class Pass(NamedTuple):
+    """One forward pass of a step: its text context, the context lengths,
+    the bridge's condition scale (None: the bridge's own) and whether the
+    step's inputs go in twice (the batched CFG pair, B -> 2B)."""
+    context: torch.Tensor
+    ctx_len: Optional[torch.Tensor]
+    bridge_scale: Optional[float] = None
+    doubled: bool = False
+
+
+def resident_passes(video, audio, bridge, video_fps: float = 24.0,
+                    compute_dtype: torch.dtype = torch.bfloat16, rope_pack=None,
+                    attn_impl="auto"):
+    """run(passes, model_in, alat, t, at) -> [(v, a) fp32 per pass]: each pass
+    one `dual_tower_step` on the expert `video`, whose modules are on the
+    device."""
+    def run(passes: List[Pass], model_in, alat, t, at):
+        outs = []
+        for p in passes:
+            mi, al, tt, att = ((torch.cat([model_in, model_in]), torch.cat([alat, alat]),
+                                t.repeat(2), at.repeat(2)) if p.doubled
+                               else (model_in, alat, t, at))
+            v, a = dual_tower_step(video, audio, bridge, mi, al, p.context, tt, att,
+                                   video_fps=video_fps, condition_scale=p.bridge_scale,
+                                   compute_dtype=compute_dtype, attn_impl=attn_impl,
+                                   ctx_valid_len=p.ctx_len, rope_pack=rope_pack)
+            outs.append((v.float(), a.float()))
+        return outs
+
+    return run
 
 
 def denoise_range(
@@ -103,12 +137,35 @@ def denoise_loop(
 
 
 def _denoise(phases, audio, bridge, latents, condition, audio_latents, ctx_pos, ctx_neg,
-             plan: SamplePlan, cfg_scale: float = 5.0, video_fps: float = 24.0,
-             cfg_batch: bool = False, compute_dtype: torch.dtype = torch.bfloat16,
-             rope_pack=None, cfg_cache_interval: int = 1, cfg_scale_bridge: float = 0.0,
-             progress_fn=None, ctx_len_pos: Optional[torch.Tensor] = None,
-             ctx_len_neg: Optional[torch.Tensor] = None, attn_impl="auto"):
-    """The loop over `phases`, [(video expert, start, stop)], in order."""
+             plan: SamplePlan, video_fps: float = 24.0,
+             compute_dtype: torch.dtype = torch.bfloat16, rope_pack=None,
+             attn_impl="auto", **kwargs):
+    """The loop over `phases`, [(video expert, start, stop)], in order; the
+    CFG negative cache starts empty in each."""
+    lat, alat = latents, audio_latents
+    for video, start, stop in phases:
+        if stop > start:
+            run = resident_passes(video, audio, bridge, video_fps, compute_dtype, rope_pack,
+                                  attn_impl)
+            lat, alat, _ = denoise_steps(run, lat, condition, alat, ctx_pos, ctx_neg, plan,
+                                         start, stop, **kwargs)
+    return lat, alat
+
+
+def denoise_steps(run, latents, condition, audio_latents, ctx_pos, ctx_neg,
+                  plan: SamplePlan, start: int, stop: int, cfg_scale: float = 5.0,
+                  cfg_batch: bool = False, cfg_cache_interval: int = 1,
+                  cfg_scale_bridge: float = 0.0, progress_fn=None,
+                  ctx_len_pos: Optional[torch.Tensor] = None,
+                  ctx_len_neg: Optional[torch.Tensor] = None,
+                  neg_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Steps [start, stop) of one expert: each step's passes through `run`
+    (`resident_passes`, or the streamed pass's one staging sweep), the CFG
+    combine and the per-modality Euler update. `neg_cache`: the cached
+    negative prediction (v, a) a previous range of the same expert left,
+    so that a range split mid-phase reproduces the unsplit run; without it
+    the range's first step refreshes the cache. Returns (latents,
+    audio_latents, the negative cache or None)."""
     use_cfg = cfg_scale != 1.0 and ctx_neg is not None
     use_dual = cfg_scale_bridge != 0.0
     cache_neg = use_cfg and cfg_cache_interval > 1
@@ -120,49 +177,44 @@ def _denoise(phases, audio, bridge, latents, condition, audio_latents, ctx_pos, 
         ctx_len_pos = ctx_len_pos.to(torch.int32).reshape(b)
     if ctx_len_neg is not None:
         ctx_len_neg = ctx_len_neg.to(torch.int32).reshape(b)
+    pos = Pass(ctx_pos, ctx_len_pos)
     if use_cfg and cfg_batch:
-        ctx_both = torch.cat([ctx_pos, ctx_neg])
-        len_both = (torch.cat([ctx_len_pos, ctx_len_neg])
-                    if ctx_len_pos is not None and ctx_len_neg is not None else None)
-
-    def run(video, ctx, model_in, alat, t, at, ctx_len, bridge_scale=None):
-        v, a = dual_tower_step(video, audio, bridge, model_in, alat, ctx, t, at,
-                               video_fps=video_fps, condition_scale=bridge_scale,
-                               compute_dtype=compute_dtype, attn_impl=attn_impl,
-                               ctx_valid_len=ctx_len, rope_pack=rope_pack)
-        return v.float(), a.float()
-
+        pos = Pass(torch.cat([ctx_pos, ctx_neg]),
+                   torch.cat([ctx_len_pos, ctx_len_neg])
+                   if ctx_len_pos is not None and ctx_len_neg is not None else None,
+                   doubled=True)
     lat, alat = latents, audio_latents
-    for video, start, stop in phases:
-        neg = None
-        for i in range(start, stop):
-            t = torch.full((b,), float(plan.pair_timesteps[i, 0]), dtype=torch.float32,
-                           device=lat.device)
-            at = torch.full((b,), float(plan.pair_timesteps[i, 1]), dtype=torch.float32,
-                            device=lat.device)
-            model_in = torch.cat([lat, condition], dim=1)
-            if use_cfg and cfg_batch:
-                v, a = run(video, ctx_both, torch.cat([model_in, model_in]),
-                           torch.cat([alat, alat]), t.repeat(2), at.repeat(2), len_both)
-                v_pos, v_neg, a_pos, a_neg = v[:b], v[b:], a[:b], a[b:]
-            else:
-                v_pos, a_pos = run(video, ctx_pos, model_in, alat, t, at, ctx_len_pos)
-                if use_cfg:
-                    if neg is None or not cache_neg or i % cfg_cache_interval == 0:
-                        neg = run(video, ctx_neg, model_in, alat, t, at, ctx_len_neg)
-                    v_neg, a_neg = neg
-            if use_cfg:
-                v_pred = v_neg + cfg_scale * (v_pos - v_neg)
-                a_pred = a_neg + cfg_scale * (a_pos - a_neg)
-            else:
-                v_pred, a_pred = v_pos, a_pos
-            if use_dual:
-                v_nb, a_nb = run(video, ctx_pos, model_in, alat, t, at, ctx_len_pos,
-                                 bridge_scale=0.0)
-                v_pred = v_pred + cfg_scale_bridge * (v_pos - v_nb)
-                a_pred = a_pred + cfg_scale_bridge * (a_pos - a_nb)
-            lat = lat + v_pred * float(plan.sigmas_visual[i + 1] - plan.sigmas_visual[i])
-            alat = alat + a_pred * float(plan.sigmas_audio[i + 1] - plan.sigmas_audio[i])
-            if progress_fn is not None:
-                progress_fn(i + 1, plan.num_steps)
-    return lat, alat
+    neg = neg_cache
+    for i in range(start, stop):
+        t = torch.full((b,), float(plan.pair_timesteps[i, 0]), dtype=torch.float32,
+                       device=lat.device)
+        at = torch.full((b,), float(plan.pair_timesteps[i, 1]), dtype=torch.float32,
+                        device=lat.device)
+        model_in = torch.cat([lat, condition], dim=1)
+        refresh = (use_cfg and not cfg_batch
+                   and (neg is None or not cache_neg or i % cfg_cache_interval == 0))
+        passes = [pos] + ([Pass(ctx_neg, ctx_len_neg)] if refresh else [])
+        if use_dual:
+            passes.append(Pass(ctx_pos, ctx_len_pos, bridge_scale=0.0))
+        outs = run(passes, model_in, alat, t, at)
+        v_pos, a_pos = outs[0]
+        if use_cfg and cfg_batch:
+            v_pos, v_neg, a_pos, a_neg = v_pos[:b], v_pos[b:], a_pos[:b], a_pos[b:]
+        elif use_cfg:
+            if refresh:
+                neg = outs[1]
+            v_neg, a_neg = neg
+        if use_cfg:
+            v_pred = v_neg + cfg_scale * (v_pos - v_neg)
+            a_pred = a_neg + cfg_scale * (a_pos - a_neg)
+        else:
+            v_pred, a_pred = v_pos, a_pos
+        if use_dual:
+            v_nb, a_nb = outs[-1]
+            v_pred = v_pred + cfg_scale_bridge * (v_pos - v_nb)
+            a_pred = a_pred + cfg_scale_bridge * (a_pos - a_nb)
+        lat = lat + v_pred * float(plan.sigmas_visual[i + 1] - plan.sigmas_visual[i])
+        alat = alat + a_pred * float(plan.sigmas_audio[i + 1] - plan.sigmas_audio[i])
+        if progress_fn is not None:
+            progress_fn(i + 1, plan.num_steps)
+    return lat, alat, neg

@@ -59,6 +59,36 @@ def make_rope_pack(vcfg: VideoDiTConfig, acfg: AudioDiTConfig, bcfg: BridgeConfi
     return pack
 
 
+def step_prologue(video: VideoDiT, audio: AudioDiT, visual_latents: torch.Tensor,
+                  audio_latents: torch.Tensor, context: torch.Tensor,
+                  timestep: torch.Tensor, audio_timestep: torch.Tensor,
+                  compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, object]:
+    """What the step computes before the blocks (the JAX package's `_pre` of
+    `diffusion/streamed.py`): fp32 time embeddings cast to the compute dtype,
+    each tower's text embedding and both patchifies. Returns {"visual_x",
+    "audio_x", "visual_ctx", "audio_ctx", "v_t", "v_t_mod", "a_t", "a_t_mod",
+    "grid", "audio_tokens"}."""
+    v_t, v_t_mod = video.time_embeds(timestep)
+    a_t, a_t_mod = audio.time_embeds(audio_timestep)
+    ctx = context.to(compute_dtype)
+    visual_x, grid = video.patchify(visual_latents.to(compute_dtype))
+    audio_x, f = audio.patchify(audio_latents.to(compute_dtype))
+    return {"visual_x": visual_x, "audio_x": audio_x,
+            "visual_ctx": video.embed_text(ctx), "audio_ctx": audio.embed_text(ctx),
+            "v_t": v_t.to(compute_dtype), "v_t_mod": v_t_mod.to(compute_dtype),
+            "a_t": a_t.to(compute_dtype), "a_t_mod": a_t_mod.to(compute_dtype),
+            "grid": grid, "audio_tokens": f}
+
+
+def step_head(video: VideoDiT, audio: AudioDiT, pre: Dict[str, object],
+              visual_x: torch.Tensor, audio_x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The heads and unpatchify after the blocks (JAX's `_head`)."""
+    visual_out = video.unpatchify(video.head(visual_x, pre["v_t"]), pre["grid"])
+    audio_out = audio.unpatchify(audio.head(audio_x, pre["a_t"]))
+    return visual_out, audio_out
+
+
 def dual_tower_step(
     video: VideoDiT,
     audio: AudioDiT,
@@ -80,34 +110,23 @@ def dual_tower_step(
     params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (visual prediction [B, out, F, H, W], audio prediction
-    [B, out, T]) in the compute dtype. `remat` and `params` (tensors in place
-    of the layers' own parameters, e.g. LoRA-merged weights) go to
-    `forward_dual_tower`."""
+    [B, out, T]) in the compute dtype: `step_prologue`, every layer of
+    `forward_dual_tower`, `step_head`. The layer-group streamed pass
+    (`diffusion/streamed.py`) runs the same three with the layers in groups.
+    `remat` and `params` (tensors in place of the layers' own parameters,
+    e.g. LoRA-merged weights) go to `forward_dual_tower`."""
     if audio_timestep is None:
         audio_timestep = timestep
-    v_t, v_t_mod = video.time_embeds(timestep)
-    a_t, a_t_mod = audio.time_embeds(audio_timestep)
-    v_t, v_t_mod = v_t.to(compute_dtype), v_t_mod.to(compute_dtype)
-    a_t, a_t_mod = a_t.to(compute_dtype), a_t_mod.to(compute_dtype)
-
-    ctx = context.to(compute_dtype)
-    visual_ctx = video.embed_text(ctx)
-    audio_ctx = audio.embed_text(ctx)
-
-    visual_x, grid = video.patchify(visual_latents.to(compute_dtype))
-    audio_x, f = audio.patchify(audio_latents.to(compute_dtype))
-
+    pre = step_prologue(video, audio, visual_latents, audio_latents, context, timestep,
+                        audio_timestep, compute_dtype)
     if rope_pack is None:
-        rope_pack = make_rope_pack(video.cfg, audio.cfg, bridge.cfg, grid, f,
-                                   video_fps, visual_x.device)
+        rope_pack = make_rope_pack(video.cfg, audio.cfg, bridge.cfg, pre["grid"],
+                                   pre["audio_tokens"], video_fps, pre["visual_x"].device)
     visual_x, audio_x = forward_dual_tower(
-        video.blocks, audio.blocks, bridge, visual_x, audio_x, visual_ctx, audio_ctx,
-        v_t_mod, a_t_mod, rope_pack["v"], rope_pack["a"],
-        cross_rope=rope_pack.get("cross"), condition_scale=condition_scale,
-        a2v_condition_scale=a2v_condition_scale,
+        video.blocks, audio.blocks, bridge, pre["visual_x"], pre["audio_x"],
+        pre["visual_ctx"], pre["audio_ctx"], pre["v_t_mod"], pre["a_t_mod"],
+        rope_pack["v"], rope_pack["a"], cross_rope=rope_pack.get("cross"),
+        condition_scale=condition_scale, a2v_condition_scale=a2v_condition_scale,
         v2a_condition_scale=v2a_condition_scale, attn_impl=attn_impl,
-        ctx_valid_len=ctx_valid_len, remat=remat, params=params)
-
-    visual_out = video.unpatchify(video.head(visual_x, v_t), grid)
-    audio_out = audio.unpatchify(audio.head(audio_x, a_t))
-    return visual_out, audio_out
+        ctx_valid_len=ctx_valid_len, remat=remat, params=params, video_grid=pre["grid"])
+    return step_head(video, audio, pre, visual_x, audio_x)

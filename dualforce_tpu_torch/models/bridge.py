@@ -6,14 +6,25 @@ audio, kv = video). Each normalises the conditioning sequence, RMS-norms q
 and k, applies the time-aligned rotate-half RoPE on each side and adds its
 output scaled by the condition scale. Conditioners are named by shared-layer
 index (`audio_to_video_conditioners.{layer}`), as in the MOVA state dict.
-The pooled-AdaLN variant and the sequence-parallel variants are not ported.
+
+With `pooled_adaln`, each v2a block first conditions the audio side on the
+video pooled per frame: a learned probe attends over each frame's H*W
+tokens (`nn.MultiheadAttention` semantics, one query, fp32 softmax as the
+JAX package computes it with `einsum`), the pooled frames are interpolated
+linearly in time to the audio's length, and an AdaLN (no affine, eps 1e-5)
+takes its scale and shift from them. The parameters carry the reference's
+names (`per_frame_pooling.probe`, `per_frame_pooling.attention.in_proj_weight`,
+`per_frame_pooling.layernorm`, `adaln.linear`). The sequence-parallel
+variants are not ported (ROADMAP A7).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import copy
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dualforce_tpu_torch import nn as dnn
@@ -30,18 +41,111 @@ def _rotation(freqs):
     return lambda t: apply_rope_half(t, *freqs)
 
 
+class _PoolAttention(nn.Module):
+    """The packed projections of `nn.MultiheadAttention` (its names)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        f = dict(device=device, dtype=dtype)
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim, **f))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim, **f))
+        self.out_proj = nn.Linear(dim, dim, **f)
+
+
+class PerFramePooling(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None, dtype=None):
+        super().__init__()
+        f = dict(device=device, dtype=dtype)
+        self.probe = nn.Parameter(torch.empty(1, 1, dim, **f))
+        self.attention = _PoolAttention(dim, **f)
+        self.layernorm = dnn.LayerNorm(dim, eps, **f)
+
+
+class _AdaLN(nn.Module):
+    def __init__(self, cond_dim: int, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.linear = nn.Linear(cond_dim, 2 * dim, device=device, dtype=dtype)
+
+
+def per_frame_attention_pooling(pool: PerFramePooling, y: torch.Tensor,
+                                grid: Tuple[int, int, int], num_heads: int) -> torch.Tensor:
+    """y [B, T*H*W, d] -> per-frame pooled [B, T, d]: the probe attends over
+    each frame's tokens (logits and softmax in fp32), then the output
+    projection and the LayerNorm."""
+    b, _, d = y.shape
+    t, h, w = grid
+    hd = d // num_heads
+    yf = y.reshape(b * t, h * w, d)
+    wq, wk, wv = pool.attention.in_proj_weight.to(y.dtype).chunk(3, dim=0)   # fp8: upcast
+    bq, bk, bv = pool.attention.in_proj_bias.to(y.dtype).chunk(3)
+    q = F.linear(pool.probe.to(y.dtype), wq, bq).reshape(num_heads, hd)
+    k = F.linear(yf, wk, bk).reshape(b * t, h * w, num_heads, hd)
+    v = F.linear(yf, wv, bv).reshape(b * t, h * w, num_heads, hd)
+    logits = torch.einsum("nd,bknd->bnk", q.float(), k.float()) * hd ** -0.5
+    o = torch.einsum("bnk,bknd->bnd", logits.softmax(dim=-1), v.float()).to(y.dtype)
+    pooled = pool.attention.out_proj(o.reshape(b * t, 1, d)).reshape(b, t, d)
+    return pool.layernorm(pooled)
+
+
+def interp_linear_time(x: torch.Tensor, target_len: int) -> torch.Tensor:
+    """x [B, T, C] resampled linearly to [B, target_len, C] along T (half-pixel
+    centres, `F.interpolate(mode="linear", align_corners=False)`). Shrinking
+    filters with the stretched triangle as `jax.image.resize(..., "linear")`
+    does (antialiasing), which the plain F.interpolate does not (ROADMAP C,
+    caveat 11); growing is the same in both."""
+    if x.shape[1] == target_len:
+        return x
+    xt = x.transpose(1, 2)
+    if target_len > x.shape[1]:
+        out = F.interpolate(xt, size=target_len, mode="linear", align_corners=False)
+    else:
+        out = F.interpolate(xt[:, :, None, :], size=(1, target_len), mode="bilinear",
+                            align_corners=False, antialias=True)[:, :, 0, :]
+    return out.transpose(1, 2)
+
+
+def adaln_from_pooled(adaln: _AdaLN, x: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
+    """LayerNorm(x) (no affine, eps 1e-5) * (1 + scale) + shift, scale and
+    shift from the pooled condition interpolated to x's length."""
+    temb = adaln.linear(F.silu(interp_linear_time(pooled, x.shape[1])))
+    scale, shift = temb.chunk(2, dim=2)
+    return dnn.layer_norm(x, 1e-5) * (1 + scale) + shift
+
+
 class ConditionalCrossAttentionBlock(nn.Module):
     def __init__(self, dim: int, kv_dim: int, num_heads: int, eps: float = 1e-6,
-                 device=None, dtype=None):
+                 pooled_adaln: bool = False, device=None, dtype=None):
         super().__init__()
+        if pooled_adaln and kv_dim % num_heads:
+            raise ValueError(
+                f"pooled_adaln pools the kv side ({kv_dim}) over the query-side head "
+                f"count ({num_heads}); kv_dim % num_heads must be 0 "
+                "(interactionv2.py:326 has the same constraint)")
         self.num_heads = num_heads
+        self.eps = eps
         self.y_norm = dnn.LayerNorm(kv_dim, eps, device=device, dtype=dtype)
         self.inner = Attention(dim, kv_dim, eps, device=device, dtype=dtype)
+        if pooled_adaln:
+            self.per_frame_pooling = PerFramePooling(kv_dim, eps, device=device, dtype=dtype)
+            self.adaln = _AdaLN(kv_dim, dim, device=device, dtype=dtype)
+
+    def pooled_condition(self, x: torch.Tensor, y: torch.Tensor,
+                         grid: Tuple[int, int, int]) -> torch.Tensor:
+        """x conditioned by AdaLN on y pooled per frame of `grid`."""
+        pooled = per_frame_attention_pooling(self.per_frame_pooling, y, grid,
+                                             self.num_heads)
+        return adaln_from_pooled(self.adaln, x, pooled)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, x_freqs, y_freqs,
-                attn_impl="auto",
-                kv_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """LayerNorm(y), then cross-attention of x over y with per-side RoPE."""
+                attn_impl="auto", kv_valid_len: Optional[torch.Tensor] = None,
+                video_grid: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+        """LayerNorm(y), then cross-attention of x over y with per-side RoPE;
+        with pooled AdaLN, x is first conditioned on y pooled per frame of
+        `video_grid`."""
+        if hasattr(self, "per_frame_pooling"):
+            if video_grid is None:
+                raise ValueError("pooled_adaln requires video_grid")
+            x = self.pooled_condition(x, y, video_grid)
         b, sx, dim = x.shape
         q, k, v = self.inner.qkv(x, self.y_norm(y), self.num_heads, _rotation(x_freqs),
                                  _rotation(y_freqs))
@@ -57,8 +161,6 @@ class DualTowerBridge(nn.Module):
 
     def __init__(self, cfg: BridgeConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.pooled_adaln:
-            raise NotImplementedError("pooled_adaln bridges are not ported")
         self.cfg = cfg
         f = dict(device=device, dtype=dtype)
         v_heads = cfg.visual_hidden_dim // cfg.head_dim
@@ -67,9 +169,11 @@ class DualTowerBridge(nn.Module):
         self.audio_to_video_conditioners = nn.ModuleDict({
             i: ConditionalCrossAttentionBlock(cfg.visual_hidden_dim, cfg.audio_hidden_dim,
                                               v_heads, cfg.eps, **f) for i in layers})
+        # only v2a carries pooled AdaLN (interactionv2.py:412-418)
         self.video_to_audio_conditioners = nn.ModuleDict({
             i: ConditionalCrossAttentionBlock(cfg.audio_hidden_dim, cfg.visual_hidden_dim,
-                                              a_heads, cfg.eps, **f) for i in layers})
+                                              a_heads, cfg.eps, cfg.pooled_adaln, **f)
+            for i in layers})
         if cfg.trainable_condition_scale:
             self.condition_scale = nn.Parameter(torch.ones(1, **f))
 
@@ -84,14 +188,30 @@ class DualTowerBridge(nn.Module):
     def layer_apply(self, layer: int, visual_x: torch.Tensor, audio_x: torch.Tensor,
                     visual_freqs, audio_freqs, a2v_scale: torch.Tensor,
                     v2a_scale: torch.Tensor, attn_impl="auto",
-                    params: Optional[Dict[str, torch.Tensor]] = None):
+                    params: Optional[Dict[str, torch.Tensor]] = None,
+                    video_grid: Optional[Tuple[int, int, int]] = None):
         """One interaction at shared layer `layer`: both directions read the
         pre-interaction states. `params`: optional {name: tensor} in place of
-        the bridge's own parameters (names from the bridge, see `nn.call`)."""
+        the bridge's own parameters (names from the bridge, see `nn.call`);
+        `video_grid`: the video token grid, for pooled AdaLN."""
         a2v, v2a = "audio_to_video_conditioners", "video_to_audio_conditioners"
         dv = dnn.call(getattr(self, a2v)[str(layer)], params, f"{a2v}.{layer}.",
                       visual_x, audio_x, visual_freqs, audio_freqs, attn_impl)
         da = dnn.call(getattr(self, v2a)[str(layer)], params, f"{v2a}.{layer}.",
-                      audio_x, visual_x, audio_freqs, visual_freqs, attn_impl)
+                      audio_x, visual_x, audio_freqs, visual_freqs, attn_impl, None,
+                      video_grid)
         return (visual_x + dv * a2v_scale.to(visual_x.device, visual_x.dtype),
                 audio_x + da * v2a_scale.to(audio_x.device, audio_x.dtype))
+
+    def with_conditioners(self, a2v: Dict[int, nn.Module],
+                          v2a: Dict[int, nn.Module]) -> "DualTowerBridge":
+        """A view of this bridge (its config and condition scale) that holds
+        only the conditioners given, {layer: block}: the streamed pass's
+        bridge for one layer group."""
+        view = copy.copy(self)
+        view._modules = dict(self._modules,
+                             audio_to_video_conditioners=nn.ModuleDict(
+                                 {str(i): m for i, m in a2v.items()}),
+                             video_to_audio_conditioners=nn.ModuleDict(
+                                 {str(i): m for i, m in v2a.items()}))
+        return view

@@ -44,8 +44,21 @@ def forward_dual_tower(
     ctx_valid_len: Optional[torch.Tensor] = None,
     remat: bool = False,
     params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    video_grid: Optional[Tuple[int, int, int]] = None,
+    layers: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """params: optional {"video" | "audio" | "bridge": {name: tensor}}, tensors
+    """layers: run only layers [s0, s1) of the stack (all by default), the
+    counterpart of JAX's `shared_layers`/`interact_override`: the layer-group
+    streamed pass (`diffusion/streamed.py`) calls it once per group. Layer
+    indices stay global: `video_blocks` and `audio_blocks` need only hold
+    the range's layers under their global indices (a list or a {layer:
+    block} mapping), the bridge only their conditioners. A layer below the
+    bridge's shared depth is a shared layer, the rest are the video tail.
+
+    video_grid: the video's (frames, height, width) token grid, which a
+    pooled-AdaLN bridge pools over.
+
+    params: optional {"video" | "audio" | "bridge": {name: tensor}}, tensors
     that stand in for the towers' and the bridge's own parameters of those
     names (named from the tower, `blocks.{i}.self_attn.q.weight`, and from
     the bridge): the LoRA-merged weights of training. They are read inside
@@ -70,7 +83,8 @@ def forward_dual_tower(
     def shared_layer(vx, ax, layer):
         if layer in interact:
             vx, ax = bridge.layer_apply(layer, vx, ax, vis_freqs, aud_freqs, a2v_scale,
-                                        v2a_scale, attn_impl, params.get("bridge"))
+                                        v2a_scale, attn_impl, params.get("bridge"),
+                                        video_grid)
         vx = video_layer(vx, layer)
         ax = dnn.call(audio_blocks[layer], ap, f"blocks.{layer}.", ax, audio_ctx,
                       audio_t_mod, audio_rope, attn_impl, ctx_valid_len)
@@ -81,8 +95,10 @@ def forward_dual_tower(
             return fn(*args)
         return checkpoint(fn, *args, use_reentrant=False, context_fn=checkpoint_context)
 
-    for layer in range(bcfg.min_layers):
-        visual_x, audio_x = run(shared_layer, visual_x, audio_x, layer)
-    for layer in range(bcfg.min_layers, len(video_blocks)):
-        visual_x = run(video_layer, visual_x, layer)
+    s0, s1 = layers if layers is not None else (0, len(video_blocks))
+    for layer in range(s0, s1):
+        if layer < bcfg.min_layers:
+            visual_x, audio_x = run(shared_layer, visual_x, audio_x, layer)
+        else:
+            visual_x = run(video_layer, visual_x, layer)
     return visual_x, audio_x

@@ -4,8 +4,9 @@ Modules are built on the meta device, materialised on the target device and
 drawn there from a seeded `torch.Generator`, so a full-width model never
 passes through host memory. Linear and conv weights and biases are uniform
 in +-1/sqrt(fan_in) (PyTorch's default bound), embeddings standard normal,
-AdaLN modulation tables normal / sqrt(dim), and norm, snake and scale
-parameters ones (biases zeros). The DiTs, bridge and text encoder take
+AdaLN modulation tables normal / sqrt(dim), the pooled-AdaLN probe normal
+* 0.02 and its packed attention projection uniform in +-1/sqrt(dim), and
+norm, snake and scale parameters ones (biases zeros). The DiTs, bridge and text encoder take
 `dtype`; the VAEs stay fp32, as in the JAX package. An fp8 `dtype` is
 storage only, as the JAX loader's: those modules are drawn in bf16 and cast
 by `nn.cast_modules_fp8`.
@@ -28,7 +29,7 @@ from dualforce_tpu_torch import nn as dnn
 from dualforce_tpu_torch import offload, resolve_device
 from dualforce_tpu_torch.config import MOVAConfig
 from dualforce_tpu_torch.models.audio_dit import AudioDiT
-from dualforce_tpu_torch.models.bridge import DualTowerBridge
+from dualforce_tpu_torch.models.bridge import DualTowerBridge, PerFramePooling
 from dualforce_tpu_torch.models.dac_vae import DACVAE
 from dualforce_tpu_torch.models.umt5 import UMT5Encoder
 from dualforce_tpu_torch.models.video_dit import VideoDiT
@@ -55,6 +56,11 @@ def _init_weights(module: nn.Module, gen: torch.Generator) -> None:
             m.weight.normal_(generator=gen)
         elif isinstance(m, dnn.LayerNorm):
             m.bias.zero_()
+        elif isinstance(m, PerFramePooling):
+            bound = 1.0 / math.sqrt(m.probe.shape[-1])
+            m.probe.normal_(generator=gen).mul_(0.02)
+            m.attention.in_proj_weight.uniform_(-bound, bound, generator=gen)
+            m.attention.in_proj_bias.uniform_(-bound, bound, generator=gen)
     for name, p in module.named_parameters():
         if name.endswith("modulation"):
             p.normal_(generator=gen).div_(math.sqrt(p.shape[-1]))

@@ -6,7 +6,10 @@ does: the first chunk is one frame, each later encoder chunk a multiple of 4
 raw frames, each later decoder chunk some latent frames. Every causal time
 conv keeps its last (kt - 1) input frames for the next chunk; the temporal
 downsample keeps one; the temporal upsample's first chunk bypasses its conv
-with zero history ("Rep").
+with zero history ("Rep"). The one-pass encodes (`encode_moments`,
+`encode_mode`, `encode_sample`) are the streaming encode with all frames
+after the first in one chunk; the sampled ones add exp(logvar / 2) times a
+given or drawn noise.
 
 Public functions take and return channels-last tensors ([B, T, H, W, C]),
 as the JAX package does; inside, tensors are PyTorch's [B, C, T, H, W].
@@ -19,7 +22,7 @@ dtype at use, so fp32 weights serve a bf16 decode.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -274,28 +277,76 @@ class WanVAE(nn.Module):
                                             dtype=dtype)
 
 
-def encode_mode_streaming(vae: WanVAE, video: torch.Tensor) -> torch.Tensor:
-    """Deterministic streaming encode in the video's dtype: video
-    [B, T, H, W, 3] in [-1, 1] -> latent means [B, F, H/8, W/8, z],
-    F = (T - 1) / 4 + 1. After the first frame, chunks of raw frames go
-    through the encoder: the largest multiple of 4 dividing T - 1 within a
-    16-frames-at-360p budget scaled by the frame's pixel count."""
+def encode_moments_streaming(vae: WanVAE, video: torch.Tensor,
+                             chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Memory-bounded encode in the video's dtype: video [B, T, H, W, 3] in
+    [-1, 1] -> (mean, logvar), each [B, F, H/8, W/8, z], F = (T - 1) / 4 + 1
+    (logvar as the quant conv gives it, unclipped). After the first frame,
+    chunks of `chunk` raw frames go through the encoder: by default the
+    largest multiple of 4 dividing T - 1 within a 16-frames-at-360p budget
+    scaled by the frame's pixel count; a `chunk` that is no multiple of 4
+    or does not divide T - 1 becomes 4."""
     cfg = vae.cfg
     x = video.permute(0, 4, 1, 2, 3)
     T = x.shape[2]
     st = 2 ** sum(bool(t) for t in cfg.temperal_downsample)
     if (T - 1) % st:
         raise ValueError(f"num_frames-1 must be divisible by {st}, got T={T}")
-    budget = max(st, (16 * 352 * 640) // max(x.shape[3] * x.shape[4], 1) // st * st)
-    budget = min(budget, max(T - 1, st))
-    chunk = next(k for k in range(budget, 0, -st) if (T - 1) % k == 0)
+    if chunk is None:
+        budget = max(st, (16 * 352 * 640) // max(x.shape[3] * x.shape[4], 1) // st * st)
+        budget = min(budget, max(T - 1, st))
+        chunk = next(k for k in range(budget, 0, -st) if (T - 1) % k == 0)
+    elif chunk % st or (T - 1) % chunk:
+        chunk = st
     cache = _Cache()
     outs = [vae.encoder.chunk(x[:, :, :1], cache, True)]
     for s in range(1, T, chunk):
         cache = _Cache(cache.written)
         outs.append(vae.encoder.chunk(x[:, :, s:s + chunk], cache, False))
     moments = vae.quant_conv.conv(torch.cat(outs, dim=2))
-    return moments[:, :cfg.z_dim].permute(0, 2, 3, 4, 1)
+    return (moments[:, :cfg.z_dim].permute(0, 2, 3, 4, 1),
+            moments[:, cfg.z_dim:].permute(0, 2, 3, 4, 1))
+
+
+def encode_mode_streaming(vae: WanVAE, video: torch.Tensor,
+                          chunk: Optional[int] = None) -> torch.Tensor:
+    """The mean of `encode_moments_streaming` (sample mode "argmax")."""
+    return encode_moments_streaming(vae, video, chunk)[0]
+
+
+def _sample(mean: torch.Tensor, logvar: torch.Tensor, noise: Optional[torch.Tensor],
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """mean + exp(clip(logvar, -30, 20) / 2) * noise, the noise given or
+    drawn from `generator` (standard normal, the mean's shape)."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    return mean + std * noise.to(mean.device, mean.dtype)
+
+
+def encode_sample_streaming(vae: WanVAE, video: torch.Tensor,
+                            noise: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None,
+                            chunk: Optional[int] = None) -> torch.Tensor:
+    """A draw from the streaming encode's posterior (see `_sample`)."""
+    return _sample(*encode_moments_streaming(vae, video, chunk), noise, generator)
+
+
+def encode_moments(vae: WanVAE, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encode in one pass over the clip (the JAX package's
+    `encode_moments`): the first frame, then every other frame as one chunk,
+    which the causal caches make the whole pass. Returns (mean, logvar)."""
+    return encode_moments_streaming(vae, video, max(video.shape[1] - 1, 1))
+
+
+def encode_mode(vae: WanVAE, video: torch.Tensor) -> torch.Tensor:
+    return encode_moments(vae, video)[0]
+
+
+def encode_sample(vae: WanVAE, video: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return _sample(*encode_moments(vae, video), noise, generator)
 
 
 def decode_streaming(vae: WanVAE, z: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,13 @@ pageable memory.
 copy (`copy.deepcopy` with every tensor already mapped to its device copy),
 and frees the copy's device memory when the block ends, also on an
 exception. Staging always copies, also to the CPU, so a staged copy never
-shares memory with its master.
+shares memory with its master, save the submodules it is told to leave out.
+
+`HostRuns` serves the layer-group streaming (`diffusion/streamed.py`): it
+finds the host bytes of a set of tensors as few contiguous runs (a module
+that `to_host` laid out holds each layer's tensors side by side, so a group
+of layers is one run per module), copies them into a device buffer and
+gives modules whose tensors are views of that buffer.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import weakref
-from typing import Dict, Iterator, List
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,14 +110,18 @@ def to_host(module: nn.Module, device) -> nn.Module:
 
 
 @contextlib.contextmanager
-def staged(module: nn.Module, device) -> Iterator[nn.Module]:
+def staged(module: nn.Module, device, exclude: Sequence[str] = ()) -> Iterator[nn.Module]:
     """A copy of `module` on `device` for the length of the block. Its device
     memory is freed when the block ends, even if references to the copy
-    remain (a traceback's frames, say)."""
+    remain (a traceback's frames, say). The submodules named in `exclude`
+    are not staged: the copy holds their master tensors."""
     copies: List[torch.Tensor] = []
-    memo: Dict[int, torch.Tensor] = {}
+    memo: Dict[int, torch.Tensor] = {id(t): t for name in exclude
+                                     for t in _tensors(module.get_submodule(name))}
     params = {id(p) for p in module.parameters()}
     for t in _tensors(module):
+        if id(t) in memo:
+            continue
         c = t.to(device, non_blocking=True, copy=True)
         copies.append(c)
         memo[id(t)] = (nn.Parameter(c, requires_grad=t.requires_grad) if id(t) in params
@@ -122,3 +132,67 @@ def staged(module: nn.Module, device) -> Iterator[nn.Module]:
         for c in copies:
             c.untyped_storage().resize_(0)
 
+
+
+def _storage_bytes(t: torch.Tensor) -> torch.Tensor:
+    """The whole storage under `t` as a flat uint8 tensor."""
+    return torch.empty(0, dtype=torch.uint8).set_(t.untyped_storage())
+
+
+class HostRuns:
+    """The host bytes of `modules`' tensors as contiguous runs: tensors of one
+    storage whose byte ranges lie at most `_ALIGN` apart (the padding
+    `to_host` puts between them) share a run. `nbytes` is the device bytes
+    the runs take, each starting on a multiple of `_ALIGN`."""
+
+    def __init__(self, modules: Iterable[nn.Module]):
+        self.modules = list(modules)
+        by_storage: Dict[int, List[Tuple[int, torch.Tensor]]] = {}
+        for m in self.modules:
+            for t in _tensors(m):
+                if not t.is_contiguous():
+                    raise ValueError("a staged tensor must be contiguous")
+                key = t.untyped_storage().data_ptr()
+                by_storage.setdefault(key, []).append((t.storage_offset() * t.element_size(), t))
+        self.runs: List[Tuple[torch.Tensor, List[Tuple[torch.Tensor, int]]]] = []
+        for items in by_storage.values():
+            items.sort(key=lambda it: it[0])
+            storage = _storage_bytes(items[0][1])
+            group: List[Tuple[int, torch.Tensor]] = []
+            for off, t in items:
+                if group and off > group[-1][0] + _nbytes(group[-1][1]) + _ALIGN:
+                    self._add_run(storage, group)
+                    group = []
+                group.append((off, t))
+            self._add_run(storage, group)
+        self.nbytes = sum(_aligned(run.numel()) for run, _ in self.runs)
+
+    def _add_run(self, storage: torch.Tensor, group) -> None:
+        start = group[0][0]
+        end = max(off + _nbytes(t) for off, t in group)
+        self.runs.append((storage[start:end], [(t, off - start) for off, t in group]))
+
+    def copy_to(self, buf: torch.Tensor) -> List[nn.Module]:
+        """Copy the runs into the uint8 buffer `buf` (at least `nbytes`, on
+        the device), one copy per run on the current stream (non-blocking
+        from page-locked memory), and return copies of the modules whose
+        tensors view `buf`."""
+        memo: Dict[int, torch.Tensor] = {}
+        params = {id(p) for m in self.modules for p in m.parameters()}
+        at = 0
+        for run, tensors in self.runs:
+            buf[at:at + run.numel()].copy_(run, non_blocking=True)
+            for t, off in tensors:
+                view = buf[at + off:at + off + _nbytes(t)].view(t.dtype).view(t.shape)
+                memo[id(t)] = (nn.Parameter(view, requires_grad=t.requires_grad)
+                               if id(t) in params else view)
+            at += _aligned(run.numel())
+        return [copy.deepcopy(m, memo) for m in self.modules]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN

@@ -1,8 +1,10 @@
 """The port's inference CLIs (`dualforce_tpu_torch/cli/`) on the CPU: `--help`
 without JAX, PIL or transformers; every flag of the JAX package's CLIs
 accepted with the same destination, default and choices; each flag of a
-part not yet ported refused with its ROADMAP item; and one tiny request
-through `inference_single.run` against the JAX package's pipeline.
+part not yet ported refused with its ROADMAP item; one tiny request
+through `inference_single.run` against the JAX package's pipeline; and the
+same request through `--offload group` (with its group size, resident
+audio and bridge, resident groups) and a disk store, bit-equal to it.
 
 The tiny request reads an fp32 checkpoint written by the port's writer and
 a PNG written with PIL, in fp32 weights and compute with `--attn_type ref`.
@@ -119,8 +121,6 @@ def test_flags_are_a_superset_of_the_jax_cli(script, monkeypatch):
 
 UNPORTED = [
     (["--cp_size", "2"], "A7"), (["--fsdp_size", "4"], "A7"),
-    (["--offload", "group"], "A9"), (["--offload_resident_small"], "A9"),
-    (["--offload_resident_groups", "1"], "A9"), (["--offload_to_disk_path", "d"], "A9"),
     (["--vae_encode_dtype", "bf16"], "A1"),
 ]
 
@@ -132,7 +132,7 @@ def test_unported_flags_exit_with_their_roadmap_item(extra, item, tmp_path):
     absent = str(tmp_path / "absent")   # nothing may be read before the refusal
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.run(cli.parse_args(["--ckpt_path", absent] + base + extra))
-    if extra[0] in ("--cp_size", "--fsdp_size", "--offload"):
+    if extra[0] in ("--cp_size", "--fsdp_size"):
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
             lora_cli.run(lora_cli.parse_args(["--base_model", absent, "--lora_path", absent]
                                              + base + extra))
@@ -202,3 +202,34 @@ def test_tiny_request_output_file(tiny_run):
     assert video.shape == tiny_run["result"].video.shape
     assert audio.shape == tiny_run["result"].audio.shape
     assert (sample_rate, fps) == (48000, 24.0)
+
+
+# the flags A9 opened (once refused), each on the tiny request of `tiny_run`
+GROUP_FLAGS = {
+    "offload_group": ["--offload", "group"],
+    "offload_resident_small": ["--offload", "group", "--offload_resident_small",
+                               "--offload_group_size", "1"],
+    "offload_resident_groups": ["--offload", "group", "--offload_resident_groups", "1",
+                                "--offload_group_size", "1"],
+    "offload_to_disk_path": ["--offload", "group", "--offload_to_disk_path", "STORE"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(GROUP_FLAGS))
+def test_group_and_disk_flags_serve_the_same_bits(tiny_run, name):
+    """Each flag parses as the JAX CLI parses it into the pipeline's offload
+    arguments, and the request gives `tiny_run`'s bits."""
+    extra = [str(tiny_run["root"] / "store") if a == "STORE" else a
+             for a in GROUP_FLAGS[name]]
+    args = cli.parse_args(["--ckpt_path", str(tiny_run["root"] / "ckpt"),
+                           "--ref_path", tiny_run["args"].ref_path] + REQUEST + extra)
+    cli.refuse_unported(args)
+    kw = cli.offload_kwargs(args)
+    assert kw["offload"] == "group"
+    assert kw["offload_resident_small"] == ("--offload_resident_small" in extra)
+    assert kw["offload_resident_video_groups"] == (1 if name == "offload_resident_groups"
+                                                   else 0)
+    result, pipe = cli.run(args, tokenizer=FakeTokenizer(), dtype=torch.float32)
+    assert pipe.offload == "group" and pipe.offload_group_size == args.offload_group_size
+    np.testing.assert_array_equal(result.video, tiny_run["result"].video)
+    np.testing.assert_array_equal(result.audio, tiny_run["result"].audio)

@@ -248,7 +248,8 @@ def test_pipeline_refuses_unknown_modes(towers):
     for kw in (dict(quantize="fp8"), dict(attn_impl="flash3")):
         with pytest.raises(ValueError):
             MOVAPipeline(cfg, dict(mods), device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        MOVAPipeline(cfg, dict(mods), device="cpu", offload="group")
+    with pytest.raises(ValueError):
+        MOVAPipeline(cfg, dict(mods), device="cpu", offload="layerwise")
+    assert MOVAPipeline(cfg, dict(mods), device="cpu", offload="group").offload == "group"
     pipe = MOVAPipeline(cfg, dict(mods), device="cpu", attn_impl="sage", quantize="int8")
     assert (pipe.attn_impl, pipe.quantize) == ("sage", "int8")

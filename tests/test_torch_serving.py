@@ -406,13 +406,31 @@ def test_serve_flags_are_a_superset_of_the_jax_cli(monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     (["--cp_size", "2"], "A7"), (["--fsdp_size", "2"], "A7"),
-    (["--offload", "group"], "A9"), (["--vae_encode_dtype", "bf16"], "A1")],
-    ids=["cp_size", "fsdp_size", "offload-group", "vae_encode_dtype-bf16"])
+    (["--vae_encode_dtype", "bf16"], "A1")],
+    ids=["cp_size", "fsdp_size", "vae_encode_dtype-bf16"])
 def test_serve_unported_flags_exit_with_their_roadmap_item(extra, item, tmp_path):
     args = serve_cli.parse_args(["--ckpt_path", str(tmp_path / "absent"), "--device", "cpu"]
                                 + extra)
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         serve_cli.build_server(args)
+
+
+def test_serve_offload_group_builds(tmp_path):
+    """`--offload group --offload_group_size 1` (refused until A9) builds a
+    server whose pipeline streams layer groups, and serves the in-process
+    request's bits."""
+    cfg = tiny_test_config()
+    lc.save_pipeline_params(init_pipeline_params(cfg, device="cpu", dtype=torch.float32,
+                                                 seed=0), cfg, str(tmp_path / "ckpt"))
+    base = ["--ckpt_path", str(tmp_path / "ckpt"), "--device", "cpu", "--attn_type", "ref"]
+    pipes = [serve_cli.build_server(serve_cli.parse_args(base + extra),
+                                    tokenizer=FakeTokenizer(), dtype=torch.float32).pipe
+             for extra in ([], ["--offload", "group", "--offload_group_size", "1"])]
+    assert (pipes[1].offload, pipes[1].offload_group_size) == ("group", 1)
+    image = np.random.default_rng(1).uniform(-1, 1, (32, 32, 3)).astype(np.float32)
+    want, got = (p("a cat", image, seed=3, **KW) for p in pipes)
+    np.testing.assert_array_equal(got.video, want.video)
+    np.testing.assert_array_equal(got.audio, want.audio)
 
 
 def test_serve_needs_cuda_unless_cpu_is_asked(tmp_path):
