@@ -165,9 +165,9 @@ Phases, each of which must pass:
    page-locked host memory, then `LoRATrainer` with the `trainer` settings
    of `configs/training/lora_low_resource.py` (AdamW8bit, component
    offload, remat, rank 16) on synthetic 352x640x49 clips, cut to 3
-   optimizer steps of 2 micro-batches with the expert switched every step
-   (experts 0, 0, 1, 1, 0, 0; the warmup's lr is 0 at the first step, so
-   expert 0 trains at a nonzero lr only at the third). The two experts must
+   optimizer steps of one micro-batch with the expert switched every step
+   (experts 0, 1, 0; the warmup's lr is 0 at the first step, so expert 0
+   trains at a nonzero lr only at the third). The two experts must
    never be staged together (a spy on `offload.staged`), the metrics be
    finite, each micro-step launch the forward kernel exactly 220 times and
    the fused backward and its preprocess 110 times (30 shared layers x 3
@@ -262,6 +262,21 @@ Phases, each of which must pass:
    `compress`'s codes against the one pass's (>= 99 % equal, printed);
    the Wan VAE's `encode_sample_streaming` at 352x640x193 bit-equal to
    mean + exp(logvar / 2) * noise with the same noise.
+24. serving under a mesh (run after phase 17, on its checkpoint): one
+   world of two processes on the one card under torchrun (this script
+   with `--sp-worker`; backend gloo, since NCCL refuses two ranks on one
+   card): (a) the video self ring (40 heads, 43,120 tokens split 21,560 /
+   21,560) and the v2a LSE combine (12 heads, 404 queries x 43,120 keys)
+   against B1 on the whole sequence computed here (relative L2 <= 1e-2),
+   each ring step's kernel and transfer timed apart; (b) phase 17's base
+   request through `cli.inference_single.run` at `--cp_size 2`: the clip
+   within 2e-2 relative L2 of phase 17's, the first step's block stack
+   within 1e-2 of `forward_dual_tower` on the same inputs; (c) the same
+   request at `--fsdp_size 2`: bit-equal to phase 17's, each rank holding
+   half the block weights. B1's launches per rank with and without the LSE
+   as the plan gives them (cp 2: 64 and 40; fsdp 2: 0 and 112); rank 0
+   writes each clip alone; per step and rank the seconds, bytes sent and
+   peak memory.
 
 Every phase prints its wall time, and a summary line before the kernels
 lists every phase's seconds and the script's. The run sets
@@ -284,6 +299,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
@@ -656,7 +672,10 @@ def phase_kernels():
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms, library_host_us = time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=7, warmup=2)
-        plain_ms, _ = time_ms(lambda: flash_attention_plain(q, k, v), reps=3, warmup=1)
+        if sq * sk >= 10**8:    # seconds per call (3.5 s at video self): one call
+            plain_ms = time_long_ms(lambda: flash_attention_plain(q, k, v), reps=1, warmup=0)
+        else:
+            plain_ms, _ = time_ms(lambda: flash_attention_plain(q, k, v), reps=3, warmup=1)
         bound_ms, bound_by = attention_bound_ms(1, n, sq, sk, sk)
         splits = fa.fwd_splits(n * -(-sq // fa.FWD_BLOCK_M), sk, fa._sm_count(dev))
         unsplit_ms = (time_unsplit_ms(fa, lambda: flash_attention(q, k, v)) if splits > 1
@@ -1586,11 +1605,12 @@ def phase_720p_backward_kernels():
             fwd_ms = time_long_ms(lambda: fa.flash_attention_with_lse(q, k, v), warmup=0)
             bwd_ms = time_long_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
                                   warmup=0)
+            # the plain versions are yardsticks of seconds per call: one call each
             plain_fwd_ms = time_long_ms(
-                lambda: fa.flash_attention_plain(*sub[:3], return_lse=True), warmup=0)
+                lambda: fa.flash_attention_plain(*sub[:3], return_lse=True), reps=1, warmup=0)
             plain_bwd_ms = time_long_ms(
                 lambda: fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4]),
-                warmup=0)
+                reps=1, warmup=0)
         else:
             fwd_ms, _ = time_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps=7, warmup=2)
             bwd_ms, _ = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
@@ -1608,9 +1628,10 @@ def phase_720p_backward_kernels():
                                                                   fused)}
             equal_kv = bool(torch.equal(grads[1], fused[1]) and torch.equal(grads[2], fused[2]))
             del fused
-            if long:
+            if long:     # not the route here: one call (8.2 s at video self)
                 fused_ms = time_long_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse,
-                                                                             do), warmup=0)
+                                                                             do), reps=1,
+                                        warmup=0)
             else:
                 fused_ms, _ = time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do),
                                       reps=7, warmup=2)
@@ -1624,7 +1645,9 @@ def phase_720p_backward_kernels():
         pass_note, dq_pass_ms, dkv_pass_ms, dq_bound, dkv_bound = "", None, None, None, None
         if split:    # the split pair's passes one by one, each beside its own bound
             passes = fa._Bwd(q, k, v, o, lse, do, None, None, split=True)
-            dq_pass_ms, dkv_pass_ms = timer(passes.dq_pass), timer(passes.dkv_pass)
+            # the split backward above has warmed both passes
+            pass_timer = ((lambda fn: time_long_ms(fn, warmup=0)) if long else timer)
+            dq_pass_ms, dkv_pass_ms = pass_timer(passes.dq_pass), pass_timer(passes.dkv_pass)
             del passes
             (dq_bound, _), (dkv_bound, _) = split_pass_bounds_ms(1, n, sq, sk, sk)
             pass_note = (f" dq_pass_ms={dq_pass_ms:.4f} (bound {dq_bound:.4f}, 6 units) "
@@ -1659,7 +1682,7 @@ def phase_720p_backward_kernels():
         def sdpa_bwd():
             return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-        lib_bwd_ms = (time_long_ms(sdpa_bwd) if long else
+        lib_bwd_ms = (time_long_ms(sdpa_bwd, reps=1) if long else
                       time_ms(sdpa_bwd, reps=7, warmup=2)[0])
         fwd_bound, fwd_by = attention_bound_ms(1, n, sq, sk, sk, lse=True)
         bwd_bound, bwd_by = attention_bwd_bound_ms(1, n, sq, sk, sk)
@@ -2516,7 +2539,7 @@ def phase_checkpoint_cli(first, root: str):
                                    for p in written))
     return {"launches": counts["exact"] + counts8["exact"] + countsl["exact"],
             "write_s": write_s, "ckpt": ckpt, "request": request,
-            "audio_latents": kept["audio_latents"]}
+            "audio_latents": kept["audio_latents"], "video": base.video, "audio": base.audio}
 
 
 # phase 22: the group-streamed and disk-backed CLIs on phase 17's checkpoint. Each request
@@ -2751,11 +2774,12 @@ def phase_model_code(audio_latents):
 LOW_RESOURCE_RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                                    "training", "lora_low_resource.py")
 FULL_TRAIN_FLASH_CALLS = 30 * 3 + 10 * 2
-# the recipe's cuts: 3 optimizer steps of 2 micro-batches with the expert switched every
-# step (experts 0, 0, 1, 1, 0, 0): the warmup gives lr 0 at the first step, so expert 0
-# trains at a nonzero lr only at the third
-FULL_TRAIN_CUTS = dict(max_steps=3, grad_accum_steps=2, expert_switch_interval=1)
-FULL_TRAIN_EXPERTS = [0, 0, 1, 1, 0, 0]
+# the recipe's cuts: 3 optimizer steps of one micro-batch with the expert switched every
+# step (experts 0, 1, 0): the warmup gives lr 0 at the first step, so expert 0 trains at a
+# nonzero lr only at the third. (Phase 19 runs the recipe's accumulation of 4 micro-batches
+# at the depth cut.)
+FULL_TRAIN_CUTS = dict(max_steps=3, grad_accum_steps=1, expert_switch_interval=1)
+FULL_TRAIN_EXPERTS = [0, 1, 0]
 
 
 def _recipe_trainer_config():
@@ -2864,8 +2888,7 @@ def phase_train_low_resource(root: str):
         flash_attention.launches = flash_attention_bwd.launches = 0
         flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
         t0 = time.perf_counter()
-        final = trainer.train(_synthetic_clips(2 * FULL_TRAIN_CUTS["max_steps"]),
-                              on_micro_step=record)
+        final = trainer.train(_synthetic_clips(len(FULL_TRAIN_EXPERTS)), on_micro_step=record)
         wall = time.perf_counter() - t0
         launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
                     "split": flash_attention_bwd.split_launches,
@@ -3818,6 +3841,342 @@ def phase_full_ft(first, ckpt: str, root: str, smi: str):
             "peak_save_gib": peak_kept, "registry": registry}
 
 
+# phase 24: serving over a (1, fsdp, cp) mesh, each rank a process on the one card. cp 2 at
+# MOVA-360p: 43,120 video tokens split 21,560 / 21,560, 403 audio tokens padded to 404 and
+# split 202 / 202. Per pass and rank at the depth cut (2 shared layers, 1 tail layer), B1
+# with its LSE: the video self ring's 2 steps in each of the 3 video layers and the v2a
+# combine in each shared layer; without: a2v and the video text cross in each shared layer,
+# the text cross in the tail layer. The audio side's 202 local queries take plain attention
+# (the dispatcher's Sq >= 256 gate). Under fsdp 2 x cp 1 each rank runs phase 17's request
+# whole: 112 launches without the LSE.
+SP_CP = 2
+SP_PASSES = 2 * REQUEST["num_inference_steps"]
+SP_LAUNCHES = {"cp2": {"lse": (3 * SP_CP + 2) * SP_PASSES, "nolse": (2 * 2 + 1) * SP_PASSES},
+               "fsdp2": {"lse": 0, "nolse": LAUNCHES_PER_REQUEST}}
+SP_PRIM_REL_TOL = 1e-2          # bf16 outputs, fp32 accumulation and combine
+SP_BLOCKS_REL_TOL = 1e-2
+SP_CLI_REL_TOL = 2e-2           # phase 16's bound for cfg_batch
+SP_SHARE_MAX = 0.55             # a rank's share of the block weights under fsdp 2
+SP_VIDEO = (1, 43120, 40)       # (B, tokens, heads) of the video self ring
+SP_V2A = (1, 404, 12)           # the v2a combine's queries (403 audio tokens padded)
+SP_TIMEOUT_S = 900
+
+
+def _sp_inputs(b, s, n, seed, device="cuda"):
+    """q, k, v [b, s, n, 128] bf16 from a CUDA generator: every process that
+    draws them with the same seed gets the same values."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn((b, s, n, HEAD_DIM), generator=g, device=device,
+                        dtype=torch.bfloat16) for _ in range(3)]
+
+
+SP_RUNS = (("cp2", ["--cp_size", str(SP_CP)]), ("fsdp2", ["--fsdp_size", "2"]))
+
+
+def _sp_world(out: str, argv):
+    """Run `chip_smoke.py --sp-worker OUT CLI-ARGS...` under torchrun in a
+    world of two processes on the card; returns each rank's JSON report."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+           "--master-addr", "127.0.0.1", "--master-port", str(port), script,
+           "--sp-worker", out, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SP_TIMEOUT_S,
+                          cwd=os.path.dirname(script))
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[dist]", "[info]", "[timer]", "[done]")):
+            log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the two-process world failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    log(f"[sp] the world of two: {time.perf_counter() - t0:.1f} s with start-up")
+    return reports
+
+
+def _sp_count_launches(fa):
+    """Wrap the forward's launcher to count B1 launches with and without the
+    LSE while counting["on"]; returns (counts, counting)."""
+    counts, counting = {"lse": 0, "nolse": 0}, {"on": True}
+    launch = fa._launch_fwd
+
+    def counted(q, k, v, kv_valid_len, with_lse, softmax_cap):
+        out = launch(q, k, v, kv_valid_len, with_lse, softmax_cap)
+        if counting["on"] and k.shape[1] > 0:
+            counts["lse" if with_lse else "nolse"] += 1
+        return out
+
+    fa._launch_fwd = counted
+    return counts, counting
+
+
+def _sp_primitives(out: str) -> dict:
+    """(a) in one rank: the video self ring and the v2a combine at the
+    path's shapes, each ring step's kernel and transfer timed apart."""
+    import torch
+
+    from dualforce_tpu_torch.ops import flash_attention as fa
+    from dualforce_tpu_torch.parallel import mesh as pm
+    from dualforce_tpu_torch.parallel import ring_attention as ra
+
+    mesh = pm.create_mesh(1, 1, SP_CP)
+    axis = pm.MeshAxis(mesh, "cp")
+    r, n = pm.axis_index(axis), pm.axis_size(axis)
+    steps = []
+
+    def inner(q, k, v, kv_valid=None):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o = ra._inner_auto(q, k, v, kv_valid)
+        end.record()
+        end.synchronize()
+        steps.append({"kernel_ms": start.elapsed_time(end)})
+        return o
+
+    permute = pm.ppermute_next
+
+    def timed_permute(tensors, ax):
+        torch.cuda.synchronize()
+        t0, b0 = time.perf_counter(), pm.TRANSFER["bytes"]
+        got = permute(tensors, ax)
+        torch.cuda.synchronize()
+        steps[-1].update(transfer_ms=1e3 * (time.perf_counter() - t0),
+                         transfer_mb=(pm.TRANSFER["bytes"] - b0) / 1e6)
+        return got
+
+    pm.ppermute_next = timed_permute
+    report = {}
+    try:
+        with torch.no_grad():
+            b, s, heads = SP_VIDEO
+            q, k, v = (t[:, r * s // n:(r + 1) * s // n] for t in _sp_inputs(b, s, heads, 0))
+            for _ in range(2):         # the first call loads the kernel
+                steps.clear()
+                fa.flash_attention.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o = ra.ring_attention(q, k, v, axis, inner)
+                torch.cuda.synchronize()
+                report["ring_s"] = time.perf_counter() - t0
+            report["ring_steps"] = list(steps)
+            report["ring_launches"] = fa.flash_attention.launches
+            torch.save(o.cpu(), os.path.join(out, f"ring.rank{r}.pt"))
+            b, sq, heads = SP_V2A
+            qa = _sp_inputs(b, sq, heads, 1)[0]
+            ka, va = (t[:, r * s // n:(r + 1) * s // n] for t in _sp_inputs(b, s, heads, 2)[1:])
+            steps.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            oa = ra.lse_combine_cross_attention(qa, ka, va, axis, inner)
+            torch.cuda.synchronize()
+            report["v2a_s"], report["v2a_kernel_ms"] = (time.perf_counter() - t0,
+                                                        steps[0]["kernel_ms"])
+            torch.save(oa.cpu(), os.path.join(out, f"v2a.rank{r}.pt"))
+    finally:
+        pm.ppermute_next = permute
+    report["transfer"] = dict(pm.TRANSFER)
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return report
+
+
+def sp_worker(argv) -> int:
+    """`chip_smoke.py --sp-worker OUT CLI-ARGS...`, one rank under torchrun:
+    (a), then phase 17's base request through the CLI's `run` at each of
+    `SP_RUNS` (rank 0 writes each clip, as the CLI's `finish` does),
+    launches counted, each step's seconds, bytes and peak read, and at cp >
+    1 the first step's block stack held against `forward_dual_tower` on the
+    same inputs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.cli import inference_single as cli
+    from dualforce_tpu_torch.diffusion import step as step_mod
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.models.dual_tower import forward_dual_tower
+    from dualforce_tpu_torch.ops import flash_attention as fa
+    from dualforce_tpu_torch.parallel import mesh as pm
+    from dualforce_tpu_torch.parallel import sharding
+
+    out, argv = argv[0], argv[1:]
+    pm.initialize_distributed("cuda")
+    reports = {"backend": torch.distributed.get_backend(), "primitives": _sp_primitives(out)}
+    torch.cuda.empty_cache()
+    counts, counting = _sp_count_launches(fa)
+    report = {}
+    sp_blocks = step_mod.sp_forward_blocks
+
+    def spy(mesh, *args, **kwargs):
+        got = sp_blocks(mesh, *args, **kwargs)
+        if report["blocks_rel"] is None and pm.mesh_shape(mesh)["cp"] > 1:
+            report["blocks_rel"] = []
+            if pm.rank() == 0:          # the plain stack, not counted; no collective
+                counting["on"] = False
+                before = fa.flash_attention.launches
+                want = forward_dual_tower(*args, **kwargs)
+                report["extra"] = fa.flash_attention.launches - before
+                counting["on"] = True
+                report["blocks_rel"] = [rel_err(g, w.float()) for g, w in zip(got, want)]
+        return got
+
+    step_mod.sp_forward_blocks = spy
+    denoise_state = MOVAPipeline.denoise_state
+    last = [0.0, 0]
+
+    def on_step(step, total):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        report["steps"].append({"s": now - last[0], "mb": (pm.TRANSFER["bytes"] - last[1]) / 1e6,
+                                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        last[:] = [now, pm.TRANSFER["bytes"]]
+
+    def denoise(self, state, max_steps=None):
+        self.progress_cb = on_step
+        torch.cuda.synchronize()
+        last[:] = [time.perf_counter(), pm.TRANSFER["bytes"]]
+        return denoise_state(self, state, max_steps)
+
+    MOVAPipeline.denoise_state = denoise
+    image = np.load(os.path.join(out, "first_frame.npy"))
+    for name, flags in SP_RUNS:
+        report = reports[name] = {"steps": [], "blocks_rel": None, "extra": 0}
+        counts.update(lse=0, nolse=0)
+        fa.flash_attention.launches = 0
+        pm.TRANSFER.update(bytes=0, seconds=0.0, calls=0)
+        torch.cuda.reset_peak_memory_stats()
+        args = cli.parse_args(argv + ["--output", os.path.join(out, f"{name}.mp4")] + flags)
+        t0 = time.perf_counter()
+        res, pipe = cli.run(args, tokenizer=ByteTokenizer(), image=image)
+        report.update(run_s=time.perf_counter() - t0, launches=dict(counts),
+                      counter=fa.flash_attention.launches, transfer=dict(pm.TRANSFER),
+                      block_bytes=sharding.block_bytes(pipe.modules),
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if pm.rank() == 0:
+            np.savez(os.path.join(out, f"{name}_result.npz"), video=res.video, audio=res.audio)
+            cli.save(args, res)
+        del res, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    pm.leave()
+    with open(os.path.join(out, f"rank{int(os.environ['RANK'])}.json"), "w") as f:
+        json.dump(reports, f)
+    return 0
+
+
+def phase_sp(first, ckpt: dict, root: str):
+    """Phase 24: in one world of two processes on the card (gloo: its
+    collectives take the CUDA tensors, its send/recv page-locked host
+    copies), the SP primitives at the path's shapes, then phase 17's base
+    request through the CLI at `--cp_size 2` and at `--fsdp_size 2`."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention
+
+    out = os.path.join(root, "sp")
+    os.makedirs(out, exist_ok=True)
+    np.save(os.path.join(out, "first_frame.npy"), first["image"])
+    reps = _sp_world(out, ["--ckpt_path", ckpt["ckpt"]] + ckpt["request"])
+    log(f"[sp] backend {reps[0]['backend']} in both ranks (two ranks on one card: NCCL "
+        f"refuses it)")
+
+    # (a) the primitives at the path's shapes against B1 over the whole sequence
+    b, s, heads = SP_VIDEO
+    with torch.no_grad():
+        q, k, v = _sp_inputs(b, s, heads, 0)
+        want = flash_attention(q, k, v).float()
+        got = torch.cat([torch.load(os.path.join(out, f"ring.rank{r}.pt")) for r in range(2)],
+                        dim=1).cuda()
+        ring_rel = rel_err(got, want)
+        del q, k, v, want, got
+        qa = _sp_inputs(1, SP_V2A[1], SP_V2A[2], 1)[0]
+        _, ka, va = _sp_inputs(b, s, SP_V2A[2], 2)
+        want = flash_attention(qa, ka, va).float()
+        v2a_rel = [rel_err(torch.load(os.path.join(out, f"v2a.rank{r}.pt")).cuda(), want)
+                   for r in range(2)]
+        del qa, ka, va, want
+    torch.cuda.empty_cache()
+    for r, rep in enumerate(x["primitives"] for x in reps):
+        log(f"[sp] (a) rank {r}: video self ring (40 heads, {s // SP_CP} local queries) "
+            f"{rep['ring_s']:.3f} s, {rep['ring_launches']} B1 launches; per step " + "; ".join(
+                f"kernel {st['kernel_ms']:.2f} ms" + (f", transfer {st['transfer_ms']:.1f} ms "
+                                                      f"({st['transfer_mb']:.1f} MB)"
+                                                      if "transfer_ms" in st else "")
+                for st in rep["ring_steps"])
+            + f"; v2a combine {rep['v2a_s'] * 1e3:.1f} ms (kernel {rep['v2a_kernel_ms']:.2f} "
+            f"ms); sent {rep['transfer']['bytes'] / 1e6:.1f} MB in "
+            f"{rep['transfer']['seconds']:.3f} s over {rep['transfer']['calls']} calls; peak "
+            f"{rep['peak_gib']:.2f} GiB")
+    log(f"[sp] (a) ring against B1 on the whole sequence: rel L2 {ring_rel:.3e}; v2a "
+        f"combine: {v2a_rel[0]:.3e} / {v2a_rel[1]:.3e} (limit {SP_PRIM_REL_TOL})")
+    if max([ring_rel] + v2a_rel) > SP_PRIM_REL_TOL:
+        raise AssertionError(f"SP primitives off B1: ring {ring_rel:.3e}, v2a {v2a_rel}")
+    if any(x["primitives"]["ring_launches"] != SP_CP for x in reps):
+        raise AssertionError("a ring step did not launch B1 once")
+
+    # (b), (c): phase 17's base request through the CLI
+    launches = {}
+    for name, _ in SP_RUNS:
+        res = np.load(os.path.join(out, f"{name}_result.npz"))
+        for r, rep in enumerate(x[name] for x in reps):
+            log(f"[sp] ({name}) rank {r}: run (load, generate) {rep['run_s']:.2f} s; steps "
+                + ", ".join(f"{st['s']:.2f} s / {st['mb']:.0f} MB / peak {st['peak_gib']:.2f} "
+                            "GiB" for st in rep["steps"])
+                + f"; sent {rep['transfer']['bytes'] / 1e9:.3f} GB in "
+                f"{rep['transfer']['seconds']:.2f} s over {rep['transfer']['calls']} calls; "
+                f"B1 launches {rep['launches']} (counter {rep['counter'] - rep['extra']}); "
+                f"block weights {rep['block_bytes'] / 1e9:.3f} GB; peak {rep['peak_gib']:.2f} "
+                "GiB")
+            if (rep["launches"] != SP_LAUNCHES[name]
+                    or rep["counter"] - rep["extra"] != sum(SP_LAUNCHES[name].values())):
+                raise AssertionError(f"{name} rank {r}: launches {rep['launches']} (counter "
+                                     f"{rep['counter'] - rep['extra']}), expected "
+                                     f"{SP_LAUNCHES[name]}")
+        launches[name] = sum(x[name]["counter"] - x[name]["extra"] for x in reps)
+        _check_result(types.SimpleNamespace(video=res["video"], audio=res["audio"]), REQUEST)
+        v_rel = rel_err(torch.from_numpy(res["video"].astype(np.float32)),
+                        torch.from_numpy(ckpt["video"].astype(np.float32)))
+        a_rel = rel_err(torch.from_numpy(res["audio"]), torch.from_numpy(ckpt["audio"]))
+        same = (np.array_equal(res["video"], ckpt["video"])
+                and np.array_equal(res["audio"], ckpt["audio"]))
+        log(f"[sp] ({name}) against phase 17's base request: video rel L2 {v_rel:.3e}, audio "
+            f"{a_rel:.3e}, bit-equal {same}")
+        written = [f for f in os.listdir(out) if f.startswith(f"{name}.")]
+        if len(written) != 1:
+            raise AssertionError(f"{name}: files written {written}, expected rank 0's alone")
+    blocks = reps[0]["cp2"]["blocks_rel"]
+    log(f"[sp] (cp2) the first step's block stack against forward_dual_tower on the same "
+        f"inputs: video rel L2 {blocks[0]:.3e}, audio {blocks[1]:.3e} (limit "
+        f"{SP_BLOCKS_REL_TOL}); the clip against phase 17's within {SP_CLI_REL_TOL}")
+    res = np.load(os.path.join(out, "cp2_result.npz"))
+    v_rel = rel_err(torch.from_numpy(res["video"].astype(np.float32)),
+                    torch.from_numpy(ckpt["video"].astype(np.float32)))
+    a_rel = rel_err(torch.from_numpy(res["audio"]), torch.from_numpy(ckpt["audio"]))
+    if max(blocks) > SP_BLOCKS_REL_TOL or max(v_rel, a_rel) > SP_CLI_REL_TOL:
+        raise AssertionError(f"cp 2 off cp 1: blocks {blocks}, video {v_rel:.3e}, audio "
+                             f"{a_rel:.3e}")
+    res = np.load(os.path.join(out, "fsdp2_result.npz"))
+    shares = [x["fsdp2"]["block_bytes"] / x["cp2"]["block_bytes"] for x in reps]
+    log("[sp] (fsdp2) each rank's share of the block weights: "
+        + ", ".join(f"{x:.4f}" for x in shares))
+    if not (np.array_equal(res["video"], ckpt["video"])
+            and np.array_equal(res["audio"], ckpt["audio"])) or max(shares) > SP_SHARE_MAX:
+        raise AssertionError(f"fsdp 2: not bit-equal to phase 17's request, or shares {shares}")
+    return launches
+
 START = time.perf_counter()
 
 
@@ -3875,6 +4234,7 @@ def main() -> int:
         ckpt = timed_phase("cli", phase_checkpoint_cli, first, ckpt_root)
         gc.collect()
         torch.cuda.empty_cache()
+        sp = timed_phase("sp", phase_sp, first, ckpt, ckpt_root)
         group_cli = timed_phase("groupcli", phase_group_cli, first, ckpt, ckpt_root)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3911,7 +4271,7 @@ def main() -> int:
                      + options["cfg_cache_interval_2"] + ckpt["launches"]
                      + sum(group_cli.values()) + lr_l["fwd"]
                      + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]
-                     + ft_l["fwd"] + ft_save_l["fwd"]),
+                     + ft_l["fwd"] + ft_save_l["fwd"] + sp["cp2"] + sp["fsdp2"]),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -3929,7 +4289,8 @@ def main() -> int:
                              "train_cli": cli_l["fwd"], "serve_cli_trained_lora":
                              train_cli["serve"], "serve_http": serve_http["launches"],
                              "train_full_ft": ft_l["fwd"],
-                             "train_full_ft_remat_save": ft_save_l["fwd"]},
+                             "train_full_ft_remat_save": ft_save_l["fwd"],
+                             "serve_cp2": sp["cp2"], "serve_fsdp2": sp["fsdp2"]},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_group_peaks_gib": full["group_peaks_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
@@ -4103,4 +4464,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(sp_worker(sys.argv[2:]))
     sys.exit(main())

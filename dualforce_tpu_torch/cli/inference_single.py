@@ -15,6 +15,16 @@ instead (exported from the checkpoint on the first run). Flags of parts not
 yet ported exit with a message that names their ROADMAP item. Importing
 this module loads neither the model code, PIL nor transformers, so
 `--help` is quick.
+
+Sequence and weight parallelism run one process per rank under torchrun:
+
+    torchrun --nproc-per-node 2 -m dualforce_tpu_torch.cli.inference_single \
+        --ckpt_path CKPT --prompt ... --ref_path IMG --cp_size 2
+
+`--cp_size` splits the token sequences, `--fsdp_size` the block weights;
+the world must hold cp * fsdp processes. The backend is NCCL when each rank
+has a card of its own and gloo otherwise (`parallel.mesh.choose_backend`);
+only rank 0 writes the clip.
 """
 
 from __future__ import annotations
@@ -44,9 +54,10 @@ def add_common_args(p: argparse.ArgumentParser, output: str, quantize) -> None:
                         "bridge-off pass")
     p.add_argument("--sigma_shift", type=float, default=5.0)
     p.add_argument("--cp_size", type=int, default=1,
-                   help="sequence parallelism: not ported yet (ROADMAP A7), 1 only")
+                   help="sequence parallelism: ranks that split the token sequences "
+                        "(run under torchrun with cp_size * fsdp_size processes)")
     p.add_argument("--fsdp_size", type=int, default=1,
-                   help="weight sharding: not ported yet (ROADMAP A7), 1 only")
+                   help="weight sharding: ranks that split the block weights")
     p.add_argument("--attn_type", type=str, default="auto", choices=ATTN_TYPES,
                    help="attention route (`MOVAPipeline(attn_impl=...)`)")
     p.add_argument("--offload", type=str, default="none",
@@ -118,10 +129,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 def refuse_unported(args: argparse.Namespace) -> None:
     """Exit, naming the ROADMAP item, where a flag asks for a part that is
     not ported yet, or (as the JAX CLI does) for a disk store without
-    offload."""
-    if args.cp_size > 1 or args.fsdp_size > 1:
-        raise SystemExit("--cp_size and --fsdp_size above 1 need sequence and data "
-                         "parallelism, which are not ported yet (ROADMAP A7)")
+    offload or offload under a mesh."""
+    if args.cp_size * args.fsdp_size > 1 and offload_mode(args) != "none":
+        raise SystemExit("--offload is for single-chip runs; use --fsdp_size to shard "
+                         "weights across chips instead")
     if getattr(args, "offload_to_disk_path", None) and args.offload == "none":
         raise SystemExit("--offload_to_disk_path requires --offload cpu/group/component")
     if getattr(args, "vae_encode_dtype", None) == "bf16":
@@ -140,6 +151,38 @@ def offload_kwargs(args: argparse.Namespace) -> dict:
     return dict(offload=offload_mode(args), offload_group_size=args.offload_group_size,
                 offload_resident_small=getattr(args, "offload_resident_small", False),
                 offload_resident_video_groups=getattr(args, "offload_resident_groups", 0))
+
+
+def device_and_mesh(args: argparse.Namespace):
+    """(this rank's device, the (1, fsdp, cp) mesh or None): under
+    `--cp_size`/`--fsdp_size` the process joins the torchrun world first
+    (`parallel.mesh.initialize_distributed`), and a world that does not
+    hold cp * fsdp processes raises before anything is read."""
+    from dualforce_tpu_torch import resolve_device
+
+    if args.cp_size * args.fsdp_size == 1:
+        return resolve_device(args.device), None
+    from dualforce_tpu_torch.parallel.mesh import create_mesh, initialize_distributed
+
+    device = initialize_distributed(args.device)
+    return device, create_mesh(1, args.fsdp_size, args.cp_size)
+
+
+def shard(modules, mesh, device):
+    """The modules' block weights sharded over the mesh's fsdp axis
+    (`parallel.sharding.shard_params`), the bytes this rank holds printed."""
+    if mesh is None:
+        return modules
+    from dualforce_tpu_torch.parallel import sharding
+    from dualforce_tpu_torch.parallel.mesh import mesh_shape, rank
+    from dualforce_tpu_torch.utils.misc import hbm_in_use_gb
+
+    whole = sharding.block_bytes(modules)
+    sharding.shard_params(modules, mesh)
+    print(f"[info] rank {rank()}: mesh {mesh_shape(mesh)}; block weights "
+          f"{sharding.block_bytes(modules) / 1e9:.3f} of {whole / 1e9:.3f} GB held here; "
+          f"card memory in use {hbm_in_use_gb(device):.2f} GB", flush=True)
+    return modules
 
 
 def load_modules(args: argparse.Namespace, ckpt: str, cfg, dtype, device):
@@ -206,13 +249,13 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
     refuse_unported(args)
     import torch
 
-    from dualforce_tpu_torch import resolve_device
     from dualforce_tpu_torch.convert.load_checkpoint import (config_from_checkpoint,
                                                              load_tokenizer)
     from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.parallel.mesh import rank
     from dualforce_tpu_torch.utils.misc import device_timer, hbm_in_use_gb, profile_trace
 
-    device = resolve_device(args.device)
+    device, mesh = device_and_mesh(args)
     dtype = dtype or torch.bfloat16
     cfg = config_from_checkpoint(args.ckpt_path)
     wdtype = torch.float8_e4m3fn if args.weight_dtype == "fp8" else dtype
@@ -220,12 +263,14 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
     if device.type == "cuda":
         print(f"[info] card memory in use after loading: {hbm_in_use_gb(device):.2f} GB",
               flush=True)
-    pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
+    pipe = MOVAPipeline(cfg, shard(modules, mesh, device),
+                        tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
-                        quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad,
+                        quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad, mesh=mesh,
                         **offload_kwargs(args))
     frame = first_frame(args, image)
-    with profile_trace(args.profile), device_timer("generation", device):
+    trace = args.profile if rank() == 0 else None
+    with profile_trace(trace), device_timer("generation", device):
         result = pipe(prompt=args.prompt, image=frame, negative_prompt=args.negative_prompt,
                       seed=args.seed, height=args.height, width=args.width,
                       num_frames=args.num_frames, video_fps=args.fps,
@@ -248,10 +293,23 @@ def save(args: argparse.Namespace, result) -> str:
     return out
 
 
-def main(argv=None) -> None:
+def finish(args: argparse.Namespace, result) -> None:
+    """Rank 0 writes the clip (`save`), after the last collective; every
+    rank then leaves the process group."""
+    from dualforce_tpu_torch.parallel.mesh import leave, rank
+
+    if rank() == 0:
+        save(args, result)
+    leave()
+
+
+def main(argv=None, tokenizer=None, image=None, dtype=None):
+    """Parse, generate (`run`, whose overrides these are) and write; returns
+    the GenerationResult."""
     args = parse_args(argv)
-    result, _ = run(args)
-    save(args, result)
+    result, _ = run(args, tokenizer=tokenizer, image=image, dtype=dtype)
+    finish(args, result)
+    return result
 
 
 if __name__ == "__main__":

@@ -23,9 +23,9 @@ import argparse
 import os
 import time
 
-from dualforce_tpu_torch.cli.inference_single import (add_common_args, first_frame,
-                                                      offload_kwargs, offload_mode,
-                                                      refuse_unported, save)
+from dualforce_tpu_torch.cli.inference_single import (add_common_args, device_and_mesh,
+                                                      finish, first_frame, offload_kwargs,
+                                                      offload_mode, refuse_unported, shard)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,13 +96,12 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
     refuse_unported(args)
     import torch
 
-    from dualforce_tpu_torch import resolve_device
     from dualforce_tpu_torch.convert.load_checkpoint import (config_from_checkpoint,
                                                              load_tokenizer)
     from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
     from dualforce_tpu_torch.utils.misc import device_timer
 
-    device = resolve_device(args.device)
+    device, mesh = device_and_mesh(args)
     dtype = dtype or torch.bfloat16
     cfg = config_from_checkpoint(args.base_model)
     lora, meta = load_any_lora(args.lora_path, cfg)
@@ -110,9 +109,10 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
     modules, merge_s = load_merged(args, cfg, lora, alpha, device, dtype)
     print(f"[info] merged LoRA (rank={meta['rank']}, alpha={alpha}, scale={args.lora_scale}, "
           f"weight_dtype={args.weight_dtype}) in {merge_s:.2f} s", flush=True)
-    pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.base_model),
+    pipe = MOVAPipeline(cfg, shard(modules, mesh, device),
+                        tokenizer=tokenizer or load_tokenizer(args.base_model),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
-                        quantize=args.quantize, **offload_kwargs(args))
+                        quantize=args.quantize, mesh=mesh, **offload_kwargs(args))
     frame = first_frame(args, image)
     with device_timer("generation", device):
         result = pipe(prompt=args.prompt, image=frame, negative_prompt=args.negative_prompt,
@@ -124,10 +124,13 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
     return result, pipe
 
 
-def main(argv=None) -> None:
+def main(argv=None, tokenizer=None, image=None, dtype=None):
+    """Parse, generate (`run`, whose overrides these are) and write (rank
+    0); returns the GenerationResult."""
     args = parse_args(argv)
-    result, _ = run(args)
-    save(args, result)
+    result, _ = run(args, tokenizer=tokenizer, image=image, dtype=dtype)
+    finish(args, result)
+    return result
 
 
 if __name__ == "__main__":

@@ -31,9 +31,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--out_dir", type=str, default="./server_outputs")
     ap.add_argument("--cp_size", type=int, default=1,
-                    help="sequence parallelism: not ported yet (ROADMAP A7), 1 only")
+                    help="sequence parallelism: not ported in the server yet (ROADMAP "
+                         "A7b), 1 only")
     ap.add_argument("--fsdp_size", type=int, default=1,
-                    help="weight sharding: not ported yet (ROADMAP A7), 1 only")
+                    help="weight sharding: not ported in the server yet (ROADMAP A7b), "
+                         "1 only")
     ap.add_argument("--attn_type", type=str, default="auto", choices=ATTN_TYPES,
                     help="attention route (`MOVAPipeline(attn_impl=...)`)")
     ap.add_argument("--quantize", type=str, default="none",
@@ -95,6 +97,9 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
     from dualforce_tpu_torch.cli.inference_single import (offload_kwargs, offload_mode,
                                                           refuse_unported)
 
+    if args.cp_size > 1 or args.fsdp_size > 1:
+        raise SystemExit("--cp_size and --fsdp_size above 1 are not ported in the server "
+                         "yet (ROADMAP A7b); the inference CLIs take them under torchrun")
     refuse_unported(args)
     import torch
 

@@ -18,9 +18,9 @@ entry, the value read as a Python literal where it parses as one (and
 takes any name of the JAX registry (`engine.optim.OPTIMIZERS`). It runs on
 the CUDA card unless `--device cpu` asks for the CPU. Under `trainer.offload="component"` the modules are loaded into
 page-locked host memory and staged per phase. A mesh over more than one
-device (`lora_360p.py`'s fsdp 2 x cp 4) exits before anything is read: it
-needs data and sequence parallelism, not ported yet (ROADMAP A7); `--set
-mesh={}` runs such a recipe on one device. Each `step-N/` under
+device (`lora_360p.py`'s fsdp 2 x cp 4) exits before anything is read:
+training under a mesh is not ported yet (ROADMAP A7b; serving is, in the
+inference CLIs); `--set mesh={}` runs such a recipe on one device. Each `step-N/` under
 `trainer.save_dir` holds `state.pt` (resumed from on the next run),
 `lora_weights.npz` (+ `.json`, the JAX package's format) and
 `lora_weights.pt` + `lora_config.pt` (the reference trainer's), or under
@@ -84,9 +84,9 @@ def refuse_unported(cfg: dict) -> None:
     is not ported yet."""
     mesh = cfg.get("mesh") or {}
     if math.prod(int(v) for v in mesh.values()) > 1:
-        raise SystemExit(f"mesh {mesh} spans more than one device: data and sequence "
-                         "parallelism are not ported yet (ROADMAP A7); --set mesh={} "
-                         "trains on one")
+        raise SystemExit(f"mesh {mesh} spans more than one device: training under a "
+                         "mesh is not ported yet (ROADMAP A7b); --set mesh={} trains on "
+                         "one")
 
 
 def run(argv: Optional[Sequence[str]] = None, tokenizer=None, dtype=None):

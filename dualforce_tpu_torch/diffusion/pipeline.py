@@ -9,7 +9,9 @@ phase that uses them (offload "component"), or besides stream the active
 expert through the card in layer groups in every pass (offload "group",
 `diffusion/streamed.py`); attention takes the route
 `attn_impl` names; the DiT towers and the bridge may be quantized
-(`quantize`); the tokenizer is passed in.
+(`quantize`); the tokenizer is passed in. With a (data, fsdp, cp) `mesh`
+every rank runs the pipeline: the encodes and the decode whole, the blocks
+of each pass over the mesh (`diffusion/sampler.resident_passes(sp_mesh=...)`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from dualforce_tpu_torch.diffusion.step import make_rope_pack
 from dualforce_tpu_torch.diffusion.streamed import denoise_streamed
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
 from dualforce_tpu_torch.ops.attention import ATTN_IMPLS
+from dualforce_tpu_torch.parallel.mesh import mesh_shape
 
 QUANTIZE_MODES = ("none", "int8", "int4")
 QUANTIZED_TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")
@@ -80,7 +83,7 @@ class MOVAPipeline:
                  device="cuda", attn_impl="auto", quantize: str = "none",
                  offload: str = "none", mask_ctx_pad: bool = False,
                  offload_group_size: int = 8, offload_resident_small: bool = False,
-                 offload_resident_video_groups: int = 0):
+                 offload_resident_video_groups: int = 0, mesh=None):
         """attn_impl: "auto" | "fast" | "sage" | "pallas" | "ref" | a callable,
         the route of every attention (`ops.attention.attention`).
 
@@ -117,13 +120,32 @@ class MOVAPipeline:
 
         mask_ctx_pad: the text cross-attentions attend only each prompt's
         tokens (the per-batch kv mask) instead of the zero-padded 512, as
-        the JAX package's opt-in flag; off by default, as the reference."""
+        the JAX package's opt-in flag; off by default, as the reference.
+
+        mesh: a (data, fsdp, cp) `DeviceMesh` (`parallel.mesh.create_mesh`)
+        this process is a rank of, the modules' block weights already
+        sharded by `parallel.sharding.shard_params` where fsdp > 1. Every
+        rank must build the pipeline and make the same calls with the same
+        arguments: each draws the same noise from the same seeds, encodes
+        and decodes whole, and runs each pass's blocks over the mesh
+        (sequence chunks on cp, the batch on data where it divides, weights
+        gathered per layer on fsdp). Group offload is refused on a mesh of
+        more than one rank (the JAX package refuses it on a cp mesh; the
+        streamed groups would carry fsdp shards), and quantized towers on
+        an fsdp one."""
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if not callable(attn_impl) and attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if offload not in ("none", "component", "group"):
             raise ValueError(f"unknown offload mode {offload!r}")
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        if offload == "group" and self.mesh is not None:
+            raise ValueError("offload='group' is a single-chip escape hatch; use cp/fsdp "
+                             "sharding instead of offload on a multi-chip mesh")
+        if quantize != "none" and mesh_shape(mesh).get("fsdp", 1) > 1:
+            raise ValueError("quantized towers under fsdp sharding are not ported "
+                             "(ROADMAP A7b)")
         self.device = resolve_device(device)
         self.offload = offload
         self.offload_group_size = int(offload_group_size)
@@ -382,7 +404,8 @@ class MOVAPipeline:
             with self._staged("audio_dit", "bridge") as shared:
                 for tower, p0, p1 in phases:
                     if p1 > p0:
-                        latents, audio_latents = self._phase(tower, shared, args, p0, p1, kw)
+                        latents, audio_latents = self._phase(tower, shared, args, p0, p1,
+                                                             dict(kw, sp_mesh=self.mesh))
                         args = (latents, condition, audio_latents) + args[3:]
         neg_v, neg_a = cache if cache is not None else (None, None)
         return dict(state, step=stop, latents=latents, audio_latents=audio_latents,

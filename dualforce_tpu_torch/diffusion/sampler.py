@@ -60,10 +60,13 @@ class Pass(NamedTuple):
 
 def resident_passes(video, audio, bridge, video_fps: float = 24.0,
                     compute_dtype: torch.dtype = torch.bfloat16, rope_pack=None,
-                    attn_impl="auto"):
+                    attn_impl="auto", sp_mesh=None):
     """run(passes, model_in, alat, t, at) -> [(v, a) fp32 per pass]: each pass
     one `dual_tower_step` on the expert `video`, whose modules are on the
-    device."""
+    device. With `sp_mesh`, a (data, fsdp, cp) mesh (JAX's `sp_mesh`), each
+    pass's blocks run over it (`parallel.sp.sp_forward_blocks`) and give
+    every rank the whole prediction, so `denoise_steps` runs unchanged in
+    every rank."""
     def run(passes: List[Pass], model_in, alat, t, at):
         outs = []
         for p in passes:
@@ -73,7 +76,8 @@ def resident_passes(video, audio, bridge, video_fps: float = 24.0,
             v, a = dual_tower_step(video, audio, bridge, mi, al, p.context, tt, att,
                                    video_fps=video_fps, condition_scale=p.bridge_scale,
                                    compute_dtype=compute_dtype, attn_impl=attn_impl,
-                                   ctx_valid_len=p.ctx_len, rope_pack=rope_pack)
+                                   ctx_valid_len=p.ctx_len, rope_pack=rope_pack,
+                                   sp_mesh=sp_mesh)
             outs.append((v.float(), a.float()))
         return outs
 
@@ -129,7 +133,8 @@ def denoise_loop(
     ctx_len_pos, ctx_len_neg: optional [B] valid context lengths; the text
     cross-attentions mask the keys past them.
     video_fps, compute_dtype, rope_pack, attn_impl (to every attention),
-    progress_fn(step, total) (on the host after each step)."""
+    progress_fn(step, total) (on the host after each step), sp_mesh (the
+    blocks over a (data, fsdp, cp) mesh, `resident_passes`)."""
     n = plan.num_steps
     split = plan.boundary_step if video_low is not None else n
     return _denoise([(video_high, 0, split), (video_low, split, n)], audio, bridge,
@@ -139,14 +144,14 @@ def denoise_loop(
 def _denoise(phases, audio, bridge, latents, condition, audio_latents, ctx_pos, ctx_neg,
              plan: SamplePlan, video_fps: float = 24.0,
              compute_dtype: torch.dtype = torch.bfloat16, rope_pack=None,
-             attn_impl="auto", **kwargs):
+             attn_impl="auto", sp_mesh=None, **kwargs):
     """The loop over `phases`, [(video expert, start, stop)], in order; the
     CFG negative cache starts empty in each."""
     lat, alat = latents, audio_latents
     for video, start, stop in phases:
         if stop > start:
-            run = resident_passes(video, audio, bridge, video_fps, compute_dtype, rope_pack,
-                                  attn_impl)
+            run = resident_passes(video, audio, bridge, video_fps, compute_dtype,
+                                  rope_pack, attn_impl, sp_mesh=sp_mesh)
             lat, alat, _ = denoise_steps(run, lat, condition, alat, ctx_pos, ctx_neg, plan,
                                          start, stop, **kwargs)
     return lat, alat

@@ -22,6 +22,7 @@ from dualforce_tpu_torch.models.video_dit import VideoDiT
 from dualforce_tpu_torch.ops.rope import (build_aligned_cross_rope, build_audio_freqs,
                                           build_video_freqs, precompute_freqs_1d,
                                           precompute_freqs_3d)
+from dualforce_tpu_torch.parallel.sp import sp_forward_blocks
 
 
 @functools.lru_cache(maxsize=8)
@@ -108,13 +109,17 @@ def dual_tower_step(
     rope_pack=None,
     remat: bool = False,
     params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    sp_mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (visual prediction [B, out, F, H, W], audio prediction
     [B, out, T]) in the compute dtype: `step_prologue`, every layer of
     `forward_dual_tower`, `step_head`. The layer-group streamed pass
     (`diffusion/streamed.py`) runs the same three with the layers in groups.
     `remat` and `params` (tensors in place of the layers' own parameters,
-    e.g. LoRA-merged weights) go to `forward_dual_tower`."""
+    e.g. LoRA-merged weights) go to `forward_dual_tower`. With `sp_mesh`, a
+    (data, fsdp, cp) mesh, the blocks run over it
+    (`parallel.sp.sp_forward_blocks`); the prologue and the heads run whole
+    on every rank, as in the JAX package."""
     if audio_timestep is None:
         audio_timestep = timestep
     pre = step_prologue(video, audio, visual_latents, audio_latents, context, timestep,
@@ -122,11 +127,17 @@ def dual_tower_step(
     if rope_pack is None:
         rope_pack = make_rope_pack(video.cfg, audio.cfg, bridge.cfg, pre["grid"],
                                    pre["audio_tokens"], video_fps, pre["visual_x"].device)
-    visual_x, audio_x = forward_dual_tower(
-        video.blocks, audio.blocks, bridge, pre["visual_x"], pre["audio_x"],
-        pre["visual_ctx"], pre["audio_ctx"], pre["v_t_mod"], pre["a_t_mod"],
-        rope_pack["v"], rope_pack["a"], cross_rope=rope_pack.get("cross"),
-        condition_scale=condition_scale, a2v_condition_scale=a2v_condition_scale,
-        v2a_condition_scale=v2a_condition_scale, attn_impl=attn_impl,
-        ctx_valid_len=ctx_valid_len, remat=remat, params=params, video_grid=pre["grid"])
+    blocks = (video.blocks, audio.blocks, bridge, pre["visual_x"], pre["audio_x"],
+              pre["visual_ctx"], pre["audio_ctx"], pre["v_t_mod"], pre["a_t_mod"],
+              rope_pack["v"], rope_pack["a"])
+    kw = dict(cross_rope=rope_pack.get("cross"), condition_scale=condition_scale,
+              a2v_condition_scale=a2v_condition_scale,
+              v2a_condition_scale=v2a_condition_scale, attn_impl=attn_impl,
+              ctx_valid_len=ctx_valid_len, video_grid=pre["grid"])
+    if sp_mesh is not None:
+        if remat or params:
+            raise ValueError("training under a mesh is not ported (ROADMAP A7b)")
+        visual_x, audio_x = sp_forward_blocks(sp_mesh, *blocks, **kw)
+    else:
+        visual_x, audio_x = forward_dual_tower(*blocks, remat=remat, params=params, **kw)
     return step_head(video, audio, pre, visual_x, audio_x)

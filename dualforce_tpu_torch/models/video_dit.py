@@ -106,8 +106,11 @@ class DiTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor, t_mod: torch.Tensor,
                 rope, attn_impl="auto",
-                ctx_valid_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, S, dim]; t_mod [B, 6, dim] in the compute dtype."""
+                ctx_valid_len: Optional[torch.Tensor] = None,
+                cross_attn_impl=None) -> torch.Tensor:
+        """x [B, S, dim]; t_mod [B, 6, dim] in the compute dtype.
+        cross_attn_impl: the text cross-attention's route (by default
+        `attn_impl`, or "auto" where that is a callable)."""
         mod = self.modulation.to(t_mod.dtype) + t_mod
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             mod[:, :, None, :].unbind(1)
@@ -115,7 +118,7 @@ class DiTBlock(nn.Module):
         x = x + gate_msa * self_attention(self.self_attn, h, rope, self.num_heads,
                                           attn_impl)
         h = self.norm3(x)
-        cross_impl = attn_impl if not callable(attn_impl) else "auto"
+        cross_impl = cross_attn_impl or (attn_impl if not callable(attn_impl) else "auto")
         x = x + cross_attention(self.cross_attn, h, ctx, self.num_heads,
                                 cross_impl, ctx_valid_len)
         h = dnn.layer_norm(x, self.eps) * (1 + scale_mlp) + shift_mlp

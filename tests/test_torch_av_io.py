@@ -13,6 +13,7 @@ from dualforce_tpu.utils import av_io as jax_av_io
 
 from dualforce_tpu_torch.data import transforms
 from dualforce_tpu_torch.utils import av_io
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 @pytest.fixture

@@ -6,6 +6,7 @@ No nvcc is needed: the key is computed from bytes alone.
 """
 
 from dualforce_tpu_torch.ops import _build
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _csrc(tmp_path):

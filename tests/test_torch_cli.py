@@ -40,6 +40,7 @@ from dualforce_tpu_torch.models.factory import init_pipeline_params
 from dualforce_tpu_torch.utils.av_io import read_mjpeg_avi
 
 from test_torch_pipeline import FakeTokenizer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 CLIS = {"inference_single.py": cli, "inference_single_lora.py": lora_cli}
@@ -120,7 +121,6 @@ def test_flags_are_a_superset_of_the_jax_cli(script, monkeypatch):
 
 
 UNPORTED = [
-    (["--cp_size", "2"], "A7"), (["--fsdp_size", "4"], "A7"),
     (["--vae_encode_dtype", "bf16"], "A1"),
 ]
 
@@ -132,10 +132,6 @@ def test_unported_flags_exit_with_their_roadmap_item(extra, item, tmp_path):
     absent = str(tmp_path / "absent")   # nothing may be read before the refusal
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.run(cli.parse_args(["--ckpt_path", absent] + base + extra))
-    if extra[0] in ("--cp_size", "--fsdp_size"):
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-            lora_cli.run(lora_cli.parse_args(["--base_model", absent, "--lora_path", absent]
-                                             + base + extra))
 
 
 def test_accepted_no_op_flags_parse(tmp_path):

@@ -25,6 +25,7 @@ from dualforce_tpu.data import native as jnative
 from dualforce_tpu_torch.data import dataset as tds
 from dualforce_tpu_torch.data import native
 from dualforce_tpu_torch.utils.av_io import write_mjpeg_avi
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H, W, T, FPS, SR = 40, 72, 6, 24.0, 16000
 

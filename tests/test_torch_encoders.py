@@ -23,6 +23,7 @@ from dualforce_tpu.models import wan_vae as jax_wan
 from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
 from dualforce_tpu_torch.models.factory import _build
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CFG = tiny_test_config()

@@ -30,6 +30,7 @@ from dualforce_tpu.eval import metrics as jax_metrics
 from dualforce_tpu_torch.cli import eval as eval_cli
 from dualforce_tpu_torch.eval import metrics
 from dualforce_tpu_torch.utils.av_io import write_mjpeg_avi
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -19,6 +19,7 @@ from dualforce_tpu.ops.flash_attention import flash_attention as jax_flash
 
 from dualforce_tpu_torch.ops import attention as tatt
 from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _qkv(seed, b, sq, sk, n, d, dtype=np.float32):

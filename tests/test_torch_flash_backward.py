@@ -28,6 +28,7 @@ from dualforce_tpu.ops.flash_attention import flash_attention as jax_flash
 from dualforce_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash_lse
 
 from dualforce_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 jax_fa = importlib.import_module("dualforce_tpu.ops.flash_attention")
 

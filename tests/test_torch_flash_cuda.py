@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from dualforce_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 @pytest.fixture

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from dualforce_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 H100_SMS = 132
 

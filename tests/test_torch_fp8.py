@@ -31,6 +31,7 @@ from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 
 from test_torch_pipeline import FakeTokenizer, _jax_params, _numpy_state
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 FP8_MODULES = ("video_dit", "video_dit_2", "audio_dit", "bridge", "text_encoder")
 REQUEST = dict(height=32, width=32, num_frames=5, num_inference_steps=3, cfg_scale=5.0)

@@ -35,6 +35,7 @@ from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.engine.optim import AdamW
 from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
 from dualforce_tpu_torch.models.factory import init_pipeline_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 LOSS_TOL = dict(rtol=1e-4)
 PARAM_TOL = dict(rtol=0, atol=2e-5)

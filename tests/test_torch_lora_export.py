@@ -22,6 +22,7 @@ from dualforce_tpu.models.factory import init_pipeline_params as jax_init
 from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.convert import from_jax, lora_export, lora_import
 from dualforce_tpu_torch.engine import lora as lora_mod
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG_KW = dict(visual_layers=3, audio_layers=2)
 STYLES = ("accelerate", "low_resource")

@@ -30,6 +30,7 @@ from dualforce_tpu_torch.engine import lora as lora_mod
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 
 from test_lora_import import ALPHA, RANK, _fake_accelerate_sd
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 MERGE_REL_TOL = 1e-6
 TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")

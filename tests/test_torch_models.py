@@ -29,6 +29,7 @@ from dualforce_tpu_torch.models.bridge import DualTowerBridge
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 from dualforce_tpu_torch.models.video_dit import DiTBlock
 from dualforce_tpu_torch.ops import rope as trope
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 OP_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -20,6 +20,7 @@ import torch
 
 from dualforce_tpu.engine import optim as joptim
 from dualforce_tpu_torch.engine import optim as toptim
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 # 300 is not a multiple of 256; the 512-element parameter's first block gets
 # zero gradients throughout

@@ -20,6 +20,7 @@ from dualforce_tpu.engine import optim as joptim
 from dualforce_tpu.registry import OPTIMIZERS as JAX_OPTIMIZERS
 
 from dualforce_tpu_torch.engine import optim as toptim
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 NAMES = ["AdamW", "AdamW8bit", "Adam", "Adamax", "NAdam", "NAdamW", "RAdam", "AdaBelief",
          "SGD", "RMSprop", "Adagrad", "Adadelta", "Lion", "LAMB", "Adafactor", "Novograd"]

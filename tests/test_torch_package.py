@@ -14,6 +14,7 @@ import torch
 from dualforce_tpu import config as jax_config
 
 from dualforce_tpu_torch import config, resolve_device
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "dualforce_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

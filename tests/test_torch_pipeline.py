@@ -31,6 +31,7 @@ from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.convert import from_jax
 from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
 from dualforce_tpu_torch.models.factory import init_pipeline_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REQUEST = dict(height=32, width=32, num_frames=5, num_inference_steps=3, cfg_scale=5.0)
 

@@ -56,6 +56,7 @@ from dualforce_tpu_torch import nn as tnn
 from dualforce_tpu_torch.diffusion.step import dual_tower_step
 from dualforce_tpu_torch.ops import flash_attention as tfa
 from dualforce_tpu_torch.ops import sage_attention as tsa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REL = 1e-3
 ACT_REL = 1e-3
@@ -132,6 +133,7 @@ def test_quantized_step_matches_jax(flagship_mini, monkeypatch, impl, mode):
         qtree(vp), qtree(ap), qtree(bp), jcfg.video_dit, jcfg.audio_dit, jcfg.bridge, *x,
         video_fps=24.0, compute_dtype=jnp.float32, attn_impl=impl))(
         jparams["video_dit"], jparams["audio_dit"], jparams["bridge"], *inputs)
+    jax.effects_barrier()   # every activation recorded before the port's replay reads them
 
     calls = []
     if impl == "sage":

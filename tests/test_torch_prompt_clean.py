@@ -14,6 +14,7 @@ import pytest
 
 from dualforce_tpu.diffusion import pipeline as jax_pipeline
 from dualforce_tpu_torch.diffusion import pipeline as torch_pipeline
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 PROMPTS = [
     "a cat playing the piano in a sunlit room",

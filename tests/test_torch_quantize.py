@@ -26,6 +26,7 @@ from dualforce_tpu_torch import nn as tnn
 from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.convert import from_jax
 from dualforce_tpu_torch.models.factory import init_pipeline_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REL = 1e-5
 

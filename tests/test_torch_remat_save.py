@@ -29,6 +29,7 @@ from dualforce_tpu_torch.diffusion import training as ttr
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 from dualforce_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 # per step of this tower: the shared layer's 6 attentions (a2v, v2a, video
 # self and text cross, audio self and text cross) and the tail layer's 2

@@ -23,6 +23,7 @@ from dualforce_tpu_torch.ops import sage_attention as tsa
 from dualforce_tpu_torch.ops.flash_attention import (FAST_SOFTMAX_CAP, flash_attention,
                                                      flash_attention_plain,
                                                      flash_attention_with_lse)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 SHAPES = [
     (1, 2, 300, 200, None),

@@ -22,6 +22,7 @@ from test_torch_sage_attention import _jax_quantized
 
 from dualforce_tpu_torch.ops import flash_attention as tfa
 from dualforce_tpu_torch.ops import sage_attention as tsa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _qk(seed, b, sq, sk, n, d=128):

@@ -64,6 +64,7 @@ from dualforce_tpu_torch.serving.server import serve_in_thread
 from dualforce_tpu_torch.utils.av_io import read_mjpeg_avi, save_video_with_audio
 
 from test_torch_pipeline import FakeTokenizer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 SERVERS = {"jax": jax_server, "port": port_server}

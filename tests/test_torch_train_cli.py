@@ -22,6 +22,7 @@ from dualforce_tpu_torch.engine.optim import AdamW8bit
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 
 from test_torch_pipeline import FakeTokenizer
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((REPO / "configs" / "training").glob("*.py"))

@@ -39,6 +39,7 @@ from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.engine import lora as tlora
 from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
 from dualforce_tpu_torch.models.factory import init_pipeline_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")
 FP8_MODULES = TOWERS + ("text_encoder",)

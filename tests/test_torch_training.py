@@ -39,6 +39,7 @@ from dualforce_tpu_torch.engine import optim as toptim
 from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
 from dualforce_tpu_torch.models import dac_vae
 from dualforce_tpu_torch.models.factory import init_pipeline_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CFG_KW = dict(visual_layers=3, audio_layers=2)   # the video-only tail runs too
 ENC_TOL = dict(rtol=1e-4, atol=1e-5)

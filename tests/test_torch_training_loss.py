@@ -30,6 +30,7 @@ from dualforce_tpu_torch.diffusion import training as ttr
 from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 from dualforce_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 GRAD_TOL = dict(rtol=1e-3, atol=1e-6)
 

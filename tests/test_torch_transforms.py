@@ -12,6 +12,7 @@ from dualforce_tpu.data import transforms as jt
 from dualforce_tpu.registry import TRANSFORMS as JAX_TRANSFORMS
 
 from dualforce_tpu_torch.data import transforms as tt
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _images():

@@ -57,6 +57,7 @@ from dualforce_tpu_torch.workflow import studio as port_studio
 
 from test_torch_serving import call
 from test_workflow_providers import PNG_BYTES, _FakeAPIs
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PKGS = {
