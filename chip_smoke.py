@@ -98,9 +98,10 @@ Phases, each of which must pass:
    exactly zero dk and dv); and phase 7 again with every backward routed to
    the split kernels.
 13. 720p train path: `LoRATrainer` on the main path's modules with phase 8's
-   settings for 2 optimizer steps (experts 0, 1) on synthetic 1280x720
-   clips of 193 frames at 24 fps with 386,000 audio samples (176,400 video
-   and 403 audio tokens). Loss and grad norm must be finite (the norm above
+   settings for 2 optimizer steps (experts 0, 1) on a synthetic 1280x720
+   clip of 193 frames at 24 fps with 386,000 audio samples (176,400 video
+   and 403 audio tokens), both steps on the one clip, its second encode
+   served from the first. Loss and grad norm must be finite (the norm above
    0); each micro-step must launch the forward kernel exactly 28 times, the
    split backward 8 times and the fused one 6 times; afterwards every
    module's LoRA `b` must be nonzero. Prints encode, loss+backward and
@@ -126,10 +127,10 @@ Phases, each of which must pass:
    peaks. Last, step 0 again with `offload_resident_small` (only the video
    groups stream): 400 launches, latents bit-equal to the first range's,
    its bytes against the full stream's.
-15. full depth, fp8: the same 2-step request with the towers and UMT5
-   stored in fp8 (`init_pipeline_params(dtype=float8_e4m3fn)`) resident on
-   the card: 800 launches; prints the fp8 modules' bytes against bf16's
-   and the peak.
+15. full depth, fp8: the same request, its first step alone, with the
+   towers and UMT5 stored in fp8 (`init_pipeline_params(dtype=float8_e4m3fn)`)
+   resident on the card: 400 launches; prints the fp8 modules' bytes against
+   bf16's and the peak.
 16. sampler options: at phase 5's geometry and depth cut (seed 0), one
    request with `cfg_batch` and `mask_ctx_pad`: exactly 56 launches, each at
    B = 2, the text cross-attentions with per-batch kv lengths, its decoded
@@ -182,8 +183,9 @@ Phases, each of which must pass:
    with `configs/training/lora_low_resource.py` from phase 17's checkpoint
    (fp8 storage, component offload, AdamW8bit, 4 micro-batches per step;
    `--set` one data worker, the expert switched every step, jsonl logs, lr
-   1e-3 after one warmup step) to step 2, then again to step 3, which must
-   resume from `step-2` (16 forward and 8 fused backward launches per
+   1e-3 after one warmup step) to step 2, then again to step 3 (its
+   modules served from the first run's load), which must resume from
+   `step-2` (16 forward and 8 fused backward launches per
    micro-step); the step's npz and exported `.pt` reload bit-equal and
    every LoRA `b` is nonzero; then phase 5's first request through
    `cli.inference_single_lora.run` with the exported
@@ -262,21 +264,43 @@ Phases, each of which must pass:
    `compress`'s codes against the one pass's (>= 99 % equal, printed);
    the Wan VAE's `encode_sample_streaming` at 352x640x193 bit-equal to
    mean + exp(logvar / 2) * noise with the same noise.
-24. serving under a mesh (run after phase 17, on its checkpoint): one
-   world of two processes on the one card under torchrun (this script
-   with `--sp-worker`; backend gloo, since NCCL refuses two ranks on one
-   card): (a) the video self ring (40 heads, 43,120 tokens split 21,560 /
-   21,560) and the v2a LSE combine (12 heads, 404 queries x 43,120 keys)
-   against B1 on the whole sequence computed here (relative L2 <= 1e-2),
-   each ring step's kernel and transfer timed apart; (b) phase 17's base
-   request through `cli.inference_single.run` at `--cp_size 2`: the clip
-   within 2e-2 relative L2 of phase 17's, the first step's block stack
-   within 1e-2 of `forward_dual_tower` on the same inputs; (c) the same
-   request at `--fsdp_size 2`: bit-equal to phase 17's, each rank holding
-   half the block weights. B1's launches per rank with and without the LSE
-   as the plan gives them (cp 2: 64 and 40; fsdp 2: 0 and 112); rank 0
-   writes each clip alone; per step and rank the seconds, bytes sent and
-   peak memory.
+24. serving under a mesh (run after phase 21, on phase 17's checkpoint,
+   in the world phase 25 shares): one world of two processes on the one
+   card under torchrun (this script with `--mesh-worker`; backend gloo,
+   since NCCL refuses two ranks on one card): (a) the video self ring (40
+   heads, 43,120 tokens split 21,560 / 21,560) and the v2a LSE combine (12
+   heads, 404 queries x 43,120 keys) against B1 on the whole sequence
+   computed here (relative L2 <= 1e-2), each ring step's kernel and
+   transfer timed apart; (b) phase 17's base request through
+   `cli.inference_single.run` at `--cp_size 2`: the clip within 2e-2
+   relative L2 of phase 17's, the first step's block stack within 1e-2 of
+   `forward_dual_tower` on the same inputs; (c) the same request at
+   `--fsdp_size 2`: bit-equal to phase 17's, each rank holding half the
+   block weights. B1's launches per rank with and without the LSE as the
+   plan gives them (cp 2: 64 and 40; fsdp 2: 0 and 112); rank 0 writes
+   each clip alone; per step and rank the seconds, bytes sent and peak
+   memory.
+25. training under a mesh, in the same world (the checkpoint read once in
+   each rank, each training batch encoded once): `cli.train.run` with
+   `configs/training/lora_360p.py` (352x640x49: 11,440 video and 103 audio
+   tokens) from phase 17's checkpoint on phase 19's clips, 2 steps (experts
+   0 then 1, lr 1e-3 after the warmup's 0), against the same run in this
+   process first (`--set mesh={}`): (a) LoRA at `mesh.cp=2` (the ring's
+   backward through B2 with its LSE cotangent): each step's loss within
+   1e-2 relative, the global grad norm within 2e-2, each module's LoRA
+   factors within 2e-2 relative L2, every LoRA b nonzero after step 2,
+   every value finite; (b) LoRA at `mesh.fsdp=2`, losses and LoRA after each
+   step bit-equal (every backward, here and in its reference, on the split
+   pair, whose dq is deterministic), each rank holding half the block
+   weights; (c) full fine-tuning of video_dit and the bridge at
+   `mesh.fsdp=2` (AdamW, lr 1e-4, the split pair as in (b)): the first
+   step's loss bit-equal, the trained weights within 1e-4 relative L2 after
+   each step, each sharded tensor halved on each rank, rank 0's `step-2/`
+   export equal to the gathered weights, the other rank's optimizer state
+   beside it. Launches per rank and micro-step exactly as derived at
+   `MESH_CALLS`; the two ranks' LoRAs bit-equal; per step and rank the
+   encode, loss+backward and optimizer seconds, the bytes sent and seconds
+   in collectives in the forward and in the backward, the peak.
 
 Every phase prints its wall time, and a summary line before the kernels
 lists every phase's seconds and the script's. The run sets
@@ -1601,10 +1625,11 @@ def phase_720p_backward_kernels():
                                  f"grad rel errs {errs}")
         del want_o, want_lse, want
         long = max(sq, sk) >= 100_000
-        if long:     # the checked calls above were the warm-ups
-            fwd_ms = time_long_ms(lambda: fa.flash_attention_with_lse(q, k, v), warmup=0)
-            bwd_ms = time_long_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+        if long:     # the checked calls above were the warm-ups; one timed call each
+            fwd_ms = time_long_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps=1,
                                   warmup=0)
+            bwd_ms = time_long_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                  reps=1, warmup=0)
             # the plain versions are yardsticks of seconds per call: one call each
             plain_fwd_ms = time_long_ms(
                 lambda: fa.flash_attention_plain(*sub[:3], return_lse=True), reps=1, warmup=0)
@@ -1640,13 +1665,13 @@ def phase_720p_backward_kernels():
                                                           for gn, e in gap.items())
                           + f", dk/dv bit-equal {equal_kv})")
         del grads
-        timer = ((lambda fn: time_long_ms(fn, warmup=1)) if long else
+        timer = ((lambda fn: time_long_ms(fn, reps=1, warmup=1)) if long else
                  (lambda fn: time_ms(fn, reps=7, warmup=2)[0]))
         pass_note, dq_pass_ms, dkv_pass_ms, dq_bound, dkv_bound = "", None, None, None, None
         if split:    # the split pair's passes one by one, each beside its own bound
             passes = fa._Bwd(q, k, v, o, lse, do, None, None, split=True)
             # the split backward above has warmed both passes
-            pass_timer = ((lambda fn: time_long_ms(fn, warmup=0)) if long else timer)
+            pass_timer = ((lambda fn: time_long_ms(fn, reps=1, warmup=0)) if long else timer)
             dq_pass_ms, dkv_pass_ms = pass_timer(passes.dq_pass), pass_timer(passes.dkv_pass)
             del passes
             (dq_bound, _), (dkv_bound, _) = split_pass_bounds_ms(1, n, sq, sk, sk)
@@ -1660,7 +1685,7 @@ def phase_720p_backward_kernels():
                 raise AssertionError("720p video_self: the forward without the LSE differs from "
                                      "the forward with it")
             del o_nolse
-            nolse_ms = time_long_ms(lambda: fa.flash_attention(q, k, v), warmup=0)
+            nolse_ms = time_long_ms(lambda: fa.flash_attention(q, k, v), reps=1, warmup=0)
             nolse_note = f" nolse_ms={nolse_ms:.4f} (the forward without the LSE, o bit-equal)"
         prep_note, prep = "", None
         if name == "video_self":   # the delta preprocess at the path's largest query length
@@ -1756,16 +1781,23 @@ def phase_train_720p(cfg, modules, root: str):
                          lora_alpha=16.0, log_interval=1, save_interval=1000,
                          save_dir=save_dir, logger="jsonl", remat=True)
     trainer = LoRATrainer(cfg, modules, tcfg, device="cuda")
-    clips = _synthetic_clips(TRAIN_720P_STEPS, TRAIN_720P["height"], TRAIN_720P["width"],
-                             TRAIN_720P["num_frames"], TRAIN_720P["audio_samples"])
+    # one clip for both steps, its second encode served from the first (a cut: the
+    # steps, their launches and checks as with two clips)
+    clips = list(_synthetic_clips(1, TRAIN_720P["height"], TRAIN_720P["width"],
+                                  TRAIN_720P["num_frames"], TRAIN_720P["audio_samples"]))
+    clips *= TRAIN_720P_STEPS
     steps = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # the 720p train path's counts
     flash_attention.launches = flash_attention_bwd.launches = 0
     flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
+    restore = _cached_encodes()
     t0 = time.perf_counter()
-    final = trainer.train(clips, on_micro_step=steps.append)
+    try:
+        final = trainer.train(clips, on_micro_step=steps.append)
+    finally:
+        restore()
     wall = time.perf_counter() - t0
     launches = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
                 "split": flash_attention_bwd.split_launches,
@@ -1813,6 +1845,9 @@ def phase_train_720p(cfg, modules, root: str):
 # attentions + 10 tail layers x 2) x 2 CFG passes x 2 steps
 FULL_DEPTH_STEPS = 2
 FULL_DEPTH_REQUEST = dict(REQUEST, num_inference_steps=FULL_DEPTH_STEPS)
+# phase 15's fp8-resident request: one step (the high-noise expert), cut from 2 to make room
+# for the training world of phase 25
+FP8_REQUEST = dict(REQUEST, num_inference_steps=1)
 FULL_DEPTH_LAUNCHES = (30 * 6 + 10 * 2) * 2 * FULL_DEPTH_STEPS
 # the group-streamed request: the CLI's default group size
 GROUP_SIZE = 8
@@ -2132,16 +2167,16 @@ def phase_full_depth_fp8():
                         device="cuda")
     torch.cuda.reset_peak_memory_stats()
     (res, prep_s, step_s, dec_s), counts = _count_flash(lambda: _serve_request(
-        pipe, "a cat playing the piano in a sunlit room", 0, FULL_DEPTH_REQUEST,
+        pipe, "a cat playing the piano in a sunlit room", 0, FP8_REQUEST,
         np.random.default_rng(14)))
     peak = torch.cuda.max_memory_allocated()
     log(f"[fp8] resident fp8 request: prepare {prep_s:.2f} s, denoise steps "
         f"{', '.join(f'{x:.2f}' for x in step_s)} s, decode {dec_s:.2f} s; launches {counts}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    _check_result(res, FULL_DEPTH_REQUEST)
+    _check_result(res, FP8_REQUEST)
     log(f"[fp8] video uint8 {res.video.shape} mean {res.video.mean():.2f}; audio "
         f"{res.audio.shape[0]} finite samples, rms {float(np.sqrt(np.mean(res.audio ** 2))):.4f}")
-    want = {"exact": FULL_DEPTH_LAUNCHES, "cap": 0, "sage": 0}
+    want = {"exact": FULL_DEPTH_LAUNCHES // FULL_DEPTH_STEPS, "cap": 0, "sage": 0}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want}")
     return {"launches": counts["exact"], "peak_gib": peak / 2**30, "step_s": step_s,
@@ -3017,38 +3052,42 @@ def phase_train_cli(first, ckpt: str, root: str):
         for n in sorted(os.listdir(os.path.join(root, "clips")))))
     launches = {"fwd": 0, "bwd": 0, "split": 0, "prep": 0}
     trainers = []
-    for max_steps in (2, 3):
-        argv = [LOW_RESOURCE_RECIPE, "--set", f"pipeline.ckpt_path={ckpt}",
-                f"data.metadata_path={meta}", f"trainer.save_dir={save_dir}",
-                f"trainer.max_steps={max_steps}"] + CLI_TRAIN_SETS
-        flash_attention.launches = flash_attention_bwd.launches = 0
-        flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer = train_cli.run(argv, tokenizer=ByteTokenizer())
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        run = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
-               "split": flash_attention_bwd.split_launches,
-               "prep": flash_bwd_preprocess.launches}
-        for k in launches:
-            launches[k] += run[k]
-        with open(os.path.join(save_dir, "metrics.jsonl")) as f:
-            lines = [json.loads(x) for x in f]
-        log(f"[traincli] `python -m dualforce_tpu_torch.cli.train {' '.join(argv)}`: "
-            f"{wall:.2f} s (load, clips, train, saves); step {trainer.global_step}; flash "
-            f"launches {run}; last metrics {lines[-1]}")
-        micro = trainer.tcfg.grad_accum_steps * (max_steps - (0 if max_steps == 2 else 2))
-        if trainer.global_step != max_steps or run["fwd"] != 2 * TRAIN_FLASH_CALLS * micro \
-                or run["bwd"] != TRAIN_FLASH_CALLS * micro or run["split"] != 0:
-            raise AssertionError(f"step {trainer.global_step}, launches {run} for {micro} "
-                                 f"micro-steps")
-        if not all(math.isfinite(x["loss"]) for x in lines):
-            raise AssertionError(f"non-finite losses {lines}")
-        for name in ("state.pt", "lora_weights.npz", "lora_weights.pt", "lora_config.pt"):
-            if not os.path.isfile(os.path.join(save_dir, f"step-{max_steps}", name)):
-                raise AssertionError(f"step-{max_steps}/{name} was not written")
-        trainers.append(trainer)
+    done = _cached_loads()      # the resume reads its state from step-2/, its modules from here
+    try:
+        for max_steps in (2, 3):
+            argv = [LOW_RESOURCE_RECIPE, "--set", f"pipeline.ckpt_path={ckpt}",
+                    f"data.metadata_path={meta}", f"trainer.save_dir={save_dir}",
+                    f"trainer.max_steps={max_steps}"] + CLI_TRAIN_SETS
+            flash_attention.launches = flash_attention_bwd.launches = 0
+            flash_attention_bwd.split_launches = flash_bwd_preprocess.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer = train_cli.run(argv, tokenizer=ByteTokenizer())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = {"fwd": flash_attention.launches, "bwd": flash_attention_bwd.launches,
+                   "split": flash_attention_bwd.split_launches,
+                   "prep": flash_bwd_preprocess.launches}
+            for k in launches:
+                launches[k] += run[k]
+            with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+                lines = [json.loads(x) for x in f]
+            log(f"[traincli] `python -m dualforce_tpu_torch.cli.train {' '.join(argv)}`: "
+                f"{wall:.2f} s (load, clips, train, saves); step {trainer.global_step}; flash "
+                f"launches {run}; last metrics {lines[-1]}")
+            micro = trainer.tcfg.grad_accum_steps * (max_steps - (0 if max_steps == 2 else 2))
+            if trainer.global_step != max_steps or run["fwd"] != 2 * TRAIN_FLASH_CALLS * micro \
+                    or run["bwd"] != TRAIN_FLASH_CALLS * micro or run["split"] != 0:
+                raise AssertionError(f"step {trainer.global_step}, launches {run} for {micro} "
+                                     f"micro-steps")
+            if not all(math.isfinite(x["loss"]) for x in lines):
+                raise AssertionError(f"non-finite losses {lines}")
+            for name in ("state.pt", "lora_weights.npz", "lora_weights.pt", "lora_config.pt"):
+                if not os.path.isfile(os.path.join(save_dir, f"step-{max_steps}", name)):
+                    raise AssertionError(f"step-{max_steps}/{name} was not written")
+            trainers.append(trainer)
+    finally:
+        done()
     first_run, resumed = trainers
     if resumed.optimizer.count != 3:
         raise AssertionError(f"the second run did not resume from step-2 "
@@ -3390,13 +3429,13 @@ def phase_serve_http(ckpt: str, root: str):
             if not (same and same_bytes):
                 raise AssertionError(f"{n}: the served clip differs from the in-process one")
 
-    # the eval CLI on a downloaded clip, against its reference frame
-    ref = os.path.join(root, "serve_downloads", "a_ref.png")
+    # the eval CLI on a downloaded clip (e's, 49 frames), against its reference frame
+    ref = os.path.join(root, "serve_downloads", "e_ref.png")
     with open(ref, "wb") as f:
-        f.write(requests["a"]["image"])
+        f.write(requests["e"]["image"])
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "dualforce_tpu_torch.cli.eval",
-                           requests["a"]["clip"], "--first_frame", ref],
+                           requests["e"]["clip"], "--first_frame", ref],
                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                           text=True, timeout=600)
     if proc.returncode != 0:
@@ -3404,10 +3443,13 @@ def phase_serve_http(ckpt: str, root: str):
     report = json.loads(proc.stdout)
     numbers = {f"{k}.{m}": v for k in ("first_frame", "temporal", "audio")
                for m, v in report[k].items()}
-    log(f"[serve] eval CLI on a's clip in {time.perf_counter() - t0:.2f} s: {numbers}")
+    log(f"[serve] eval CLI on e's clip in {time.perf_counter() - t0:.2f} s: {numbers}")
     if not all(math.isfinite(v) for v in numbers.values()):
         raise AssertionError(f"the eval CLI's numbers are not finite: {numbers}")
     log(f"[serve] from build_server to the last download {serve_wall:.1f} s")
+    # the server's worker thread (a daemon, as the JAX package's) keeps the server and
+    # its pipeline alive after the phase: its modules leave the card here
+    pipe.modules.clear()
     return {"launches": launches}
 
 
@@ -3875,35 +3917,6 @@ def _sp_inputs(b, s, n, seed, device="cuda"):
 SP_RUNS = (("cp2", ["--cp_size", str(SP_CP)]), ("fsdp2", ["--fsdp_size", "2"]))
 
 
-def _sp_world(out: str, argv):
-    """Run `chip_smoke.py --sp-worker OUT CLI-ARGS...` under torchrun in a
-    world of two processes on the card; returns each rank's JSON report."""
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    script = os.path.abspath(__file__)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-           "--master-addr", "127.0.0.1", "--master-port", str(port), script,
-           "--sp-worker", out, *argv]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SP_TIMEOUT_S,
-                          cwd=os.path.dirname(script))
-    for line in proc.stdout.splitlines():
-        if line.startswith(("[dist]", "[info]", "[timer]", "[done]")):
-            log(f"  {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"the two-process world failed ({proc.returncode}):\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-    reports = []
-    for r in range(2):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            reports.append(json.load(f))
-    log(f"[sp] the world of two: {time.perf_counter() - t0:.1f} s with start-up")
-    return reports
-
-
 def _sp_count_launches(fa):
     """Wrap the forward's launcher to count B1 launches with and without the
     LSE while counting["on"]; returns (counts, counting)."""
@@ -3989,15 +4002,13 @@ def _sp_primitives(out: str) -> dict:
     return report
 
 
-def sp_worker(argv) -> int:
-    """`chip_smoke.py --sp-worker OUT CLI-ARGS...`, one rank under torchrun:
-    (a), then phase 17's base request through the CLI's `run` at each of
-    `SP_RUNS` (rank 0 writes each clip, as the CLI's `finish` does),
-    launches counted, each step's seconds, bytes and peak read, and at cp >
-    1 the first step's block stack held against `forward_dual_tower` on the
-    same inputs."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
+def _sp_serve(out: str, argv, runs) -> dict:
+    """Phase 24's requests in one rank of the world: phase 17's base request
+    through the CLI's `run` at each of `runs` (names of `SP_RUNS`; rank 0
+    writes each clip, as the CLI's `finish` does), launches counted, each
+    step's seconds, bytes and peak read, and at cp > 1 the first step's
+    block stack held against `forward_dual_tower` on the same inputs. The
+    spies it installs are removed before it returns."""
     import gc
 
     import numpy as np
@@ -4011,12 +4022,9 @@ def sp_worker(argv) -> int:
     from dualforce_tpu_torch.parallel import mesh as pm
     from dualforce_tpu_torch.parallel import sharding
 
-    out, argv = argv[0], argv[1:]
-    pm.initialize_distributed("cuda")
-    reports = {"backend": torch.distributed.get_backend(), "primitives": _sp_primitives(out)}
-    torch.cuda.empty_cache()
+    launch = fa._launch_fwd
     counts, counting = _sp_count_launches(fa)
-    report = {}
+    reports, report = {}, {}
     sp_blocks = step_mod.sp_forward_blocks
 
     def spy(mesh, *args, **kwargs):
@@ -4032,7 +4040,6 @@ def sp_worker(argv) -> int:
                 report["blocks_rel"] = [rel_err(g, w.float()) for g, w in zip(got, want)]
         return got
 
-    step_mod.sp_forward_blocks = spy
     denoise_state = MOVAPipeline.denoise_state
     last = [0.0, 0]
 
@@ -4049,47 +4056,51 @@ def sp_worker(argv) -> int:
         last[:] = [time.perf_counter(), pm.TRANSFER["bytes"]]
         return denoise_state(self, state, max_steps)
 
+    step_mod.sp_forward_blocks = spy
     MOVAPipeline.denoise_state = denoise
     image = np.load(os.path.join(out, "first_frame.npy"))
-    for name, flags in SP_RUNS:
-        report = reports[name] = {"steps": [], "blocks_rel": None, "extra": 0}
-        counts.update(lse=0, nolse=0)
-        fa.flash_attention.launches = 0
-        pm.TRANSFER.update(bytes=0, seconds=0.0, calls=0)
-        torch.cuda.reset_peak_memory_stats()
-        args = cli.parse_args(argv + ["--output", os.path.join(out, f"{name}.mp4")] + flags)
-        t0 = time.perf_counter()
-        res, pipe = cli.run(args, tokenizer=ByteTokenizer(), image=image)
-        report.update(run_s=time.perf_counter() - t0, launches=dict(counts),
-                      counter=fa.flash_attention.launches, transfer=dict(pm.TRANSFER),
-                      block_bytes=sharding.block_bytes(pipe.modules),
-                      peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        if pm.rank() == 0:
-            np.savez(os.path.join(out, f"{name}_result.npz"), video=res.video, audio=res.audio)
-            cli.save(args, res)
-        del res, pipe
-        gc.collect()
-        torch.cuda.empty_cache()
-    pm.leave()
-    with open(os.path.join(out, f"rank{int(os.environ['RANK'])}.json"), "w") as f:
-        json.dump(reports, f)
-    return 0
+    try:
+        for name, flags in SP_RUNS:
+            if name not in runs:
+                continue
+            report = reports[name] = {"steps": [], "blocks_rel": None, "extra": 0}
+            counts.update(lse=0, nolse=0)
+            fa.flash_attention.launches = 0
+            pm.TRANSFER.update(bytes=0, seconds=0.0, calls=0)
+            torch.cuda.reset_peak_memory_stats()
+            args = cli.parse_args(argv + ["--output", os.path.join(out, f"{name}.mp4")] + flags)
+            t0 = time.perf_counter()
+            res, pipe = cli.run(args, tokenizer=ByteTokenizer(), image=image)
+            report.update(run_s=time.perf_counter() - t0, launches=dict(counts),
+                          counter=fa.flash_attention.launches, transfer=dict(pm.TRANSFER),
+                          block_bytes=sharding.block_bytes(pipe.modules),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            if pm.rank() == 0:
+                np.savez(os.path.join(out, f"{name}_result.npz"), video=res.video,
+                         audio=res.audio)
+                cli.save(args, res)
+            del res, pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        step_mod.sp_forward_blocks = sp_blocks
+        MOVAPipeline.denoise_state = denoise_state
+        fa._launch_fwd = launch
+        counting["on"] = False
+    return reports
 
 
-def phase_sp(first, ckpt: dict, root: str):
-    """Phase 24: in one world of two processes on the card (gloo: its
-    collectives take the CUDA tensors, its send/recv page-locked host
-    copies), the SP primitives at the path's shapes, then phase 17's base
-    request through the CLI at `--cp_size 2` and at `--fsdp_size 2`."""
+def _check_sp(reps, ckpt: dict, out: str) -> dict:
+    """Phase 24's checks on the world's reports (`mesh_worker`): (a) the SP
+    primitives at the path's shapes against B1 over the whole sequence, then
+    phase 17's base request through the CLI at `--cp_size 2` and
+    `--fsdp_size 2` against phase 17's clip. Returns each request's B1
+    launches, summed over both ranks."""
     import numpy as np
     import torch
 
     from dualforce_tpu_torch.ops.flash_attention import flash_attention
 
-    out = os.path.join(root, "sp")
-    os.makedirs(out, exist_ok=True)
-    np.save(os.path.join(out, "first_frame.npy"), first["image"])
-    reps = _sp_world(out, ["--ckpt_path", ckpt["ckpt"]] + ckpt["request"])
     log(f"[sp] backend {reps[0]['backend']} in both ranks (two ranks on one card: NCCL "
         f"refuses it)")
 
@@ -4177,6 +4188,517 @@ def phase_sp(first, ckpt: dict, root: str):
         raise AssertionError(f"fsdp 2: not bit-equal to phase 17's request, or shares {shares}")
     return launches
 
+
+# phase 25: training under a mesh, two processes on the one card (gloo), from phase 17's
+# checkpoint on phase 19's clips: the 360p recipe (`configs/training/lora_360p.py`,
+# 352x640x49: 11,440 video and 103 audio tokens) at the depth cut, 2 steps (experts 0, 1;
+# lr 1e-3 after the warmup's 0), against the same run in one process. Per micro-step and
+# rank, under autograd every B1 launch computes its LSE (the autograd op saves it for the
+# backward), and each forward launch has one backward (B2, fused at these lengths) and one
+# delta preprocess; remat runs the forward twice. One process, and each rank at fsdp 2 (the
+# whole sequence): 2 shared layers x 3 (video self, video text cross, a2v) + 1 tail layer x 2
+# = 8 calls; the audio side's 103 queries take plain attention. At cp 2 (5,720 video and 52
+# audio tokens a rank): the video self ring's 2 steps in each of the 3 video layers, the text
+# cross in each, a2v (5,720 x 104) in each shared layer = 11 calls, the ring's with a nonzero
+# LSE cotangent; the v2a combine's 104 whole-audio queries fall under the ring inner's
+# Sq >= 128 gate and take the plain inner, as JAX's do.
+MESH_STEPS = 2
+MESH_CALLS = {"one": 2 * 3 + 1 * 2, "cp2": 3 * 2 + 3 + 2, "fsdp2": 2 * 3 + 1 * 2,
+              "fullft": 2 * 3 + 1 * 2}
+MESH_SETS = ["data.num_workers=1", f"trainer.max_steps={MESH_STEPS}", "trainer.lr=1e-3",
+             "trainer.warmup_steps=1", "trainer.logger=jsonl", "trainer.log_interval=1",
+             "trainer.save_interval=1000"]
+# full fine-tuning of one video expert and the bridge (the sharded video blocks and
+# conditioners train), AdamW at lr 1e-4: both ranks' peaks fit the card together
+MESH_FT_SETS = ["trainer.mode=full", "trainer.trainable_modules=['video_dit','bridge']",
+                "trainer.lr=1e-4", "trainer.lr_schedule=constant"]
+MESH_RUNS = (("cp2", ["mesh.fsdp=1", "mesh.cp=2"]), ("fsdp2", ["mesh.fsdp=2", "mesh.cp=1"]),
+             ("fullft", ["mesh.fsdp=2", "mesh.cp=1"] + MESH_FT_SETS))
+MESH_LOSS_REL_TOL = 1e-2            # cp 2 against one process: bf16 compute, other sums
+MESH_NORM_REL_TOL = 2e-2
+MESH_LORA_REL_TOL = 2e-2
+MESH_FT_REL_TOL = 1e-4              # full FT's trained weights, relative L2
+MESH_TIMEOUT_S = 600
+
+
+def _mesh_argv(ckpt: str, meta: str, save_dir: str, sets, extra) -> list:
+    return [LORA_360P_RECIPE, "--set", f"pipeline.ckpt_path={ckpt}",
+            f"data.metadata_path={meta}", f"trainer.save_dir={save_dir}"] + sets + extra
+
+
+def _mesh_train(argv, snapshot):
+    """`cli.train.run(argv)` with each micro-step's record kept (the trainer's
+    `on_micro_step`), B1's launches with and without the LSE counted, the
+    peak read, and `snapshot(trainer, step)` called after each optimizer
+    step (its seconds taken out of `optimizer_s`). Returns (trainer,
+    records)."""
+    import torch
+
+    from dualforce_tpu_torch.cli import train as train_cli
+    from dualforce_tpu_torch.engine import trainer as trainer_mod
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    records, snap_s = [], [0.0]
+    launch = fa._launch_fwd
+    counts, counting = _sp_count_launches(fa)
+
+    def train(real):
+        def run(self, data, on_micro_step=None):
+            def record(r):
+                torch.cuda.synchronize()
+                r.update(lse=counts["lse"], nolse=counts["nolse"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         optimizer_s=r["optimizer_s"] - snap_s[0])
+                counts.update(lse=0, nolse=0)
+                records.append(r)
+            counts.update(lse=0, nolse=0)
+            return real(self, data, record)
+        return run
+
+    def apply(real):
+        def run(self, grads, frozen=None):
+            out = real(self, grads, frozen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snapshot(self, self.global_step + 1)    # its seconds leave optimizer_s
+            torch.cuda.synchronize()
+            snap_s[0] = time.perf_counter() - t0
+            return out
+        return run
+
+    restores = [_patch(trainer_mod.LoRATrainer, "train", train),
+                _patch(trainer_mod.LoRATrainer, "_apply", apply)]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = train_cli.run(argv, tokenizer=ByteTokenizer())
+    finally:
+        for restore in restores:
+            restore()
+        fa._launch_fwd = launch
+        counting["on"] = False
+    return trainer, records
+
+
+def _lora_snapshot(store):
+    def snap(trainer, step):
+        store[step] = {f"{m}.{n}.{p}": t.detach().float().cpu().clone()
+                       for m in trainer.lora for n in trainer.lora[m]
+                       for p, t in trainer.lora[m][n].items()}
+    return snap
+
+
+def _cached_loads():
+    """`load_pipeline_params` served from this process's first load for the
+    runs after it (the checkpoint is read once); returns the restore."""
+    from dualforce_tpu_torch.convert import load_checkpoint as lc
+
+    cache = {}
+
+    def load(real):
+        def run(*args, **kwargs):
+            if "modules" not in cache:
+                cache["modules"] = real(*args, **kwargs)
+            return cache["modules"]
+        return run
+
+    restore = _patch(lc, "load_pipeline_params", load)
+
+    def done():
+        restore()
+        cache.clear()
+    return done
+
+
+def _cached_encodes():
+    """`LoRATrainer._encode` served from this process's first encode of the
+    same batch (the runs read the same clips in the same order; the key
+    holds the caption ids and the clip's sum); returns the restore."""
+    from dualforce_tpu_torch.engine import trainer as trainer_mod
+
+    cache = {}
+
+    def encode(real):
+        def run(self, batch):
+            key = (batch["text_ids"].tobytes(), float(batch["video"].sum()))
+            if key not in cache:
+                cache[key] = real(self, batch)
+            return cache[key]
+        return run
+
+    restore = _patch(trainer_mod.LoRATrainer, "_encode", encode)
+
+    def done():
+        restore()
+        cache.clear()
+    return done
+
+
+def _force_split(on: bool):
+    """Route every backward to the split pair (B3: a deterministic dq pass)
+    while `on`; returns the restore."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    real = fa.bwd_takes_split
+    if on:
+        fa.bwd_takes_split = lambda sq, d=HEAD_DIM: True
+    return lambda: setattr(fa, "bwd_takes_split", real)
+
+
+def _mesh_rel(a: dict, b: dict) -> float:
+    """Relative L2 of the concatenated tensors of a against b (same keys)."""
+    import torch
+
+    num = sum(float((a[k] - b[k]).double().square().sum()) for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _ft_snapshot(out: str, store=None):
+    """After each step: the trained modules' weights to the host, saved
+    (one process) or held against the one-process run's (a rank: its
+    shard's squared gaps and norms, summed over the world; an unsharded
+    tensor counted by rank 0 alone)."""
+    import torch
+
+    def snap(trainer, step):
+        import torch.distributed as dist
+
+        from dualforce_tpu_torch.convert import load_checkpoint as lc
+        from dualforce_tpu_torch.parallel import mesh as pm
+
+        named = [(f"{m}.{n}", p, s) for (m, n, p), s in zip(
+            [(m, n, p) for m in sorted(trainer.trainable)
+             for n, p in trainer.trainable[m].named_parameters()], trainer.shards)]
+        path = os.path.join(out, f"ref_ft_step{step}.safetensors")
+        if store is None:
+            lc.save_state_dict({k: p.detach() for k, p, _ in named}, path)
+            return
+        ref = lc.read_safetensors(path)[0]
+        sums = torch.zeros(4, dtype=torch.float64)
+        for k, p, shard in named:
+            want = ref[k]
+            if shard is not None:
+                n = want.shape[shard.dim] // pm.axis_size(shard.axis)
+                want = want.narrow(shard.dim, pm.axis_index(shard.axis) * n, n)
+            elif pm.rank():
+                continue
+            got, want = p.detach().float(), want.to(p.device).float()
+            module = 0 if k.startswith("video_dit.") else 2
+            sums[module] += float((got - want).double().square().sum())
+            sums[module + 1] += float(want.double().square().sum())
+        dist.all_reduce(sums)
+        store[step] = {"video_dit": math.sqrt(sums[0] / sums[1]),
+                       "bridge": math.sqrt(sums[2] / sums[3])}
+    return snap
+
+
+def _mesh_train_runs(out: str, ckpt: str, meta: str, sets, runs, rank: int) -> dict:
+    """Phase 25's `MESH_RUNS` of `runs` in one rank of the world, through
+    `cli.train.run` (fsdp 2 with every backward routed to the deterministic
+    split pair, as its one-process references run): each micro-step's
+    record and launches, the LoRA after each step (each rank writes its
+    own), full fine-tuning's weights held against the one-process run's
+    after each step, its shards' share, and rank 0's export read back: each
+    rank holds its shards against the export's slices of them."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from dualforce_tpu_torch.convert import load_checkpoint as lc
+    from dualforce_tpu_torch.parallel import mesh as pm
+    from dualforce_tpu_torch.parallel import sharding
+
+    reports = {}
+    for name, extra in MESH_RUNS:
+        if name not in runs:
+            continue
+        save_dir = os.path.join(out, f"{name}_ckpt")
+        loras, ft = {}, {}
+        snap = _ft_snapshot(out, ft) if name == "fullft" else _lora_snapshot(loras)
+        restore = _force_split(name != "cp2")
+        pm.TRANSFER.update(bytes=0, seconds=0.0, calls=0)
+        t0 = time.perf_counter()
+        try:
+            trainer, records = _mesh_train(_mesh_argv(ckpt, meta, save_dir, sets, extra), snap)
+        finally:
+            restore()
+        rep = reports[f"train_{name}"] = {
+            "run_s": time.perf_counter() - t0, "steps": records,
+            "transfer": dict(pm.TRANSFER), "ft_rel": ft,
+            "block_bytes": sharding.block_bytes(trainer.modules)}
+        if loras:
+            torch.save(loras, os.path.join(out, f"{name}_lora.rank{rank}.pt"))
+        if name == "fullft":
+            step_dir = os.path.join(save_dir, f"step-{MESH_STEPS}")
+            equal, halves = True, []
+            for mod in sorted(trainer.trainable):
+                module = trainer.trainable[mod]
+                holder = getattr(module, "blocks", module)
+                prefix = "blocks." if holder is not module else ""
+                dims = getattr(holder, "fsdp_dims", {})
+                back = lc.load_state_dict(os.path.join(step_dir, lc.MODULES[mod][0]))
+                for n, p in module.named_parameters():
+                    d = dims.get(n[len(prefix):]) if n.startswith(prefix) else None
+                    want = back[n]
+                    if d is not None:
+                        size = want.shape[d] // 2
+                        halves.append(p.shape[d] == size)
+                        want = want.narrow(d, pm.axis_index(holder.fsdp_axis) * size, size)
+                    elif rank:
+                        continue
+                    equal &= torch.equal(p, want.to(p.device))
+            flag = torch.tensor([float(equal)])
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+            rep.update(export_equal=bool(flag.item()), halves=[all(halves), len(halves)],
+                       files=sorted(os.listdir(step_dir)))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports
+
+
+def mesh_worker(argv) -> int:
+    """`chip_smoke.py --mesh-worker OUT CKPT META SETS... -- CLI-ARGS...`,
+    one rank under torchrun, the world of phases 24 and 25: the SP
+    primitives, then with the checkpoint read once (and each training
+    batch encoded once) phase 24's request at cp 2, phase 25's LoRA at cp 2,
+    phase 24's request at fsdp 2 (which shards the modules in place), phase
+    25's LoRA and full fine-tuning at fsdp 2 (last: it trains the weights).
+    SETS: `MESH_SETS` as the caller has them; CLI-ARGS: phase 17's request."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import torch
+
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    out, ckpt, meta = argv[:3]
+    cut = argv.index("--")
+    sets, cli_args = argv[3:cut], argv[cut + 1:]
+    pm.initialize_distributed("cuda")
+    rank = pm.rank()
+    reports = {"backend": torch.distributed.get_backend(), "primitives": _sp_primitives(out)}
+    torch.cuda.empty_cache()
+    restores = [_cached_loads(), _cached_encodes()]
+    try:
+        reports.update(_sp_serve(out, cli_args, ["cp2"]))
+        reports.update(_mesh_train_runs(out, ckpt, meta, sets, ["cp2"], rank))
+        reports.update(_sp_serve(out, cli_args, ["fsdp2"]))
+        reports.update(_mesh_train_runs(out, ckpt, meta, sets, ["fsdp2", "fullft"], rank))
+    finally:
+        for restore in restores:
+            restore()
+        pm.leave()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(reports, f)
+    return 0
+
+
+def _mesh_world(out: str, ckpt: dict, meta: str):
+    """Run `chip_smoke.py --mesh-worker ...` under torchrun in a world of two
+    processes on the card; returns each rank's report."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+           "--master-addr", "127.0.0.1", "--master-port", str(port), script,
+           "--mesh-worker", out, ckpt["ckpt"], meta] + MESH_SETS + [
+               "--", "--ckpt_path", ckpt["ckpt"]] + ckpt["request"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
+                          cwd=os.path.dirname(script))
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[dist]", "[info]", "[timer]", "[trainer]", "[done]")):
+            log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the two-process world failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    log(f"[mesh] the world of two (phases 24 and 25): {time.perf_counter() - t0:.1f} s with "
+        "start-up")
+    return reports
+
+
+def _mesh_step_line(tag: str, st: dict) -> str:
+    return (f"expert {st['expert']} loss {st['loss']:.6f} grad_norm {st['grad_norm']:.6f}; "
+            f"encode {st['encode_s']:.3f} s, loss+backward {st['loss_backward_s']:.3f} s, "
+            f"optimizer {st['optimizer_s']:.3f} s; collectives forward "
+            f"{st.get('collective_fwd_bytes', 0) / 1e6:.1f} MB in "
+            f"{st.get('collective_fwd_s', 0):.3f} s, backward and reduction "
+            f"{st.get('collective_bwd_bytes', 0) / 1e6:.1f} MB in "
+            f"{st.get('collective_bwd_s', 0):.3f} s; B1 launches {st['lse']} with the LSE, "
+            f"{st['nolse']} without, B2 {st['flash_bwd']} fused / {st['flash_bwd_split']} "
+            f"split, preprocess {st['flash_bwd_preprocess']}; peak {st['peak_gib']:.2f} GiB; "
+            f"{tag}")
+
+
+def _mesh_totals(records) -> dict:
+    return {k: sum(st[k] for st in records)
+            for k in ("flash_fwd", "flash_bwd", "flash_bwd_split", "flash_bwd_preprocess")}
+
+
+def _check_mesh_launches(name: str, records, split: bool = False) -> None:
+    calls = MESH_CALLS[name]
+    want = {"lse": 2 * calls, "nolse": 0, "flash_bwd": 0 if split else calls,
+            "flash_bwd_split": calls if split else 0, "flash_bwd_preprocess": calls}
+    for i, st in enumerate(records):
+        got = {k: st[k] for k in want}
+        if got != want or st["flash_fwd"] != 2 * calls:
+            raise AssertionError(f"{name} micro-step {i + 1}: launches {got} (counter "
+                                 f"{st['flash_fwd']}), expected {want}")
+
+
+def phase_mesh(first, ckpt: dict, root: str, smi: str):
+    """Phases 24 and 25 in one world of two processes on the card (gloo:
+    NCCL refuses two ranks on one card; its collectives take the CUDA
+    tensors, its send/recv page-locked host copies), started once, the
+    checkpoint read once in each rank: phase 24, serving under a mesh (the
+    SP primitives at the path's shapes, phase 17's base request through the
+    CLI at `--cp_size 2` and `--fsdp_size 2`); phase 25, training under a
+    mesh (`cli.train` under torchrun with the 360p recipe from phase 17's
+    checkpoint on phase 19's clips: LoRA at cp 2 and at fsdp 2, full
+    fine-tuning at fsdp 2), each against the same run in one process here,
+    run first. Returns (phase 24's launches, phase 25's)."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    tag = f"card: {smi}"
+    out = os.path.join(root, "mesh")
+    os.makedirs(out, exist_ok=True)
+    np.save(os.path.join(out, "first_frame.npy"), first["image"])
+    meta = os.path.join(root, "clips", "metadata.json")
+    if not os.path.isfile(meta):
+        meta = _write_clips(os.path.join(root, "clips"))
+
+    # (0) the one-process references, the checkpoint read and each batch encoded once,
+    # every backward on the split pair (B3: its dq pass is deterministic, where B2 adds
+    # dQ's tiles in an order that varies between runs), no checkpoint written
+    ref, ref_records, ref_launches = {}, {}, {}
+    restores = [_cached_loads(), _cached_encodes(), _force_split(True),
+                _patch(__import__("dualforce_tpu_torch.engine.trainer",
+                                  fromlist=["LoRATrainer"]).LoRATrainer, "save",
+                       lambda real: lambda self: None)]
+    try:
+        for name, extra in (("one", ["mesh={}"]), ("one_ft", ["mesh={}"] + MESH_FT_SETS)):
+            store = {}
+            snap = _ft_snapshot(out) if name == "one_ft" else _lora_snapshot(store)
+            t0 = time.perf_counter()
+            trainer, records = _mesh_train(
+                _mesh_argv(ckpt["ckpt"], meta, os.path.join(out, f"{name}_ckpt"), MESH_SETS,
+                           extra), snap)
+            wall = time.perf_counter() - t0
+            for i, st in enumerate(records):
+                log(f"[mesh] ({name}) one process, step {i + 1}: " + _mesh_step_line(tag, st))
+            _check_mesh_launches("one", records, split=True)
+            log(f"[mesh] ({name}) one process: {wall:.2f} s (load once, clips, 2 steps)")
+            ref[name], ref_records[name] = store, records
+            ref_launches[name] = _mesh_totals(records)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for restore in reversed(restores):
+            restore()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[mesh] this process before the world: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    reps = _mesh_world(out, ckpt, meta)
+    sp = _check_sp(reps, ckpt, out)
+    launches = {}
+    for name, _ in MESH_RUNS:
+        for r, rep in enumerate(x[f"train_{name}"] for x in reps):
+            for i, st in enumerate(rep["steps"]):
+                log(f"[mesh] ({name}) rank {r}, step {i + 1}: " + _mesh_step_line(tag, st))
+            log(f"[mesh] ({name}) rank {r}: run (clips, 2 steps, save) "
+                f"{rep['run_s']:.2f} s; sent {rep['transfer']['bytes'] / 1e9:.3f} GB in "
+                f"{rep['transfer']['seconds']:.2f} s over {rep['transfer']['calls']} calls; "
+                f"block weights {rep['block_bytes'] / 1e9:.3f} GB; {tag}")
+            _check_mesh_launches(name, rep["steps"], split=name != "cp2")
+        launches[name] = _mesh_totals([st for x in reps for st in x[f"train_{name}"]["steps"]])
+    loras = {name: [torch.load(os.path.join(out, f"{name}_lora.rank{r}.pt"))
+                    for r in range(2)] for name in ("cp2", "fsdp2")}
+    for name in loras:
+        if any(not torch.equal(a[k], b[k]) for a, b in zip(*[
+                [lo[s] for s in sorted(lo)] for lo in loras[name]]) for k in a):
+            raise AssertionError(f"{name}: the two ranks' LoRAs differ")
+
+    # (a) cp 2 LoRA (B2 with the ring's LSE cotangent) against one process (the split pair)
+    one, cp = ref_records["one"], reps[0]["train_cp2"]["steps"]
+    for i, (a, b) in enumerate(zip(one, cp)):
+        loss_rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
+        norm_rel = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+        got, want = loras["cp2"][0][i + 1], ref["one"][i + 1]
+        per_module = {m: _mesh_rel({k: v for k, v in got.items() if k.startswith(m + ".")},
+                                   {k: v for k, v in want.items() if k.startswith(m + ".")})
+                      for m in ("video_dit", "video_dit_2", "audio_dit", "bridge")}
+        b_rel = _mesh_rel({k: v for k, v in got.items() if k.endswith(".b")},
+                          {k: v for k, v in want.items() if k.endswith(".b")})
+        log(f"[mesh] (a) cp 2 against one process, step {i + 1}: loss rel {loss_rel:.3e} "
+            f"(limit {MESH_LOSS_REL_TOL}), grad norm rel {norm_rel:.3e} (limit "
+            f"{MESH_NORM_REL_TOL}), LoRA factors rel L2 per module " + ", ".join(
+                f"{m} {v:.3e}" for m, v in per_module.items())
+            + f" (limit {MESH_LORA_REL_TOL}; the b factors alone {b_rel:.3e}); {tag}")
+        finite = all(torch.isfinite(t).all() for t in got.values())
+        if (loss_rel > MESH_LOSS_REL_TOL or norm_rel > MESH_NORM_REL_TOL
+                or max(per_module.values()) > MESH_LORA_REL_TOL or not finite):
+            raise AssertionError(f"cp 2 step {i + 1} off one process: loss {loss_rel:.3e}, "
+                                 f"norm {norm_rel:.3e}, LoRA {per_module}, finite {finite}")
+    last = loras["cp2"][0][MESH_STEPS]
+    # step 1 (expert 0) ran at the warmup's lr 0; step 2 moves every factor, expert 0's
+    # by the first moment step 1 left
+    moved = {m: all(bool(t.any()) for k, t in last.items()
+                    if k.startswith(m + ".") and k.endswith(".b"))
+             for m in ("video_dit", "video_dit_2", "audio_dit", "bridge")}
+    if not all(moved.values()):
+        raise AssertionError(f"cp 2: a LoRA b is still zero after step 2: {moved}")
+
+    # (b) fsdp 2 LoRA, every backward on the split pair, bit-equal to the same in one process
+    for i, (a, b) in enumerate(zip(ref_records["one"], reps[0]["train_fsdp2"]["steps"])):
+        same = all(torch.equal(loras["fsdp2"][0][i + 1][k], v)
+                   for k, v in ref["one"][i + 1].items())
+        log(f"[mesh] (b) fsdp 2 against one process (both on the split backward), step "
+            f"{i + 1}: loss {b['loss']:.9g} / {a['loss']:.9g}, grad norm {b['grad_norm']:.9g} "
+            f"/ {a['grad_norm']:.9g}, LoRA bit-equal {same}; {tag}")
+        if b["loss"] != a["loss"] or not same:
+            raise AssertionError(f"fsdp 2 step {i + 1}: not bit-equal to one process")
+    shares = [x["train_fsdp2"]["block_bytes"] / x["train_cp2"]["block_bytes"] for x in reps]
+    log("[mesh] (b) each rank's share of the block weights under fsdp 2: "
+        + ", ".join(f"{x:.4f}" for x in shares))
+    if max(shares) > SP_SHARE_MAX:
+        raise AssertionError(f"fsdp 2 shares {shares}")
+
+    # (c) fsdp 2 full fine-tuning
+    ft = [x["train_fullft"] for x in reps]
+    first = (ft[0]["steps"][0]["loss"], ref_records["one_ft"][0]["loss"])
+    log(f"[mesh] (c) fsdp 2 full fine-tuning of video_dit and the bridge: step 1 loss "
+        f"{first[0]:.9g} / one process {first[1]:.9g}; trained weights rel L2 per step "
+        + "; ".join(f"{k}: " + ", ".join(f"{m} {v:.3e}" for m, v in rel.items())
+                    for k, rel in sorted(ft[0]["ft_rel"].items()))
+        + f" (limit {MESH_FT_REL_TOL}); sharded tensors halved on each rank "
+        f"{[x['halves'] for x in ft]}; rank 0's step-{MESH_STEPS}/ export read back equal "
+        f"{ft[0]['export_equal']}: {ft[0]['files']}; {tag}")
+    worst = max(v for rel in ft[0]["ft_rel"].values() for v in rel.values())
+    if (first[0] != first[1] or worst > MESH_FT_REL_TOL or not ft[0]["export_equal"]
+            or not all(x["halves"][0] and x["halves"][1] > 0 for x in ft)
+            or "state.rank1.pt" not in ft[0]["files"]):
+        raise AssertionError(f"full FT under fsdp 2: loss {first}, weights {worst:.3e}, "
+                             f"export {ft[0]['export_equal']}, halves "
+                             f"{[x['halves'] for x in ft]}, files {ft[0]['files']}")
+    shutil.rmtree(out, ignore_errors=True)
+    return sp, {**{f"reference_{k}": v for k, v in ref_launches.items()}, **launches}
+
+
 START = time.perf_counter()
 
 
@@ -4234,7 +4756,6 @@ def main() -> int:
         ckpt = timed_phase("cli", phase_checkpoint_cli, first, ckpt_root)
         gc.collect()
         torch.cuda.empty_cache()
-        sp = timed_phase("sp", phase_sp, first, ckpt, ckpt_root)
         group_cli = timed_phase("groupcli", phase_group_cli, first, ckpt, ckpt_root)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4251,6 +4772,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         full_ft = timed_phase("fullft", phase_full_ft, first, ckpt["ckpt"], ckpt_root, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp, mesh = timed_phase("mesh", phase_mesh, first, ckpt, ckpt_root, smi)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     lr_l, cli_l = lowres["launches"], train_cli["launches"]
@@ -4271,7 +4795,8 @@ def main() -> int:
                      + options["cfg_cache_interval_2"] + ckpt["launches"]
                      + sum(group_cli.values()) + lr_l["fwd"]
                      + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]
-                     + ft_l["fwd"] + ft_save_l["fwd"] + sp["cp2"] + sp["fsdp2"]),
+                     + ft_l["fwd"] + ft_save_l["fwd"] + sp["cp2"] + sp["fsdp2"]
+                     + sum(m["flash_fwd"] for m in mesh.values())),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -4290,7 +4815,8 @@ def main() -> int:
                              train_cli["serve"], "serve_http": serve_http["launches"],
                              "train_full_ft": ft_l["fwd"],
                              "train_full_ft_remat_save": ft_save_l["fwd"],
-                             "serve_cp2": sp["cp2"], "serve_fsdp2": sp["fsdp2"]},
+                             "serve_cp2": sp["cp2"], "serve_fsdp2": sp["fsdp2"],
+                             **{f"train_mesh_{k}": m["flash_fwd"] for k, m in mesh.items()}},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_group_peaks_gib": full["group_peaks_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
@@ -4316,11 +4842,13 @@ def main() -> int:
         "source": "dualforce_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "dualforce_tpu/ops/flash_attention.py:365",
         "launches": (train["bwd"] + train720["bwd"] + lr_l["bwd"] + cli_l["bwd"]
-                     + ft_l["bwd"] + ft_save_l["bwd"]),
+                     + ft_l["bwd"] + ft_save_l["bwd"]
+                     + sum(m["flash_bwd"] for m in mesh.values())),
         "launches_by_path": {"serve": 0, "train": train["bwd"], "train_720p": train720["bwd"],
                              "train_low_resource_full_depth": lr_l["bwd"],
                              "train_cli": cli_l["bwd"], "train_full_ft": ft_l["bwd"],
-                             "train_full_ft_remat_save": ft_save_l["bwd"]},
+                             "train_full_ft_remat_save": ft_save_l["bwd"],
+                             **{f"train_mesh_{k}": m["flash_bwd"] for k, m in mesh.items()}},
         "train_low_resource_peak_gib": lowres["peak_gib"],
         "train_full_ft_peak_gib": full_ft["peak_gib"],
         "train_full_ft_remat_save_peak_gib": full_ft["peak_save_gib"],
@@ -4343,13 +4871,16 @@ def main() -> int:
         "mode": "split: the dq pass (_bwd_dq_kernel) and the dk/dv pass (_bwd_dkv_kernel), "
                 "one launch of each per backward, where Sq >= 98,305",
         "launches": (train720["split"] + lr_l["split"] + cli_l["split"]
-                     + ft_l["bwd_split"] + ft_save_l["bwd_split"]),
+                     + ft_l["bwd_split"] + ft_save_l["bwd_split"]
+                     + sum(m["flash_bwd_split"] for m in mesh.values())),
         "launches_by_path": {"serve": 0, "train": train["split"],
                              "train_720p": train720["split"],
                              "train_low_resource_full_depth": lr_l["split"],
                              "train_cli": cli_l["split"],
                              "train_full_ft": ft_l["bwd_split"],
-                             "train_full_ft_remat_save": ft_save_l["bwd_split"]},
+                             "train_full_ft_remat_save": ft_save_l["bwd_split"],
+                             **{f"train_mesh_{k}": m["flash_bwd_split"]
+                                for k, m in mesh.items()}},
         "max_abs_err": max_abs_720p["split"],
         "ms": split_self["bwd_ms"],
         "plain_ms": split_self["bwd_plain_ms_2_heads"],
@@ -4373,13 +4904,16 @@ def main() -> int:
         "replaces": "dualforce_tpu/ops/flash_attention.py:484 (delta in `_bwd_prepare`, jnp "
                     "code beside the Pallas kernels)",
         "launches": (train["prep"] + train720["prep"] + lr_l["prep"] + cli_l["prep"]
-                     + ft_l["bwd_preprocess"] + ft_save_l["bwd_preprocess"]),
+                     + ft_l["bwd_preprocess"] + ft_save_l["bwd_preprocess"]
+                     + sum(m["flash_bwd_preprocess"] for m in mesh.values())),
         "launches_by_path": {"serve": 0, "train": train["prep"],
                              "train_720p": train720["prep"],
                              "train_low_resource_full_depth": lr_l["prep"],
                              "train_cli": cli_l["prep"],
                              "train_full_ft": ft_l["bwd_preprocess"],
-                             "train_full_ft_remat_save": ft_save_l["bwd_preprocess"]},
+                             "train_full_ft_remat_save": ft_save_l["bwd_preprocess"],
+                             **{f"train_mesh_{k}": m["flash_bwd_preprocess"]
+                                for k, m in mesh.items()}},
         "max_abs_err": max(bwd_max_abs["prep"], max_abs_720p["prep"]),
         "ms": split_self["preprocess"]["ms"],
         "plain_ms": split_self["preprocess"]["plain_ms"],
@@ -4464,6 +4998,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--sp-worker"]:
-        sys.exit(sp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2:]))
     sys.exit(main())

@@ -32,9 +32,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out_dir", type=str, default="./server_outputs")
     ap.add_argument("--cp_size", type=int, default=1,
                     help="sequence parallelism: not ported in the server yet (ROADMAP "
-                         "A7b), 1 only")
+                         "A7c), 1 only")
     ap.add_argument("--fsdp_size", type=int, default=1,
-                    help="weight sharding: not ported in the server yet (ROADMAP A7b), "
+                    help="weight sharding: not ported in the server yet (ROADMAP A7c), "
                          "1 only")
     ap.add_argument("--attn_type", type=str, default="auto", choices=ATTN_TYPES,
                     help="attention route (`MOVAPipeline(attn_impl=...)`)")
@@ -99,7 +99,7 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
 
     if args.cp_size > 1 or args.fsdp_size > 1:
         raise SystemExit("--cp_size and --fsdp_size above 1 are not ported in the server "
-                         "yet (ROADMAP A7b); the inference CLIs take them under torchrun")
+                         "yet (ROADMAP A7c); the inference CLIs take them under torchrun")
     refuse_unported(args)
     import torch
 

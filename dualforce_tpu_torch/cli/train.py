@@ -16,11 +16,19 @@ The config is a Python file defining a dict `config` with `pipeline`
 entry, the value read as a Python literal where it parses as one (and
 `true` / `false` as booleans) and as a string otherwise. `trainer.optimizer`
 takes any name of the JAX registry (`engine.optim.OPTIMIZERS`). It runs on
-the CUDA card unless `--device cpu` asks for the CPU. Under `trainer.offload="component"` the modules are loaded into
-page-locked host memory and staged per phase. A mesh over more than one
-device (`lora_360p.py`'s fsdp 2 x cp 4) exits before anything is read:
-training under a mesh is not ported yet (ROADMAP A7b; serving is, in the
-inference CLIs); `--set mesh={}` runs such a recipe on one device. Each `step-N/` under
+the CUDA card unless `--device cpu` asks for the CPU (under torchrun, a
+rank takes card LOCAL_RANK mod the card count). Under `trainer.offload="component"` the modules are
+loaded into page-locked host memory and staged per phase. The config's `mesh` (data,
+fsdp, cp; JAX's `scripts/train.py` reads the same) trains under a mesh, one
+process per rank under torchrun:
+
+    torchrun --nproc-per-node 8 -m dualforce_tpu_torch.cli.train \\
+        configs/training/lora_360p.py --set pipeline.ckpt_path=CKPT ...
+
+A world that does not hold data * fsdp * cp processes raises before
+anything is read, and so does component offload with such a mesh;
+`--set mesh={}` runs a recipe on one device. Rank 0 alone logs and writes
+the checkpoints. Each `step-N/` under
 `trainer.save_dir` holds `state.pt` (resumed from on the next run),
 `lora_weights.npz` (+ `.json`, the JAX package's format) and
 `lora_weights.pt` + `lora_config.pt` (the reference trainer's), or under
@@ -79,14 +87,25 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(cfg: dict) -> None:
-    """Exit, naming the ROADMAP item, where the config asks for a part that
-    is not ported yet."""
-    mesh = cfg.get("mesh") or {}
-    if math.prod(int(v) for v in mesh.values()) > 1:
-        raise SystemExit(f"mesh {mesh} spans more than one device: training under a "
-                         "mesh is not ported yet (ROADMAP A7b); --set mesh={} trains on "
-                         "one")
+def join_mesh(cfg: dict, device: str):
+    """(this rank's device, the config's (data, fsdp, cp) mesh or None).
+    A mesh of more than one process, or a world of more than one, joins
+    the torchrun world (`parallel.mesh.initialize_distributed`) and builds
+    the mesh, which raises where the world does not hold it; component
+    offload with such a mesh raises too, as the trainer would."""
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    shape = cfg.get("mesh") or {}
+    dims = [int(shape.get(a, 1)) for a in pm.AXES]
+    device = pm.initialize_distributed(device)
+    if math.prod(dims) == 1 and pm.world_size() == 1:
+        return device, None
+    mesh = pm.create_mesh(*dims)
+    if cfg.get("trainer", {}).get("offload", "none") == "component" and mesh.size() > 1:
+        from dualforce_tpu_torch.engine.trainer import COMPONENT_MESH_REFUSAL
+
+        raise ValueError(COMPONENT_MESH_REFUSAL)
+    return device, mesh
 
 
 def run(argv: Optional[Sequence[str]] = None, tokenizer=None, dtype=None):
@@ -97,17 +116,15 @@ def run(argv: Optional[Sequence[str]] = None, tokenizer=None, dtype=None):
     compute dtype (bf16 unless given). Returns the `LoRATrainer`."""
     args = build_parser().parse_args(argv)
     cfg_dict = apply_overrides(load_config(args.config), args.overrides)
-    refuse_unported(cfg_dict)
+    device, mesh = join_mesh(cfg_dict, args.device)
     import torch
 
-    from dualforce_tpu_torch import resolve_device
     from dualforce_tpu_torch.convert.load_checkpoint import (config_from_checkpoint,
                                                              load_pipeline_params,
                                                              load_tokenizer)
     from dualforce_tpu_torch.data.dataset import VideoAudioDataset, make_data_iter
     from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
 
-    device = resolve_device(args.device)
     dtype = dtype or torch.bfloat16
     pipeline, data = cfg_dict["pipeline"], cfg_dict["data"]
     trainer_cfg = dict(cfg_dict.get("trainer", {}))
@@ -125,17 +142,23 @@ def run(argv: Optional[Sequence[str]] = None, tokenizer=None, dtype=None):
     batches = make_data_iter(dataset, tokenizer or load_tokenizer(ckpt),
                              batch_size=data.get("batch_size", 1),
                              num_workers=data.get("num_workers", 2))
-    trainer = LoRATrainer(cfg, modules, tcfg, device=device)
+    trainer = LoRATrainer(cfg, modules, tcfg, device=device, mesh=mesh)
     try:
         step = trainer.train(batches)
     finally:
         batches.close()
-    print(f"[done] trained to step {step}; checkpoints in {tcfg.save_dir}", flush=True)
+    if trainer.is_main:
+        print(f"[done] trained to step {step}; checkpoints in {tcfg.save_dir}", flush=True)
     return trainer
 
 
 def main(argv=None) -> None:
-    run(argv)
+    from dualforce_tpu_torch.parallel.mesh import leave
+
+    try:
+        run(argv)
+    finally:
+        leave()
 
 
 if __name__ == "__main__":

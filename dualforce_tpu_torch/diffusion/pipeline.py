@@ -145,7 +145,7 @@ class MOVAPipeline:
                              "sharding instead of offload on a multi-chip mesh")
         if quantize != "none" and mesh_shape(mesh).get("fsdp", 1) > 1:
             raise ValueError("quantized towers under fsdp sharding are not ported "
-                             "(ROADMAP A7b)")
+                             "(ROADMAP A7c)")
         self.device = resolve_device(device)
         self.offload = offload
         self.offload_group_size = int(offload_group_size)

@@ -118,8 +118,10 @@ def dual_tower_step(
     `remat` and `params` (tensors in place of the layers' own parameters,
     e.g. LoRA-merged weights) go to `forward_dual_tower`. With `sp_mesh`, a
     (data, fsdp, cp) mesh, the blocks run over it
-    (`parallel.sp.sp_forward_blocks`); the prologue and the heads run whole
-    on every rank, as in the JAX package."""
+    (`parallel.sp.sp_forward_blocks`, `remat` and `params` with them); the
+    prologue and the heads run whole on every rank, as in the JAX package.
+    Differentiated there, each rank takes its `sharding.objective_share` of
+    a loss computed from the outputs (`diffusion.training`)."""
     if audio_timestep is None:
         audio_timestep = timestep
     pre = step_prologue(video, audio, visual_latents, audio_latents, context, timestep,
@@ -135,9 +137,8 @@ def dual_tower_step(
               v2a_condition_scale=v2a_condition_scale, attn_impl=attn_impl,
               ctx_valid_len=ctx_valid_len, video_grid=pre["grid"])
     if sp_mesh is not None:
-        if remat or params:
-            raise ValueError("training under a mesh is not ported (ROADMAP A7b)")
-        visual_x, audio_x = sp_forward_blocks(sp_mesh, *blocks, **kw)
+        visual_x, audio_x = sp_forward_blocks(sp_mesh, *blocks, remat=remat, params=params,
+                                              **kw)
     else:
         visual_x, audio_x = forward_dual_tower(*blocks, remat=remat, params=params, **kw)
     return step_head(video, audio, pre, visual_x, audio_x)

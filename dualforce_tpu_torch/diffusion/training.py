@@ -11,6 +11,15 @@ timestep id (`timestep_id`) and the noise (`noise_override`). The base
 weights may be stored in fp8 (their LoRA merge runs in the compute dtype,
 ROADMAP C caveat 9).
 
+Under a (data, fsdp, cp) mesh (`sp_mesh`, JAX's argument of the same name)
+every rank draws the same timestep id and noise for the whole batch from
+the trainer's one generator, and the blocks run over the mesh
+(`parallel.sp.sp_forward_blocks` slices each rank's part); each rank
+differentiates its `sharding.objective_share` of the loss, and
+`lora_grads` and `full_ft_grads` return the gradients summed over the
+ranks (`sharding.reduce_gradients`): the one-process gradients, on every
+rank (an fsdp shard's own slice of them).
+
 Full fine-tuning (`full_finetune_params`: whole modules whose own
 parameters train, in place of the frozen ones) has `full_ft_grads`, the
 counterpart of `make_full_ft_accum_fns`' grad function, and
@@ -34,6 +43,7 @@ from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
 from dualforce_tpu_torch.diffusion.step import dual_tower_step
 from dualforce_tpu_torch.engine import lora as lora_mod
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
+from dualforce_tpu_torch.parallel import sharding
 
 
 @dataclass(frozen=True)
@@ -163,7 +173,7 @@ def training_loss(lora: Optional[lora_mod.Lora], modules: Dict[str, torch.nn.Mod
                   attn_impl="auto", full_finetune_params=None, rope_pack=None,
                   timestep_config: Optional[TimestepConfig] = None,
                   noise_override: Optional[Tuple[Any, Any]] = None,
-                  timestep_id: Optional[int] = None, device="cuda"
+                  timestep_id: Optional[int] = None, device="cuda", sp_mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss of one step on `device`, differentiable in the LoRA factors.
 
@@ -176,7 +186,9 @@ def training_loss(lora: Optional[lora_mod.Lora], modules: Dict[str, torch.nn.Mod
     (`nn.cast_modules_fp8`), whose merged targets are in `compute_dtype`,
     and may be staged copies of host-resident modules.
     `full_finetune_params`, {name: module}, takes the place of those
-    modules (no LoRA): the loss is then differentiable in their parameters."""
+    modules (no LoRA): the loss is then differentiable in their parameters.
+    `sp_mesh`: the (data, fsdp, cp) mesh the blocks run over (the module
+    docstring); the loss is the whole batch's on every rank."""
     if full_finetune_params is not None:
         if lora:
             raise ValueError("training_loss takes a LoRA or full_finetune_params, not both")
@@ -212,7 +224,7 @@ def training_loss(lora: Optional[lora_mod.Lora], modules: Dict[str, torch.nn.Mod
         noisy_a.to(compute_dtype), encoded["context"],
         torch.full((b,), t_vis, device=device), torch.full((b,), t_aud, device=device),
         video_fps=video_fps, compute_dtype=compute_dtype, attn_impl=attn_impl,
-        rope_pack=rope_pack, remat=remat, params=params)
+        rope_pack=rope_pack, remat=remat, params=params, sp_mesh=sp_mesh)
     video_loss = (v_pred.float() - (noise_v - x_v)).square().mean()
     audio_loss = (a_pred.float() - (noise_a - x_a)).square().mean()
     return video_loss + audio_loss, {"video_loss": video_loss, "audio_loss": audio_loss,
@@ -223,12 +235,34 @@ def lora_grads(lora: lora_mod.Lora, *args, **kwargs
                ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """(gradients of `training_loss` for every factor in `lora_parameters`
     order, metrics with "loss"). A factor the loss does not reach (the
-    inactive expert's) gets exact zeros, as `jax.grad` gives it."""
+    inactive expert's) gets exact zeros, as `jax.grad` gives it. Under
+    `sp_mesh` the gradients are summed over the ranks (the module
+    docstring)."""
     params = lora_mod.lora_parameters(lora)
     loss, metrics = training_loss(lora, *args, **kwargs)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads, extra = _grads(loss, params, [None] * len(params), kwargs.get("sp_mesh"))
+    return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
+                   **extra}
+
+
+def _grads(loss: torch.Tensor, params: List[torch.Tensor], shards, mesh):
+    """(d loss / d params, zeros where the loss does not reach a parameter;
+    metrics). Under a mesh each rank differentiates its share, the
+    gradients are then summed over the ranks, and the metrics hold the
+    bytes this rank sent and the seconds it spent in collectives in the
+    backward and the reduction (`collective_bwd_bytes`, `collective_bwd_s`)."""
+    if mesh is None:
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)], {}
+    from dualforce_tpu_torch.parallel.mesh import TRANSFER
+
+    b0, s0 = TRANSFER["bytes"], TRANSFER["seconds"]
+    grads = torch.autograd.grad(loss * sharding.objective_share(mesh), params,
+                                allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-    return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+    grads = sharding.reduce_gradients(grads, shards, mesh)
+    return grads, {"collective_bwd_bytes": torch.tensor(float(TRANSFER["bytes"] - b0)),
+                   "collective_bwd_s": torch.tensor(TRANSFER["seconds"] - s0)}
 
 
 def accumulate(acc: Optional[Sequence[torch.Tensor]], grads: Sequence[torch.Tensor],
@@ -261,12 +295,14 @@ def full_ft_grads(trainable: Dict[str, torch.nn.Module], *args, **kwargs
     """(gradients of `training_loss(None, *args, full_finetune_params=
     trainable, **kwargs)` for every parameter of `trainable_parameters`,
     metrics with "loss"). A parameter the loss does not reach (the inactive
-    expert's) gets exact zeros, as `jax.grad` gives it."""
+    expert's) gets exact zeros, as `jax.grad` gives it. Under `sp_mesh` the
+    gradients are summed over the ranks, an fsdp shard's its own slice."""
     params = trainable_parameters(trainable)
     loss, metrics = training_loss(None, *args, full_finetune_params=trainable, **kwargs)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-    return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+    grads, extra = _grads(loss, params, sharding.shards_of(trainable, params),
+                          kwargs.get("sp_mesh"))
+    return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
+                   **extra}
 
 
 def full_ft_step(trainable: Dict[str, torch.nn.Module], optimizer,

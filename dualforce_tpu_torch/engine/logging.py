@@ -69,8 +69,10 @@ class CompositeLogger(BaseLogger):
             lg.close()
 
 
-def build_logger(kind: Optional[str], log_dir: str) -> BaseLogger:
-    if kind in (None, "none"):
+def build_logger(kind: Optional[str], log_dir: str, is_main: bool = True) -> BaseLogger:
+    """The `kind` of logger writing under `log_dir`; a rank other than the
+    main one of a mesh (`is_main` False) logs nothing."""
+    if kind in (None, "none") or not is_main:
         return DummyLogger()
     if kind not in ("jsonl", "tensorboard"):
         raise ValueError(f"unknown logger {kind!r} (none, jsonl, tensorboard)")

@@ -58,14 +58,17 @@ def lora_targets(module: torch.nn.Module) -> List[str]:
 
 
 def init_lora(module: torch.nn.Module, rank: int, generator: torch.Generator,
-              device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+              device=None, shapes: Optional[Mapping[str, Sequence[int]]] = None
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{name: {"a": [in, r] normal / sqrt(in), "b": [r, out] zeros}} in fp32
     for every target, drawn on the host from `generator` and moved to
-    `device` (default: the module's), leaves that require grad."""
+    `device` (default: the module's), leaves that require grad. `shapes`:
+    a weight's whole [out, in] where the module holds a shard of it
+    (`parallel.sharding.whole_shapes`)."""
     out = {}
     for name in lora_targets(module):
         w = module.get_parameter(name)
-        fan_out, fan_in = w.shape
+        fan_out, fan_in = (shapes or {}).get(name, w.shape)
         a = torch.randn(fan_in, rank, generator=generator) / math.sqrt(fan_in)
         b = torch.zeros(rank, fan_out)
         dev = w.device if device is None else device
@@ -75,10 +78,14 @@ def init_lora(module: torch.nn.Module, rank: int, generator: torch.Generator,
 
 def init_pipeline_lora(modules: Dict[str, torch.nn.Module], rank: int,
                        generator: torch.Generator,
-                       names: Sequence[str] = DEFAULT_MODULES, device=None) -> Lora:
+                       names: Sequence[str] = DEFAULT_MODULES, device=None,
+                       shapes: Optional[Mapping[str, Mapping[str, Sequence[int]]]] = None
+                       ) -> Lora:
     """LoRA factors for the trainable modules present in `modules`, on
-    `device` (default: each module's)."""
-    return {m: init_lora(modules[m], rank, generator, device) for m in names if m in modules}
+    `device` (default: each module's); `shapes`: {module: init_lora's
+    shapes} where modules hold fsdp shards."""
+    return {m: init_lora(modules[m], rank, generator, device, (shapes or {}).get(m))
+            for m in names if m in modules}
 
 
 def lora_parameters(lora: Lora) -> List[torch.Tensor]:
@@ -118,19 +125,40 @@ class MergedWeights(Mapping):
 
     def __init__(self, module: torch.nn.Module, tree: Dict[str, Dict[str, torch.Tensor]],
                  alpha: float = 16.0, scale: float = 1.0,
-                 upcast: Optional[torch.dtype] = None):
+                 upcast: Optional[torch.dtype] = None, base: Optional[Mapping] = None):
         self.module, self.tree = module, tree
         self.alpha, self.scale, self.upcast = alpha, scale, upcast
+        self.base = base
+
+    def over(self, base: Mapping) -> "MergedWeights":
+        """These merges over `base`, {name: tensor} standing in for some of
+        the module's own weights (`parallel.sharding.GatheredWeights`: the
+        whole weights gathered from fsdp shards as a layer reads them): a
+        target in `base` merges into its entry, and `base`'s other entries
+        are handed out as they are."""
+        return MergedWeights(self.module, self.tree, self.alpha, self.scale, self.upcast, base)
+
+    def _weight(self, name: str) -> torch.Tensor:
+        if self.base is not None and name in self.base:
+            return self.base[name]
+        return self.module.get_parameter(name)
 
     def __getitem__(self, name: str) -> torch.Tensor:
-        return _merged(self.module.get_parameter(name), self.tree[name], self.alpha,
-                       self.scale, self.upcast)
+        if name not in self.tree:
+            return self.base[name]
+        return _merged(self._weight(name), self.tree[name], self.alpha, self.scale,
+                       self.upcast)
+
+    def __contains__(self, name) -> bool:
+        return name in self.tree or (self.base is not None and name in self.base)
 
     def __iter__(self) -> Iterator[str]:
-        return iter(self.tree)
+        yield from self.tree
+        if self.base is not None:
+            yield from (n for n in self.base if n not in self.tree)
 
     def __len__(self) -> int:
-        return len(self.tree)
+        return sum(1 for _ in self)
 
 
 def merge_pipeline_lora(modules: Dict[str, torch.nn.Module], lora: Lora,

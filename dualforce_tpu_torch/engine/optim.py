@@ -43,6 +43,17 @@ builds it again without `betas`. They share optax's one global step count
 and `schedule(count)`; the state lives per parameter in the parameter's
 dtype, as optax keeps it, and the arithmetic is plain PyTorch.
 
+Under fsdp (`shards`: per parameter its `parallel.sharding.Shard`, or None
+where it is whole) each optimizer updates this rank's slice of a sharded
+weight and computes what it computes over the whole tensor in one process:
+the clipping norm sums the shards' squares over the fsdp axis; AdamW and
+the elementwise families need nothing more; `AdamW8bit`'s 256-blocks
+follow the whole tensor's flattened order (a shard whose rows of the
+whole are whole blocks quantizes its own blocks; any other holds the whole
+moments and updates the gathered tensor); LAMB, Adafactor and Novograd,
+whose updates read norms or means over the whole tensor, update the
+gathered tensor from whole state.
+
 Every optimizer's `step(grads, frozen=None)` takes optional per-parameter
 flags: a flagged parameter and its state are left as they are while the
 count advances for all, which is what the JAX package's full fine-tuning
@@ -95,17 +106,57 @@ def warmup_schedule(base_lr: float, warmup_steps: int, total_steps: int,
     raise ValueError(f"unknown schedule kind {kind}")
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32, on the tensors' device."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor], shards=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32, on the tensors' device.
+    With `shards`, a sharded tensor's squares are summed over its fsdp axis
+    (the whole tensor's), a whole one's counted once."""
+    if not shards or all(s is None for s in shards):
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    whole = [t for t, s in zip(tensors, shards) if s is None]
+    parts = [t for t, s in zip(tensors, shards) if s is not None]
+    axis = next(s.axis for s in shards if s is not None)
+    total = pm.psum(sum(t.float().square().sum() for t in parts), axis)
+    if whole:
+        total = total + sum(t.float().square().sum() for t in whole)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, shards=None):
     """(clipped grads, global norm before clipping), as optax clips: g while
-    norm < max_norm, else (g / norm) * max_norm. No host synchronisation."""
-    norm = global_norm(grads)
+    norm < max_norm, else (g / norm) * max_norm. No host synchronisation.
+    `shards` as `global_norm`'s."""
+    norm = global_norm(grads, shards)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads], norm
+
+
+def _gathered(x: torch.Tensor, shard) -> torch.Tensor:
+    """The whole tensor of this rank's fsdp slice x (no autograd)."""
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    return pm.all_gather(x.detach(), shard.axis, shard.dim)
+
+
+def _mine(x: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's slice of the whole tensor x."""
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    n = x.shape[shard.dim] // pm.axis_size(shard.axis)
+    return x.narrow(shard.dim, pm.axis_index(shard.axis) * n, n)
+
+
+def _whole_blocks(shard) -> bool:
+    """True where each row of the whole tensor that this shard cuts (the
+    dims before the sharded one) holds whole 256-blocks of the whole
+    tensor's flattened order, so that the shard's own flattened order is a
+    run of whole blocks."""
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    shape = shard.whole_shape
+    row = math.prod(shape[shard.dim:])
+    return row % BLOCK == 0 and (row // pm.axis_size(shard.axis)) % BLOCK == 0
 
 
 class AdamW:
@@ -116,8 +167,9 @@ class AdamW:
     def __init__(self, params: List[torch.Tensor], lr: float = 1e-4,
                  betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 1e-2,
                  max_grad_norm: Optional[float] = 1.0,
-                 schedule: Optional[Schedule] = None):
+                 schedule: Optional[Schedule] = None, shards=None):
         self.params = list(params)
+        self.shards = list(shards) if shards is not None else None
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule if schedule is not None else (lambda n: lr)
         self.count = 0
@@ -129,9 +181,9 @@ class AdamW:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         if self.max_grad_norm:
-            grads, norm = clip_by_global_norm(grads, self.max_grad_norm)
+            grads, norm = clip_by_global_norm(grads, self.max_grad_norm, self.shards)
         else:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shards)
         for i, (p, g) in enumerate(zip(self.params, grads)):
             # torch.optim leaves a parameter without a gradient as it is
             p.grad = None if frozen is not None and frozen[i] else g.to(p.dtype)
@@ -201,15 +253,20 @@ class AdamW8bit:
     def __init__(self, params: List[torch.Tensor], lr: float = 1e-4,
                  betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 1e-2,
                  max_grad_norm: Optional[float] = 1.0,
-                 schedule: Optional[Schedule] = None):
+                 schedule: Optional[Schedule] = None, shards=None):
         self.params = list(params)
+        self.shards = list(shards) if shards is not None else [None] * len(self.params)
         self.b1, self.b2 = (float(b) for b in betas)
         self.eps, self.weight_decay = eps, weight_decay
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule if schedule is not None else (lambda n: lr)
         self.count = 0
-        self.mu = [quantize_blocks(torch.zeros_like(p, dtype=torch.float32))
-                   for p in self.params]
+        # a shard whose own order is not a run of whole blocks keeps the whole
+        # tensor's moments and updates the gathered tensor (`_whole_blocks`)
+        self.gather = [s is not None and not _whole_blocks(s) for s in self.shards]
+        self.mu = [quantize_blocks(torch.zeros(s.whole_shape if gather else p.shape,
+                                               dtype=torch.float32, device=p.device))
+                   for p, s, gather in zip(self.params, self.shards, self.gather)]
         self.nu = [(q.clone(), s.clone()) for q, s in self.mu]
 
     @torch.no_grad()
@@ -218,9 +275,9 @@ class AdamW8bit:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         if self.max_grad_norm:
-            grads, norm = clip_by_global_norm(grads, self.max_grad_norm)
+            grads, norm = clip_by_global_norm(grads, self.max_grad_norm, self.shards)
         else:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shards)
         # fp32 scalars, as XLA computes them; the Adam count starts at 1 on
         # the first update, the learning rate's at 0 (`scale_by_learning_rate`)
         t = np.float32(self.count + 1)
@@ -230,7 +287,9 @@ class AdamW8bit:
         for i, (p, g) in enumerate(zip(self.params, grads)):
             if frozen is not None and frozen[i]:
                 continue
-            g32 = g.float()
+            shard, gather = self.shards[i], self.gather[i]
+            g32 = (_gathered(g, shard) if gather else g).float()
+            p32 = (_gathered(p, shard) if gather else p).float()
             mu = dequantize_blocks(*self.mu[i], g32)
             nu = dequantize_blocks(*self.nu[i], g32)
             mu = self.b1 * mu + (1 - self.b1) * g32
@@ -238,15 +297,21 @@ class AdamW8bit:
             # mu_hat / (sqrt(nu_hat) + eps), as XLA rewrites it: (a / b) / c
             # becomes a / (b * c)
             update = mu / (c1 * (torch.sqrt(nu / c2) + self.eps))
-            update = (update + self.weight_decay * p.float()) * neg_lr
+            update = (update + self.weight_decay * p32) * neg_lr
             # a gradient zero everywhere leaves the parameter and its moments
             # as they are (caveat 10), decided on the device without a sync
-            live = g32.abs().amax() > 0
+            live = g32.abs().amax()
+            if shard is not None and not gather:
+                from dualforce_tpu_torch.parallel import mesh as pm
+
+                live = pm.pmax(live, shard.axis)       # over the whole tensor
+            live = live > 0
             self.mu[i] = tuple(torch.where(live, new, old)
                                for new, old in zip(quantize_blocks(mu), self.mu[i]))
             self.nu[i] = tuple(torch.where(live, new, old)
                                for new, old in zip(quantize_blocks(nu), self.nu[i]))
-            p.copy_(torch.where(live, p.float() + update, p.float()))
+            new_p = torch.where(live, p32 + update, p32)
+            p.copy_(_mine(new_p, shard) if gather else new_p)
         self.count += 1
         return norm
 
@@ -308,6 +373,7 @@ class _Adam(_Family):
     def __init__(self, b1, b2, eps, nesterov=False, weight_decay=0.0, trust_ratio=False):
         self.b1, self.b2, self.eps, self.nesterov = b1, b2, eps, nesterov
         self.weight_decay, self.trust_ratio = weight_decay, trust_ratio
+        self.elementwise = not trust_ratio
 
     def init(self, p):
         return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
@@ -493,6 +559,7 @@ class _Adafactor(_Family):
 
     MIN_DIM = 128
     EPS = 1e-30
+    elementwise = False
 
     def __init__(self, weight_decay_rate=None, decay_rate=0.8):
         self.weight_decay_rate, self.decay_rate = weight_decay_rate, decay_rate
@@ -543,6 +610,8 @@ class _Novograd(_Family):
     """`scale_by_novograd`: a scalar second moment per parameter (the squared
     norm of its gradient), the decay inside the first moment."""
 
+    elementwise = False
+
     def __init__(self, b1, b2, eps, weight_decay):
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
 
@@ -566,15 +635,19 @@ class OptaxChain:
 
     def __init__(self, params: List[torch.Tensor], family: _Family, lr: float = 1e-4,
                  max_grad_norm: Optional[float] = 1.0, schedule: Optional[Schedule] = None,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, shards=None):
         self.params = list(params)
+        self.shards = list(shards) if shards is not None else [None] * len(self.params)
         self.family = family
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule if schedule is not None else (lambda n: lr)
         self.weight_decay = weight_decay
         self.count = 0
+        # a family that reads the whole tensor updates a shard's gathered one
+        self.gather = [s is not None and not family.elementwise for s in self.shards]
         with torch.no_grad():
-            self.state = [family.init(p.detach()) for p in self.params]
+            self.state = [family.init(_gathered(p, s) if gather else p.detach())
+                          for p, s, gather in zip(self.params, self.shards, self.gather)]
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
@@ -582,17 +655,20 @@ class OptaxChain:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         if self.max_grad_norm:
-            grads, norm = clip_by_global_norm(grads, self.max_grad_norm)
+            grads, norm = clip_by_global_norm(grads, self.max_grad_norm, self.shards)
         else:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shards)
         t, lr = self.count + 1, _f32(self.schedule(self.count))
         for i, (p, g) in enumerate(zip(self.params, grads)):
             if frozen is not None and frozen[i]:
                 continue
-            g = g.to(p.dtype)
+            shard, gather = self.shards[i], self.gather[i]
+            w = _gathered(p, shard) if gather else p.detach()
+            g = (_gathered(g, shard) if gather else g).to(p.dtype)
             if self.weight_decay:
-                g = g + self.weight_decay * p
-            p.add_(self.family.update(g, self.state[i], p.detach(), t, lr))
+                g = g + self.weight_decay * w
+            u = self.family.update(g, self.state[i], w, t, lr)
+            p.add_(_mine(u, shard) if gather else u)
         self.count += 1
         return norm
 
@@ -615,13 +691,13 @@ def _register(name: str, make: Callable[[Dict[str, Any]], _Family]):
     the chain, and anything left raises TypeError."""
 
     def factory(params, lr: float = 1e-4, max_grad_norm: Optional[float] = 1.0,
-                schedule: Optional[Schedule] = None, **kw) -> OptaxChain:
+                schedule: Optional[Schedule] = None, shards=None, **kw) -> OptaxChain:
         family = make(kw)
         weight_decay = kw.pop("weight_decay", 0.0)
         if kw:
             raise TypeError(f"{name}: unknown kwargs {sorted(kw)}")
         return OptaxChain(params, family, lr=lr, max_grad_norm=max_grad_norm,
-                          schedule=schedule, weight_decay=weight_decay)
+                          schedule=schedule, weight_decay=weight_decay, shards=shards)
 
     factory.__name__ = name.lower()
     return factory

@@ -1,12 +1,13 @@
 """LoRA and full fine-tuning trainer (counterpart of
 `dualforce_tpu/engine/trainer.py`).
 
-One device, no mesh. Loop: frozen encodes, grads through the
-(rematerialised) dual tower, gradient accumulation as a running mean, then
-the optimizer (any name of the registry, `engine.optim.OPTIMIZERS`: "AdamW"
-by default, "AdamW8bit" with block-wise int8 moments, or one of optax's
-families; one that rejects `betas` is built again without them, as the JAX
-trainer does) under the warmup schedule; log every `log_interval` steps,
+One device, or a (data, fsdp, cp) mesh of processes (`mesh`). Loop: frozen
+encodes, grads through the (rematerialised) dual tower, gradient
+accumulation as a running mean, then the optimizer (any name of the
+registry, `engine.optim.OPTIMIZERS`: "AdamW" by default, "AdamW8bit" with
+block-wise int8 moments, or one of optax's families; one that rejects
+`betas` is built again without them, as the JAX trainer does) under the
+warmup schedule; log every `log_interval` steps,
 save every `save_interval` and at the end, resume from the latest `step-N`
 under `save_dir`. Randomness (LoRA init, timestep ids, noise) comes from one
 host `torch.Generator` seeded with `seed`, saved and restored with the
@@ -43,7 +44,24 @@ Base weights stored in fp8 train in both regimes: the LoRA merges into the
 compute dtype (ROADMAP C, caveat 9). `remat_save_attention` keeps the flash
 forward's outputs across each layer's remat boundary
 (`ops.flash_attention.remat_save_attention`), set around each loss and
-backward. Not ported, and refused: meshes and sequence parallelism.
+backward.
+
+Under a mesh (`mesh`, `parallel.mesh.create_mesh`; one process per rank
+under torchrun), as the JAX trainer's: the raw batch is split over `data`,
+each rank encodes its part and the encodes are gathered back, so every
+rank holds the whole encoded batch and draws the same timestep and noise
+from the one generator; the blocks run over the mesh
+(`diffusion.training`'s `sp_mesh`: the sequence over `cp`, each layer's
+weights gathered from their `fsdp` shards), and the gradients, summed over
+the ranks, are the one-process ones. With fsdp > 1 the tower blocks and the
+bridge conditioners are sharded (`parallel.sharding.shard_params`), and
+under `mode="full"` their shards train (the optimizer updates each rank's
+slice, `engine.optim`'s `shards`). LoRA factors stay whole on every rank
+(JAX shards them: a difference in memory only). Rank 0 alone logs and
+writes `step-N/` (sharded trained weights gathered whole for the export);
+a rank whose optimizer state is its own (fsdp shards) writes
+`state.rank<r>.pt` beside it, and every rank resumes. Component offload is
+refused with a mesh, as the JAX trainer refuses it.
 
 Clips of any length train; at 720p (1280x720, 193 frames, 176,400 video
 tokens) the attention backwards take the split kernels, and an 80 GB card
@@ -82,6 +100,12 @@ from dualforce_tpu_torch.nn import FP8_DTYPES
 from dualforce_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
                                                      flash_bwd_preprocess,
                                                      remat_save_attention)
+from dualforce_tpu_torch.parallel import mesh as pm
+from dualforce_tpu_torch.parallel import sharding
+
+
+COMPONENT_MESH_REFUSAL = ("offload='component' is the single-chip low-resource regime; use "
+                          "the fsdp mesh axis to shard across chips instead")
 
 
 @dataclass
@@ -125,15 +149,21 @@ class TrainerConfig:
 
 class LoRATrainer:
     def __init__(self, cfg: MOVAConfig, modules: Dict[str, torch.nn.Module],
-                 tcfg: TrainerConfig, device="cuda"):
+                 tcfg: TrainerConfig, device="cuda", mesh=None):
         """modules: the pipeline's modules (the encoders, the towers, the
         bridge), on `device` (offload "none") or in host memory (offload
         "component"; page-locked for a CUDA device); they stay frozen, but
-        for the trainable ones under `mode="full"`, which train in place."""
+        for the trainable ones under `mode="full"`, which train in place.
+        mesh: a (data, fsdp, cp) `DeviceMesh` over this process's world (the
+        module docstring); with fsdp > 1 this rank keeps its shards of the
+        blocks of modules given whole (or already sharded over the mesh)."""
         if tcfg.mode not in ("lora", "full"):
             raise ValueError(f"unknown trainer mode {tcfg.mode!r}")
         if tcfg.offload not in ("none", "component"):
             raise ValueError(f"unknown trainer offload {tcfg.offload!r}")
+        self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
+        if tcfg.offload == "component" and self.mesh is not None:
+            raise ValueError(COMPONENT_MESH_REFUSAL)
         if tcfg.offload == "component" and tcfg.mode == "full":
             raise ValueError("offload='component' trains LoRA only (full-FT params must be "
                              "device-resident for the optimizer)")
@@ -147,6 +177,7 @@ class LoRATrainer:
         self.cfg = cfg
         self.modules = modules
         self.tcfg = tcfg
+        self.is_main = pm.rank() == 0
         scheduler = FlowMatchPairScheduler(cfg.scheduler)
         scheduler.set_timesteps(cfg.scheduler.num_train_timesteps, training=True)
         self.tables = build_train_tables(scheduler, cfg.boundary_ratio)
@@ -158,22 +189,32 @@ class LoRATrainer:
             # the LoRA mode's state stays None: full fine-tuning's is the modules
             self.lora = None
             self.trainable = {m: modules[m] for m in tcfg.trainable_modules if m in modules}
-            params = trainable_parameters(self.trainable)
-            if any(p.dtype in FP8_DTYPES for p in params):
+            if any(p.dtype in FP8_DTYPES for p in trainable_parameters(self.trainable)):
                 raise ValueError("full fine-tuning trains the modules' own weights, which "
                                  "must not be stored in fp8")
             for module in self.trainable.values():
                 module.requires_grad_(True)
         else:
             self.trainable = {}
+            # drawn in the whole weights' shapes, given whole or in shards
             self.lora = lora_mod.init_pipeline_lora(modules, tcfg.lora_rank, self.generator,
                                                     tcfg.trainable_modules,
-                                                    device=self.device)
+                                                    device=self.device,
+                                                    shapes=sharding.whole_shapes(modules))
+        if self.mesh is not None:
+            sharding.shard_params(modules, self.mesh)
+        if self.lora is None:
+            params = trainable_parameters(self.trainable)
+            self.shards = sharding.shards_of(self.trainable, params)
+        else:
             params = lora_mod.lora_parameters(self.lora)
+            self.shards = [None] * len(params)
         self._schedule = warmup_schedule(tcfg.lr, tcfg.warmup_steps, tcfg.max_steps,
                                          tcfg.lr_schedule)
         opt_kwargs = dict(lr=tcfg.lr, betas=tcfg.betas, weight_decay=tcfg.weight_decay,
                           max_grad_norm=tcfg.max_grad_norm, schedule=self._schedule)
+        if any(s is not None for s in self.shards):
+            opt_kwargs["shards"] = self.shards
         try:
             self.optimizer = build_optimizer(tcfg.optimizer, params, **opt_kwargs)
         except TypeError:
@@ -183,7 +224,7 @@ class LoRATrainer:
         self.timestep_config = TimestepConfig(tcfg.weighting_scheme, tcfg.logit_mean,
                                               tcfg.logit_std, tcfg.mode_scale)
         self.global_step = 0
-        self.logger = build_logger(tcfg.logger, tcfg.save_dir)
+        self.logger = build_logger(tcfg.logger, tcfg.save_dir, self.is_main)
         self._rope_cache: Dict[Any, Any] = {}
         # offload: {name: (the ExitStack holding its staging, the staged copy)}
         self._staged: Dict[str, Any] = {}
@@ -199,18 +240,32 @@ class LoRATrainer:
             state["lora"] = self.lora
         return state
 
+    def _own_state(self) -> bool:
+        """True on a rank whose optimizer state is its own: fsdp shards train."""
+        return any(s is not None for s in self.shards)
+
+    def _state_name(self) -> str:
+        return f"state.rank{pm.rank()}.pt" if self._own_state() and pm.rank() else "state.pt"
+
     def _maybe_resume(self):
         step = latest_step(self.tcfg.save_dir)
         if step is None:
             return
-        state, meta = restore_checkpoint(self.tcfg.save_dir, step, map_location=self.device)
+        state, meta = restore_checkpoint(self.tcfg.save_dir, step, map_location=self.device,
+                                         name=self._state_name())
         with torch.no_grad():
             if self.lora is None:
                 step_dir = os.path.join(os.path.abspath(self.tcfg.save_dir), f"step-{step}")
+                params = trainable_parameters(self.trainable)
+                shards = dict(zip(map(id, params), self.shards))
                 for name, module in self.trainable.items():
                     sd = lc.load_state_dict(os.path.join(step_dir, lc.MODULES[name][0]))
                     for key, p in module.named_parameters():
-                        p.copy_(sd[key])
+                        whole, shard = sd[key], shards[id(p)]
+                        if shard is not None:       # this rank's slice of the export
+                            n = whole.shape[shard.dim] // pm.axis_size(shard.axis)
+                            whole = whole.narrow(shard.dim, pm.axis_index(shard.axis) * n, n)
+                        p.copy_(whole)
             for mod, tree in (self.lora or {}).items():
                 for name, ab in tree.items():
                     for part, t in ab.items():
@@ -218,7 +273,8 @@ class LoRATrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"].cpu())
         self.global_step = meta["global_step"]
-        print(f"[trainer] resumed from step {self.global_step}")
+        if self.is_main:
+            print(f"[trainer] resumed from step {self.global_step}")
 
     def save(self):
         """`step-N/`: the LoRA in the JAX package's format (`lora_weights.npz`,
@@ -229,12 +285,42 @@ class LoRATrainer:
         t = self.tcfg
         path = os.path.join(os.path.abspath(t.save_dir), f"step-{self.global_step}")
         if self.lora is None:
-            lc.export_trained_modules(self.trainable, self.cfg, path)
-        else:
+            for name, module in self.trainable.items():
+                with self._whole(module):
+                    if self.is_main:
+                        lc.export_trained_modules({name: module}, self.cfg, path)
+        elif self.is_main:
             lora_mod.save_lora(self.lora, f"{path}/lora_weights.npz", alpha=t.lora_alpha,
                                rank=t.lora_rank)
             save_reference_lora(self.lora, path, alpha=t.lora_alpha, rank=t.lora_rank)
-        save_checkpoint(t.save_dir, self.global_step, self._state())
+        if self._own_state() and not self.is_main:
+            save_checkpoint(t.save_dir, self.global_step, self._state(), self._state_name(),
+                            complete=False)
+        pm.barrier()      # every rank's files are written before rank 0 completes the step
+        if self.is_main:
+            save_checkpoint(t.save_dir, self.global_step, self._state())
+        pm.barrier()
+
+    @contextlib.contextmanager
+    def _whole(self, module: torch.nn.Module):
+        """`module` with its fsdp shards gathered whole on every rank for the
+        body (a collective), the shards put back after."""
+        holder = getattr(module, "blocks", module)
+        dims = getattr(holder, "fsdp_dims", {}) if self.mesh is not None else {}
+        if not dims:
+            yield
+            return
+        names = list(dims)
+        shards = [holder.get_parameter(n).data for n in names]
+        with torch.no_grad():
+            whole = pm.all_gather_many(shards, [dims[n] for n in names], holder.fsdp_axis)
+        try:
+            for n, w in zip(names, whole):
+                holder.get_parameter(n).data = w
+            yield
+        finally:
+            for n, sh in zip(names, shards):
+                holder.get_parameter(n).data = sh
 
     # --- component staging (offload "component") ---------------------------
     def _stage(self, *names: str) -> Dict[str, torch.nn.Module]:
@@ -280,13 +366,27 @@ class LoRATrainer:
     _ENCODERS = ("text_encoder", "video_vae", "audio_vae")
 
     def _encode(self, batch):
+        """The whole batch's encodes. Under a mesh whose data axis divides
+        the batch each rank encodes its part (`sharding.shard_batch`, as the
+        JAX trainer shards it) and the parts are gathered back."""
+        data = pm.mesh_shape(self.mesh).get("data", 1)
+        split = data > 1 and len(batch["text_ids"]) % data == 0
+        if split:
+            batch = sharding.shard_batch(batch, self.mesh)
         try:
-            return encode_batch(self._stage(*self._ENCODERS), self.cfg, batch,
-                                compute_dtype=self.tcfg.compute_dtype, device=self.device)
+            encoded = encode_batch(self._stage(*self._ENCODERS), self.cfg, batch,
+                                   compute_dtype=self.tcfg.compute_dtype, device=self.device)
         finally:
             self._evict(*self._ENCODERS)
+        if split:
+            axis = pm.MeshAxis(self.mesh, "data")
+            encoded = dict(zip(encoded, pm.all_gather_many(list(encoded.values()),
+                                                           [0] * len(encoded), axis)))
+        return encoded
 
-    def _grads(self, encoded, expert: int):
+    def _grads(self, encoded, expert: int, **loss_kw):
+        """One micro-batch's (grads, metrics); `loss_kw` goes to the loss
+        (`timestep_id` and `noise_override` pin its draws)."""
         t = self.tcfg
         tower = "video_dit" if expert == 0 else "video_dit_2"
         if t.offload == "component":
@@ -295,7 +395,8 @@ class LoRATrainer:
         modules = self._stage(tower, "audio_dit", "bridge")
         kwargs = dict(video_fps=t.video_fps, compute_dtype=t.compute_dtype, remat=t.remat,
                       attn_impl=t.attn_impl, rope_pack=self._rope_pack(encoded),
-                      timestep_config=self.timestep_config, device=self.device)
+                      timestep_config=self.timestep_config, device=self.device,
+                      sp_mesh=self.mesh, **loss_kw)
         prev = remat_save_attention(t.remat_save_attention)
         try:
             if self.lora is None:
@@ -334,8 +435,12 @@ class LoRATrainer:
         and `flash_bwd_preprocess`, the flash kernel launches of its loss and
         backward (forward, fused backward, split backward, the backwards'
         delta preprocess); its loss metrics as floats; and `grad_norm` when
-        it ends a step. The synchronisation makes a measured run slower: pass
-        it only to measure.
+        it ends a step. Under a mesh, also the bytes this rank sent and the
+        seconds it spent in collectives, in the forward
+        (`collective_fwd_bytes`, `collective_fwd_s`, the encodes' gather
+        apart) and in the backward with the gradients' reduction
+        (`collective_bwd_bytes`, `collective_bwd_s`). The synchronisation
+        makes a measured run slower: pass it only to measure.
         """
         self._measure = on_micro_step is not None
         try:
@@ -368,6 +473,7 @@ class LoRATrainer:
             encode_stage_s = self._stage_s
             fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
             split, prep = flash_attention_bwd.split_launches, flash_bwd_preprocess.launches
+            b0, s0 = pm.TRANSFER["bytes"], pm.TRANSFER["seconds"]
             (grads, metrics), grads_s = self._timed(measure, self._grads, encoded, expert)
             stage_s = self._stage_s
             record = {"expert": expert, "encode_s": encode_s - encode_stage_s,
@@ -377,6 +483,11 @@ class LoRATrainer:
                       "flash_bwd": flash_attention_bwd.launches - bwd,
                       "flash_bwd_split": flash_attention_bwd.split_launches - split,
                       "flash_bwd_preprocess": flash_bwd_preprocess.launches - prep}
+            if self.mesh is not None:
+                record["collective_fwd_bytes"] = (pm.TRANSFER["bytes"] - b0
+                                                  - float(metrics["collective_bwd_bytes"]))
+                record["collective_fwd_s"] = (pm.TRANSFER["seconds"] - s0
+                                              - float(metrics["collective_bwd_s"]))
             if accum > 1:
                 grad_acc = accumulate(grad_acc, grads, accum)
                 micro += 1
@@ -395,7 +506,7 @@ class LoRATrainer:
                 on_micro_step({**record, **{k: float(v) for k, v in metrics.items()}})
             self.global_step += 1
 
-            if self.global_step % self.tcfg.log_interval == 0:
+            if self.global_step % self.tcfg.log_interval == 0 and self.is_main:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["lr"] = float(self._schedule(self.global_step))
                 m["step_time"] = (time.time() - t0) / self.tcfg.log_interval

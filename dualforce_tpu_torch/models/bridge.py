@@ -125,7 +125,7 @@ def per_frame_attention_pooling_sp(pool: PerFramePooling, y_local: torch.Tensor,
     lt = logits.permute(1, 0, 2)                                # [l, b, n]
     seg = gid[:, None, None].expand_as(lt)
     m = torch.full((t + 1, b, num_heads), float("-inf"), device=y_local.device)
-    m = pm.pmax(m.scatter_reduce(0, seg, lt, "amax"), axis).clamp_min(neg)
+    m = pm.pmax(m.scatter_reduce(0, seg, lt.detach(), "amax"), axis).clamp_min(neg)
     e = torch.exp(lt - m[gid]).masked_fill(~valid[:, None, None], 0.0)
     den = torch.zeros((t + 1, b, num_heads), device=y_local.device).index_add_(0, gid, e)
     num = torch.zeros((t + 1, b, num_heads, hd), device=y_local.device).index_add_(

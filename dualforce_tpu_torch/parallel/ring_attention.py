@@ -23,6 +23,14 @@ and not by the kernel's LSE (B1 gives a keyless row -1e4 ln 2, not -inf),
 and its attention is not computed at all. The combines run in fp32 plain
 PyTorch, as the JAX package's are `jnp`. The ring skips the JAX loop's
 rotation after its last step, which changes no number.
+
+Every function is differentiable through its collectives (`mesh`: each
+has JAX's transpose for its backward) and its inner, B1's autograd op on
+the card (`dualforce_tpu::flash_fwd_lse`: the LSE's cotangent goes to the
+backward kernel's delta), the plain one on the CPU. A skipped chunk's K/V
+still join the graph, with a zero cotangent (`_joined`): its rotation's
+backward then runs on every rank, and every rank's backward makes the same
+calls in the same order.
 """
 
 from __future__ import annotations
@@ -85,6 +93,27 @@ def inner_for_impl(attn_impl) -> Callable:
     return _inner_auto
 
 
+class _Join(torch.autograd.Function):
+    """x as it is, with `others` in its graph: their cotangents are zeros."""
+
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=dt, device=dev) for s, dt, dev in ctx.others))
+
+
+def _joined(x: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
+    """x, joined under autograd to tensors that it does not depend on, so
+    that their producers' backward (a collective) runs on this rank too."""
+    if torch.is_grad_enabled() and any(o.requires_grad for o in others):
+        return _Join.apply(x, *others)
+    return x
+
+
 def _valid(global_valid_len: Optional[int], src: int, chunk: int, n: int) -> Optional[int]:
     """Valid keys of rank `src`'s chunk, or None when nothing is padded."""
     if global_valid_len is None or global_valid_len >= n * chunk:
@@ -123,6 +152,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis: pm.M
                    + o_i.float() * w_new.transpose(1, 2)[..., None])
             s = s * w_old + w_new
             m = m_new
+        else:
+            acc = _joined(acc, k_c, v_c)
         if i < n - 1:
             k_c, v_c = pm.ppermute_next([k_c, v_c], axis)
     return (acc / s.transpose(1, 2)[..., None]).to(q.dtype)
@@ -140,11 +171,14 @@ def lse_combine_cross_attention(q: torch.Tensor, k_local: torch.Tensor,
     b, sq, nh, d = q.shape
     kv_valid = _valid(global_valid_len, pm.axis_index(axis), k_local.shape[1], n)
     if kv_valid == 0:
-        o_i = torch.zeros((b, sq, nh, d), dtype=torch.float32, device=q.device)
+        # under autograd the zeros join q's and K/V's graph, so that the psum
+        # below is differentiable on this rank too, as on the others
+        o_i = _joined(torch.zeros((b, sq, nh, d), dtype=torch.float32, device=q.device),
+                      q, k_local, v_local)
         lse_i = torch.full((b, nh, sq), float("-inf"), dtype=torch.float32, device=q.device)
     else:
         o_i, lse_i = inner(q, k_local, v_local, _lens(kv_valid, b, q.device))
-    m = pm.pmax(lse_i, axis)                   # finite: the whole sequence has keys
+    m = pm.pmax(lse_i, axis)     # detached; finite: the whole sequence has keys
     w = torch.exp(lse_i - m)                    # [B, N, Sq]; 0 for a keyless chunk
     part = torch.cat([(o_i.float() * w.transpose(1, 2)[..., None]).reshape(-1),
                       w.reshape(-1)])

@@ -17,13 +17,20 @@ towers' embeddings and heads stay whole on every rank (JAX's GSPMD shards
 them too: a difference in memory only). `GatheredWeights` gathers one
 layer's shards as the layer reads them (through `nn.call`) and lets them go
 after: the counterpart of JAX's `layer_param_map` hook.
+
+Training: the shards of trained blocks stay leaf parameters that the
+optimizer updates (`Shard` tells it where each lies in the whole tensor).
+The fsdp ranks compute the same tokens, so a gathered weight's gradient is
+each rank's own slice (counted once, not fsdp times), and
+`reduce_gradients` sums the rest over `data` and `cp`.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -86,7 +93,9 @@ def shard_params(modules: Dict[str, nn.Module], mesh) -> Dict[str, nn.Module]:
     conditioner parameter (in place; the whole tensors are freed). The
     holder of the blocks (a tower's `blocks`, the bridge) records
     {parameter name: sharded dim} as `fsdp_dims`, which `GatheredWeights`
-    reads. Quantized towers are not sharded (ROADMAP A7b). Returns
+    reads. Quantized towers are not sharded (ROADMAP A7c). A shard stays the
+    same `Parameter` object, so a module that trains (full fine-tuning)
+    trains its shards; a module sharded already keeps its shards. Returns
     `modules`."""
     fsdp = pm.mesh_shape(mesh).get("fsdp", 1)
     if fsdp <= 1:
@@ -96,8 +105,14 @@ def shard_params(modules: Dict[str, nn.Module], mesh) -> Dict[str, nn.Module]:
         if name not in TOWERS and name != "bridge":
             continue
         holder, depth = _block_sets(name, module)
+        axis = getattr(holder, "fsdp_axis", None)
+        if axis is not None:           # sharded already: its shards stay
+            if pm.axis_size(axis) != fsdp:
+                raise ValueError(f"{name} is sharded over fsdp {pm.axis_size(axis)}, "
+                                 f"not {fsdp}")
+            continue
         if any(isinstance(m, (dnn.Int8Linear, dnn.Int4Linear)) for m in holder.modules()):
-            raise ValueError("fsdp sharding of quantized towers is not ported (ROADMAP A7b)")
+            raise ValueError("fsdp sharding of quantized towers is not ported (ROADMAP A7c)")
         dims = {}
         for pname, p in holder.named_parameters():
             if pname not in depth:
@@ -109,6 +124,7 @@ def shard_params(modules: Dict[str, nn.Module], mesh) -> Dict[str, nn.Module]:
             p.data = p.data.narrow(d, idx * size, size).clone()
             dims[pname] = d
         holder.fsdp_dims = dims
+        holder.fsdp_axis = pm.MeshAxis(mesh, "fsdp")
     return modules
 
 
@@ -139,15 +155,134 @@ class GatheredWeights(Mapping):
     def __len__(self):
         return len(self.dims)
 
+    def __contains__(self, key) -> bool:
+        return isinstance(key, str) and key.startswith(self.prefix) and \
+            key[len(self.prefix):] in self.dims
+
     def __getitem__(self, key: str) -> torch.Tensor:
         name = key[len(self.prefix):]
         if name not in self.pending:
             layer = _layer_of(name)
             names = [n for n in self.dims if n.startswith(layer)]
+            # the fsdp ranks use the whole weights alike: a trained shard's
+            # gradient is its slice of the whole one's
             whole = pm.all_gather_many([self.holder.get_parameter(n) for n in names],
-                                       [self.dims[n] for n in names], self.axis)
+                                       [self.dims[n] for n in names], self.axis,
+                                       identical=True)
             self.pending = dict(zip(names, whole))
         return self.pending.pop(name)
+
+
+def gathered_params(mesh, video_blocks, audio_blocks, bridge,
+                    params: Optional[Dict[str, Mapping]] = None) -> Optional[Dict]:
+    """`forward_dual_tower`'s `params` over a mesh: with fsdp > 1, each
+    holder's `GatheredWeights`, under the given mapping of that key where
+    there is one (a LoRA's `engine.lora.MergedWeights`, which then merges
+    into the gathered base weights: `over`); else `params` as given."""
+    if pm.mesh_shape(mesh).get("fsdp", 1) <= 1:
+        return params
+    fsdp = pm.MeshAxis(mesh, "fsdp")
+    params = dict(params or {})
+    for key, holder, prefix in (("video", video_blocks, "blocks."),
+                                ("audio", audio_blocks, "blocks."), ("bridge", bridge, "")):
+        gathered = GatheredWeights(holder, prefix, fsdp)
+        params[key] = params[key].over(gathered) if key in params else gathered
+    return params
+
+
+class Shard(NamedTuple):
+    """Where an fsdp shard lies in its whole tensor: sharded along `dim`
+    over `axis`, this rank's slice the `axis_index`-th of `axis_size`."""
+    axis: pm.MeshAxis
+    dim: int
+    whole_shape: Tuple[int, ...]
+
+
+def shards_of(modules: Dict[str, nn.Module], params: Sequence[torch.Tensor]
+              ) -> List[Optional[Shard]]:
+    """Per parameter of `params` (a trainer's, in its order): its `Shard`
+    where `shard_params` sharded it, else None."""
+    found = {}
+    for name, module in modules.items():
+        if name not in TOWERS and name != "bridge":
+            continue
+        holder = module.blocks if name in TOWERS else module
+        axis = getattr(holder, "fsdp_axis", None)
+        for pname, d in getattr(holder, "fsdp_dims", {}).items():
+            p = holder.get_parameter(pname)
+            whole = list(p.shape)
+            whole[d] *= pm.axis_size(axis)
+            found[id(p)] = Shard(axis, d, tuple(whole))
+    return [found.get(id(p)) for p in params]
+
+
+def whole_shapes(modules: Dict[str, nn.Module]) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+    """{module: {parameter name in the module: its whole shape}} for every
+    parameter `shard_params` sharded (a module given in shards)."""
+    out: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+    for name, module in modules.items():
+        if name not in TOWERS and name != "bridge":
+            continue
+        holder = module.blocks if name in TOWERS else module
+        prefix = "blocks." if name in TOWERS else ""
+        for pname, d in getattr(holder, "fsdp_dims", {}).items():
+            shape = list(holder.get_parameter(pname).shape)
+            shape[d] *= pm.axis_size(holder.fsdp_axis)
+            out.setdefault(name, {})[prefix + pname] = tuple(shape)
+    return out
+
+
+def objective_share(mesh) -> float:
+    """The share of a loss that every rank computes whole which each rank
+    differentiates: 1 / (data * cp). `sp_forward_blocks`' gathers
+    reduce-scatter their cotangents (JAX's transpose), so the ranks' shares
+    add up to the loss once; fsdp ranks are copies of one another."""
+    shape = pm.mesh_shape(mesh)
+    return 1.0 / (shape.get("data", 1) * shape.get("cp", 1))
+
+
+_BUCKET = 1 << 26     # fp32 elements per reduction (256 MiB)
+
+
+def _reduce(grads: List[torch.Tensor], axis: pm.MeshAxis, scale: float = 1.0) -> None:
+    """Each of `grads` (in place) summed over `axis` in fp32, times `scale`,
+    in buckets of at most `_BUCKET` elements (every rank cuts the same)."""
+    i = 0
+    while i < len(grads):
+        j, size = i, 0
+        while j < len(grads) and (j == i or size + grads[j].numel() <= _BUCKET):
+            size += grads[j].numel()
+            j += 1
+        flat = pm.psum(torch.cat([g.reshape(-1).float() for g in grads[i:j]]), axis)
+        if scale != 1.0:
+            flat = flat * scale
+        start = 0
+        for g in grads[i:j]:
+            g.copy_(flat[start:start + g.numel()].view(g.shape))
+            start += g.numel()
+        i = j
+
+
+@torch.no_grad()
+def reduce_gradients(grads: Sequence[torch.Tensor], shards: Sequence[Optional[Shard]],
+                     mesh) -> List[torch.Tensor]:
+    """The step's gradients after the backward, each rank having
+    differentiated its `objective_share`: summed over `data` and `cp`; a
+    gradient of a parameter that is whole on every rank is averaged over
+    `fsdp` (the fsdp ranks computed the same one: counted once, and the
+    replicas stay equal where a kernel sums in a varying order), an fsdp
+    shard's is its own. Sums in fp32, cast back to each gradient's dtype.
+    Returns new tensors in the same order."""
+    shape = pm.mesh_shape(mesh)
+    grads = [g.clone() for g in grads]
+    for name in ("data", "cp"):
+        if shape.get(name, 1) > 1:
+            _reduce(grads, pm.MeshAxis(mesh, name))
+    fsdp = shape.get("fsdp", 1)
+    if fsdp > 1:
+        whole = [g for g, s in zip(grads, shards) if s is None]
+        _reduce(whole, pm.MeshAxis(mesh, "fsdp"), 1.0 / fsdp)
+    return grads
 
 
 def block_bytes(modules: Dict[str, nn.Module]) -> int:
@@ -164,14 +299,15 @@ def block_bytes(modules: Dict[str, nn.Module]) -> int:
 
 def shard_batch(batch, mesh):
     """This rank's slice of the batch over the `data` axis: the leading dim
-    of every tensor whose leading dim the axis divides (others whole)."""
+    of every tensor or numpy array whose leading dim the axis divides
+    (others whole)."""
     data = pm.mesh_shape(mesh).get("data", 1)
     if data <= 1:
         return batch
     idx = mesh.get_local_rank("data")
 
     def take(x):
-        if isinstance(x, torch.Tensor) and x.ndim and x.shape[0] % data == 0:
+        if isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim and x.shape[0] % data == 0:
             n = x.shape[0] // data
             return x[idx * n:(idx + 1) * n]
         return x

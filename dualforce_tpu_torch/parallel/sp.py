@@ -13,8 +13,17 @@
   - where the data axis divides the batch (and no per-item context lengths
     are given), each data rank takes its slice of the batch;
   - with fsdp > 1 each layer's weights are gathered from their shards just
-    before the layer runs (`sharding.GatheredWeights`);
+    before the layer runs (`sharding.GatheredWeights`), under the caller's
+    `params` (a LoRA's merges, which then merge into the gathered weights,
+    inside each layer's remat: the recompute gathers and merges again);
   - the outputs are gathered back whole on every rank and unpadded.
+
+Under autograd (training) every collective has JAX's transpose for its
+backward (`parallel/mesh.py`): the chunking's is the slice's (zeros beside
+this rank's chunk), the output gathers reduce-scatter. A loss that every
+rank then computes whole is differentiated by each at its
+`sharding.objective_share` (1 / (data * cp)), and the gradients are summed
+over the ranks after the backward (`sharding.reduce_gradients`).
 
 The JAX package's `shard_map` is one program over all devices; here every
 rank runs this function and they meet in the collectives, so each rank
@@ -30,7 +39,7 @@ import torch.nn.functional as F
 
 from dualforce_tpu_torch.models.dual_tower import forward_dual_tower
 from dualforce_tpu_torch.parallel import mesh as pm
-from dualforce_tpu_torch.parallel.sharding import GatheredWeights, shard_batch
+from dualforce_tpu_torch.parallel.sharding import gathered_params, shard_batch
 
 
 def _pad_chunk(x: torch.Tensor, dim: int, cp: int, idx: int):
@@ -52,14 +61,15 @@ def sp_forward_blocks(mesh, video_blocks, audio_blocks, bridge,
                       a2v_condition_scale: Optional[float] = None,
                       v2a_condition_scale: Optional[float] = None,
                       attn_impl="auto", ctx_valid_len: Optional[torch.Tensor] = None,
-                      video_grid=None):
+                      video_grid=None, remat: bool = False, params=None):
     """The interleaved block stack over `mesh` (arguments as
     `forward_dual_tower`'s, whole on every rank: visual_x [B, Lv, V],
     audio_x [B, La, A], RoPE tables [L, d/2], cross RoPE [1, L, head_dim]).
     The sequence goes over "cp"; the batch is split over "data" where that
     axis divides it and no `ctx_valid_len` is given (`sharding.shard_batch`;
-    JAX's per-item lengths stay replicated, so the batch does too). Returns
-    the whole, unpadded (visual_x, audio_x) on every rank."""
+    JAX's per-item lengths stay replicated, so the batch does too). `remat`
+    and `params` as `forward_dual_tower`'s. Returns the whole, unpadded
+    (visual_x, audio_x) on every rank."""
     shape = pm.mesh_shape(mesh)
     cp = shape["cp"]
     idx = mesh.get_local_rank("cp")
@@ -77,19 +87,14 @@ def sp_forward_blocks(mesh, video_blocks, audio_blocks, bridge,
     if cross_rope is not None:
         cross_rope = (tuple(_pad_chunk(r, 1, cp, idx)[0] for r in cross_rope[0]),
                       tuple(F.pad(r, (0, 0, 0, apad)) for r in cross_rope[1]))
-    params = None
-    if shape["fsdp"] > 1:
-        fsdp = pm.MeshAxis(mesh, "fsdp")
-        params = {"video": GatheredWeights(video_blocks, "blocks.", fsdp),
-                  "audio": GatheredWeights(audio_blocks, "blocks.", fsdp),
-                  "bridge": GatheredWeights(bridge, "", fsdp)}
+    params = gathered_params(mesh, video_blocks, audio_blocks, bridge, params)
     sp_axis = pm.MeshAxis(mesh, "cp") if cp > 1 else None
     vx, ax = forward_dual_tower(
         video_blocks, audio_blocks, bridge, visual_x, audio_x, visual_ctx, audio_ctx,
         visual_t_mod, audio_t_mod, visual_rope, audio_rope, cross_rope=cross_rope,
         condition_scale=condition_scale, a2v_condition_scale=a2v_condition_scale,
         v2a_condition_scale=v2a_condition_scale, attn_impl=attn_impl,
-        ctx_valid_len=ctx_valid_len, params=params, video_grid=video_grid,
+        ctx_valid_len=ctx_valid_len, remat=remat, params=params, video_grid=video_grid,
         sp_axis=sp_axis, sp_video_valid=lv if vpad else None,
         sp_audio_valid=la if apad else None)
     if sp_axis is not None:

@@ -76,3 +76,15 @@ def test_cuda_is_never_assumed():
     else:
         with pytest.raises(RuntimeError):
             resolve_device()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the card is present here")
+def test_training_under_a_mesh_defaults_to_the_card(tmp_path):
+    """`cli.train` joins its mesh on the card unless `--device cpu` asks for
+    the CPU: without a card it raises before the (absent) checkpoint is
+    read."""
+    from dualforce_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.run([str(REPO / "configs" / "training" / "lora_360p.py"), "--set",
+                   "mesh.fsdp=1", "mesh.cp=1", f"pipeline.ckpt_path={tmp_path / 'absent'}"])

@@ -17,6 +17,7 @@ the port against it (`jax_blocks_setup`, `jax_shard_map`).
 from __future__ import annotations
 
 import copy
+import math
 import os
 import socket
 import subprocess
@@ -199,6 +200,174 @@ def case_refusals(mesh, c):
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
+    return out
+
+
+# --- training under a mesh (tests/test_torch_train_world*.py) --------------
+
+def _local(x, axis, dim=1):
+    """x's chunk along `dim` over `axis`, a leaf that needs a gradient."""
+    return _chunk(x, axis, dim).detach().clone().requires_grad_()
+
+
+def case_attn_grads(mesh, c):
+    """The gradients of one attention collective's output against the
+    weights c["w"]: this rank's part of sum(out * w) (its chunk of a
+    sharded output; 1 / cp of a replicated one), differentiated, the
+    gradients of replicated inputs summed over the axis. Returns {q, k, v}:
+    this rank's chunk of a sharded input's gradient, a replicated one whole."""
+    from dualforce_tpu_torch.parallel import mesh as pm
+    from dualforce_tpu_torch.parallel import ring_attention as ra
+
+    ax = pm.MeshAxis(mesh, "cp")
+    kind, n = c["fn"], pm.axis_size(ax)
+    replicated_q = kind == "lse"
+    q = (c["q"].clone().requires_grad_() if replicated_q else _local(c["q"], ax))
+    k, v = _local(c["k"], ax), _local(c["v"], ax)
+    if kind == "ring":
+        out = ra.ring_attention(q, k, v, ax, _inner(c["inner"]), c.get("valid"))
+    elif kind == "lse":
+        out = ra.lse_combine_cross_attention(q, k, v, ax, _inner(c["inner"]), c.get("valid"))
+    elif kind == "gather":
+        out = ra.gather_kv_attention(q, k, v, ax, c.get("valid"), c["inner"])
+    else:
+        out = ra.ulysses_attention(q, k, v, ax, _inner(c["inner"]))
+    w = c["w"] if replicated_q else _chunk(c["w"], ax)
+    loss = (out * w).sum() / (n if replicated_q else 1)
+    gq, gk, gv = torch.autograd.grad(loss, (q, k, v))
+    if replicated_q:
+        gq = pm.psum(gq, ax)
+    return {"q": gq, "k": gk, "v": gv}
+
+
+def case_transports(mesh, c):
+    """The helpers over the shared-memory buffers of a one-host world and
+    over gloo's own collectives (the path of a world across hosts), on the
+    same inputs: {path: {helper: result}}."""
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    ax = pm.MeshAxis(mesh, "cp")
+    x = _chunk(c["x"], ax)
+    out = {}
+    for path, one_host in (("shared", True), ("gloo", False)):
+        saved = pm._ONE_HOST["on"]
+        pm._ONE_HOST["on"] = one_host
+        try:
+            out[path] = {
+                "ppermute": [t.clone() for t in pm.ppermute_next(
+                    [x, x[:, :3].to(torch.bfloat16)], ax)],
+                "all_gather": pm.all_gather_many([x, x.transpose(1, 2)], [1, 2], ax),
+                "reduce_scatter": pm.reduce_scatter(x, ax, 2),
+                "psum": pm.psum(x, ax), "pmax": pm.pmax(x, ax),
+                "all_to_all": pm.all_to_all(x.reshape(2, -1), ax)}
+        finally:
+            pm._ONE_HOST["on"] = saved
+    return out
+
+
+def block_grad_names(modules):
+    """The (module, parameter name) pairs whose gradients the block-stack
+    cases return: every parameter of the towers' blocks and of the bridge."""
+    return [(m, n) for m in ("bridge", "video_dit", "audio_dit")
+            for n, _ in (modules[m] if m == "bridge" else modules[m].blocks).named_parameters()]
+
+
+def case_block_grads(mesh, c):
+    """`sp_forward_blocks` differentiated: each rank's share of the loss
+    sum(ov^2) + sum(oa^2) (`objective_share`), the gradients of every block
+    and bridge parameter (this rank's fsdp slice of a sharded one) and of
+    both inputs, reduced over the mesh (`reduce_gradients`)."""
+    from dualforce_tpu_torch.parallel import sharding
+    from dualforce_tpu_torch.parallel.sp import sp_forward_blocks
+
+    m = sharding.shard_params(copy.deepcopy(c["modules"]), mesh)
+    names = block_grad_names(m)
+    params = [(m[a] if a == "bridge" else m[a].blocks).get_parameter(n) for a, n in names]
+    for p in params:
+        p.requires_grad_(True)
+    inputs = [x.clone() for x in c["inputs"][:6]]
+    vx, ax = (x.requires_grad_() for x in inputs[:2])
+    ov, oa = sp_forward_blocks(mesh, m["video_dit"].blocks, m["audio_dit"].blocks, m["bridge"],
+                               *inputs, *c["inputs"][6:], **c["kwargs"])
+    loss = (ov.square().sum() + oa.square().sum()) * sharding.objective_share(mesh)
+    grads = torch.autograd.grad(loss, params + [vx, ax])
+    shards = sharding.shards_of(m, params) + [None, None]
+    grads = sharding.reduce_gradients(grads, shards, mesh)
+    out = {f"{a}.{n}": g for (a, n), g in zip(names, grads)}
+    out["vx"], out["ax"] = grads[-2:]
+    out["_dims"] = {f"{a}.{n}": (s.dim if s is not None else None)
+                    for (a, n), s in zip(names, shards)}
+    return out
+
+
+def train_steps(trainer, steps, encoded=None, batches=None):
+    """`trainer`'s steps with pinned draws: per step (expert, timestep id,
+    (video noise, audio noise)); the encodes given (`encoded`) or made by the
+    trainer from `batches`. Returns per step its loss, grad norm and the
+    trained tensors after it ({name: this rank's tensor})."""
+    from dualforce_tpu_torch.diffusion.training import trainable_parameters
+
+    out = []
+    for i, (expert, tid, noise) in enumerate(steps):
+        enc = encoded if batches is None else trainer._encode(batches[i])
+        grads, metrics = trainer._grads(enc, expert, timestep_id=tid, noise_override=noise)
+        norm = trainer._apply(grads)
+        trainer.global_step += 1
+        if trainer.lora is not None:
+            named = {f"{m}.{n}.{p}": t for m in trainer.lora for n in trainer.lora[m]
+                     for p, t in trainer.lora[m][n].items()}
+        else:
+            named = {f"{m}.{n}": p for m in sorted(trainer.trainable)
+                     for n, p in trainer.trainable[m].named_parameters()}
+            assert len(named) == len(trainable_parameters(trainer.trainable))
+        out.append({"loss": float(metrics["loss"]), "grad_norm": float(norm),
+                    "params": {k: v.detach().clone() for k, v in named.items()}})
+    return out
+
+
+def _trainer(mesh, c, modules):
+    from dualforce_tpu_torch.engine.trainer import LoRATrainer, TrainerConfig
+
+    tcfg = TrainerConfig(**c["tcfg"])
+    trainer = LoRATrainer(c["cfg"], modules, tcfg, device="cpu", mesh=mesh)
+    if c.get("lora") is not None:
+        with torch.no_grad():
+            for m, tree in trainer.lora.items():
+                for n, ab in tree.items():
+                    for part, t in ab.items():
+                        t.copy_(c["lora"][m][n][part])
+    return trainer
+
+
+def case_trainer(mesh, c):
+    """`LoRATrainer(mesh=...)` steps with pinned draws (`train_steps`), and
+    for `mode="full"` each trained parameter's fsdp dim, the optimizer's
+    int8 codes and scales per element (AdamW8bit) and, with c["save"], the
+    last step's `step-N/` under the trainer's save_dir (rank 0 writes it)."""
+    trainer = _trainer(mesh, c, copy.deepcopy(c["modules"]))
+    out = {"steps": train_steps(trainer, c["steps"], c.get("encoded"), c.get("batches"))}
+    if trainer.lora is None:
+        from dualforce_tpu_torch.diffusion.training import trainable_parameters
+        from dualforce_tpu_torch.engine.optim import AdamW8bit
+
+        params = trainable_parameters(trainer.trainable)
+        names = [f"{m}.{n}" for m in sorted(trainer.trainable)
+                 for n, _ in trainer.trainable[m].named_parameters()]
+        out["dims"] = {n: (s.dim if s is not None else None)
+                       for n, s in zip(names, trainer.shards)}
+        opt = trainer.optimizer
+        if isinstance(opt, AdamW8bit):
+            codes = {}
+            for i, (n, p) in enumerate(zip(names, params)):
+                shape = opt.shards[i].whole_shape if opt.gather[i] else p.shape
+                numel = math.prod(shape)
+                codes[n] = {k: (q.reshape(-1)[:numel].view(shape).clone(),
+                                s.expand(-1, 256).reshape(-1)[:numel].view(shape).clone())
+                            for k, (q, s) in (("mu", opt.mu[i]), ("nu", opt.nu[i]))}
+                codes[n]["whole"] = opt.gather[i]
+            out["codes"] = codes
+    if c.get("save"):
+        trainer.save()
     return out
 
 
@@ -467,9 +636,35 @@ def cli_main(argv) -> None:
         np.savez(os.path.splitext(out)[0] + ".npz", video=result.video, audio=result.audio)
 
 
+def train_cli_main(argv) -> None:
+    """One rank of the training CLI under torchrun (the byte tokenizer,
+    fp32): `cli.train.run(ARGS + trainer.save_dir=OUT/a)` to the config's
+    max_steps, then, from a copy of its `step-RESUME/` alone under OUT/b,
+    the same run again, which resumes there. argv: OUT RESUME ARGS..."""
+    import shutil
+
+    torch.set_num_threads(1)
+    from dualforce_tpu_torch.cli import train as cli
+    from dualforce_tpu_torch.parallel import mesh as pm
+
+    out, resume, args = argv[0], argv[1], argv[2:]
+    try:
+        cli.run(args + [f"trainer.save_dir={out}/a"], tokenizer=ByteTokenizer(),
+                dtype=torch.float32)
+        if pm.rank() == 0:
+            shutil.copytree(f"{out}/a/step-{resume}", f"{out}/b/step-{resume}")
+        pm.barrier()
+        cli.run(args + [f"trainer.save_dir={out}/b"], tokenizer=ByteTokenizer(),
+                dtype=torch.float32)
+    finally:
+        pm.leave()
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     if sys.argv[1] == "--cli":
         cli_main(sys.argv[2:])
+    elif sys.argv[1] == "--train-cli":
+        train_cli_main(sys.argv[2:])
     else:
         main(*sys.argv[1:3])

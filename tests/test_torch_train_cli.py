@@ -2,7 +2,8 @@
 against `scripts/train.py`'s, a run of the low-resource recipe
 (`configs/training/lora_low_resource.py`: fp8-stored weights, component
 offload, AdamW8bit) from a tiny checkpoint written by
-`save_pipeline_params` on npz clips, its resume, and the mesh refusal.
+`save_pipeline_params` on npz clips, its resume, and the refusal of a mesh
+that the world does not hold.
 """
 
 import importlib.util
@@ -55,7 +56,10 @@ def test_config_and_overrides_match_scripts_train(path):
 
 
 def test_mesh_over_devices_is_refused_before_reading(tmp_path):
-    with pytest.raises(SystemExit, match="A7"):
+    """The recipe's fsdp 2 x cp 4 mesh in a world of one process: refused,
+    with torchrun's hint, before the (absent) checkpoint is read."""
+    with pytest.raises(ValueError, match="needs a world of 8 processes, this one has 1 "
+                                         r"\(launch with torchrun --nproc-per-node 8\)"):
         cli.run([str(REPO / "configs" / "training" / "lora_360p.py"), "--set",
                  f"pipeline.ckpt_path={tmp_path / 'absent'}", "--device", "cpu"])
 
