@@ -217,7 +217,11 @@ Phases, each of which must pass:
    on a downloaded clip: its JSON's first-frame, temporal and audio
    numbers must be finite. Prints the load, each request's queue wait,
    `inference_time_s`, submit-to-download and download seconds and MB, and
-   each group's prepare, step and decode seconds.
+   each group's prepare, step and decode seconds. Last, phase 27's pair
+   (176x320x49, two PNGs of the same noise) runs in process as one group
+   of 2 through `pipe.generate`, its clips saved with
+   `save_video_with_audio`: the one-process reference of the servers under
+   the mesh.
 21. full fine-tuning: `cli.train.run` with `configs/training/lora_360p.py`
    from phase 17's checkpoint, `--set mesh={} trainer.mode=full` (video_dit,
    video_dit_2, audio_dit and the bridge train in bf16 with AdamW; lr 1e-4
@@ -232,8 +236,8 @@ Phases, each of which must pass:
    whose clip is bit-equal to the same request in process on the trainer's
    modules. Then the first two steps again with
    `trainer.remat_save_attention=true`: the same losses bit for bit (the
-   first step's lr is 0, so both see the checkpoint's weights), grad norms
-   within 1e-2 relative (B2's dQ sums in a varying order), and 8 forward,
+   first step's lr is 0, so both see the checkpoint's weights), the global
+   grad norms within 1e-5 relative and each parameter's within 1e-3, and 8 forward,
    8 fused backward and 8 preprocess launches per micro-step. Last, each of
    the sixteen registry optimizers takes two steps on 8.5 MB of fp32 and
    bf16 parameters on the card and on CPU copies: finite, the updates'
@@ -290,17 +294,38 @@ Phases, each of which must pass:
    1e-2 relative, the global grad norm within 2e-2, each module's LoRA
    factors within 2e-2 relative L2, every LoRA b nonzero after step 2,
    every value finite; (b) LoRA at `mesh.fsdp=2`, losses and LoRA after each
-   step bit-equal (every backward, here and in its reference, on the split
-   pair, whose dq is deterministic), each rank holding half the block
-   weights; (c) full fine-tuning of video_dit and the bridge at
-   `mesh.fsdp=2` (AdamW, lr 1e-4, the split pair as in (b)): the first
-   step's loss bit-equal, the trained weights within 1e-4 relative L2 after
-   each step, each sharded tensor halved on each rank, rank 0's `step-2/`
-   export equal to the gathered weights, the other rank's optimizer state
-   beside it. Launches per rank and micro-step exactly as derived at
-   `MESH_CALLS`; the two ranks' LoRAs bit-equal; per step and rank the
-   encode, loss+backward and optimizer seconds, the bytes sent and seconds
-   in collectives in the forward and in the backward, the peak.
+   step bit-equal (every backward, here and in its reference, on B2, whose
+   dQ sums in a fixed order), each rank holding half the block weights;
+   (c) full fine-tuning of video_dit and the bridge at `mesh.fsdp=2`
+   (AdamW, lr 1e-4): the first step's loss bit-equal, the trained weights
+   within 1e-4 relative L2 after each step, each sharded tensor halved on
+   each rank, rank 0's `step-2/` export equal to the gathered weights, the
+   other rank's optimizer state beside it. Launches per rank and
+   micro-step exactly as derived at `MESH_CALLS` (B2 and the preprocess
+   once per backward, the split pair never); the two ranks' LoRAs
+   bit-equal; per step and rank the encode, loss+backward and optimizer
+   seconds, the bytes sent and seconds in collectives in the forward and
+   in the backward, the peak.
+26. B2's dQ order (run after phase 6): the fused backward three times on
+   the same inputs, with an LSE cotangent, at video self (40 x 11,440^2), a
+   masked shape (B 2, 40 heads, 11,440 x 1,024, kv_len [1024, 403]) and the
+   403-query v2a shape (12 x 403 x 11,440): dq, dk and dv bit-equal across
+   the runs, each within 2e-2 relative L2 of the plain version on two
+   heads, masked keys' dk and dv exactly 0; B2's time at video self (phase
+   6's) within 36.4 ms.
+27. serving under a mesh (in the world of phases 24 and 25): phase 17's
+   checkpoint through `cli.serve.build_server` with phase 20's flags at
+   `--cp_size 2` and at `--fsdp_size 2`, rank 0 serving over HTTP on
+   127.0.0.1 while rank 1 follows its groups (`serving.server.MeshControl`):
+   phase 20's in-process pair (176x320x49) submitted together must run as
+   one group; the downloads at fsdp 2 byte-equal to phase 20's saved
+   clips, at cp 2 within 2e-2 relative L2 (video and audio, decoded) of
+   them; B1's launches per
+   rank and group as derived (`MESH_SERVE_LAUNCHES`); the server's stop
+   returns the follower after exactly one group. Then phase 17's base
+   request at 49 frames through the CLI at `--fsdp_size 2` with
+   `--quantize int8` and `--quantize int4` at 2 steps: each bit-equal to
+   the same request in one process, 32 B1 launches per rank.
 
 Every phase prints its wall time, and a summary line before the kernels
 lists every phase's seconds and the script's. The run sets
@@ -1077,6 +1102,67 @@ def phase_backward_kernels():
     return rows, max_abs
 
 
+# phase 26: B2 three times on the same inputs at (name, B, heads, Sq, Sk, kv_len): video self
+# at 360p training; a masked shape whose kv_len ends mid-tile in one batch and leaves key
+# tiles wholly past it (they take no turn); the 403-query v2a shape
+DETERMINISM_SHAPES = [
+    ("video_self", 1, 40, 11440, 11440, None),
+    ("masked", 2, 40, 11440, 1024, [1024, 403]),
+    ("v2a_403", 1, 12, 403, 11440, None),
+]
+DETERMINISM_RUNS = 3
+# B2 at 40 x 11,440^2 may take 1.10 x run 15e's 33.11 ms with its dQ summed in a fixed order
+B2_MS_LIMIT = 36.4
+
+
+def phase_deterministic_bwd(bwd_rows):
+    """Phase 26: the fused backward (B2) three times on the same inputs at
+    `DETERMINISM_SHAPES`, with an LSE cotangent: dq, dk and dv bit-equal
+    across the runs (each dQ tile's key tiles add in key-tile order), each
+    within 2e-2 relative L2 of the plain version on two heads, masked keys'
+    dk and dv exactly 0; B2's time at video self (phase 6's, measured on
+    these kernels in this run) within `B2_MS_LIMIT`."""
+    import torch
+
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator("cuda").manual_seed(26)
+    for name, b, n, sq, sk, lens in DETERMINISM_SHAPES:
+        q, k, v, do = (_rand(g, b, s, n, HEAD_DIM) for s in (sq, sk, sk, sq))
+        dlse = _rand(g, b, n, sq, dtype=torch.float32)
+        kv_len = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        o, lse = fa.flash_attention_with_lse(q, k, v, kv_len)
+        runs = [fa.flash_attention_bwd_fused(q, k, v, o, lse, do, kv_len, dlse)
+                for _ in range(DETERMINISM_RUNS)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for again in runs[1:] for x, y in zip(runs[0], again))
+        heads = [0, n - 1]
+        want = fa.flash_attention_bwd_plain(
+            *(x[:, :, heads].float() for x in (q, k, v, o)), lse[:, heads],
+            do[:, :, heads].float(), kv_len, dlse[:, heads])
+        errs = {gn: rel_err(got[:, :, heads], w)
+                for gn, got, w in zip(("dq", "dk", "dv"), runs[0], want)}
+        masked = 0 if lens is None else sum(
+            int(torch.count_nonzero(x[i, length:])) for x in runs[0][1:]
+            for i, length in enumerate(lens))
+        log(f"[determinism] flash_bwd {name} B={b} N={n} Sq={sq} Sk={sk} kv_len={lens} with "
+            f"dlse: {DETERMINISM_RUNS} runs bit-equal {same}; "
+            + " ".join(f"{gn}_rel_err={e:.3e}" for gn, e in errs.items())
+            + f" (limit {GRAD_REL_TOL}); nonzero masked dk/dv {masked}")
+        if not same or masked or any(e > GRAD_REL_TOL for e in errs.values()):
+            raise AssertionError(f"B2 at {name}: bit-equal {same}, rel errs {errs}, "
+                                 f"{masked} nonzero masked dk/dv")
+        del q, k, v, do, dlse, o, lse, runs, want
+        torch.cuda.empty_cache()
+    row = bwd_rows[0]
+    log(f"[determinism] flash_bwd video_self 40 x 11440^2: {row['bwd_ms']:.4f} ms (limit "
+        f"{B2_MS_LIMIT}; bound {row['bwd_bound_ms']:.4f}, SDPA backward "
+        f"{row['bwd_library_ms']:.4f}; timed in phase 6)")
+    if row["bwd_ms"] > B2_MS_LIMIT:
+        raise AssertionError(f"B2 at video self takes {row['bwd_ms']:.4f} ms, over "
+                             f"{B2_MS_LIMIT}")
+
+
 def _train_tables(cfg):
     from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
     from dualforce_tpu_torch.diffusion.training import build_train_tables
@@ -1647,17 +1733,17 @@ def phase_720p_backward_kernels():
                 reps=3, warmup=1)
         fused_note, fused_ms = "", None
         if split:    # the fused kernel on the same inputs: its time and its gap to the split's
-            fused = fa.flash_attention_bwd_fused(q, k, v, o, lse, do)
-            torch.cuda.synchronize()
+            kept = []
+            # not the route here: at the long shapes one call (8.2 s at video self), timed
+            # and checked
+            fused_ms = time_long_ms(lambda: kept.append(fa.flash_attention_bwd_fused(
+                q, k, v, o, lse, do)), reps=1, warmup=0)
+            fused = kept[0]
             gap = {gn: rel_err(a, b.float()) for gn, a, b in zip(("dq", "dk", "dv"), grads,
                                                                   fused)}
             equal_kv = bool(torch.equal(grads[1], fused[1]) and torch.equal(grads[2], fused[2]))
-            del fused
-            if long:     # not the route here: one call (8.2 s at video self)
-                fused_ms = time_long_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse,
-                                                                             do), reps=1,
-                                        warmup=0)
-            else:
+            del fused, kept
+            if not long:
                 fused_ms, _ = time_ms(lambda: fa.flash_attention_bwd_fused(q, k, v, o, lse, do),
                                       reps=7, warmup=2)
             fused_note = (f" fused_ms={fused_ms:.4f} (the fused kernel on the same inputs; "
@@ -3139,10 +3225,28 @@ SERVE_FLAGS = ["--weight_dtype", "fp8", "--cfg_cache_interval", "3", "--max_batc
                "--warmup", "640x352x193x4"]
 SERVE_CACHE_INTERVAL = 3
 SERVE_SHORT_FRAMES = 49
+# phase 27's pair, 176x320 at 49 frames (2,860 video tokens): served under the mesh, where each
+# of two ranks on the one card prepares and decodes it whole (a pair at 352x640 peaked at 56.7
+# GB in one process on an NVIDIA H100 80GB HBM3 at 700 W); phase 20 runs it in process as the
+# one-process reference
+MESH_PAIR_FRAMES = SERVE_SHORT_FRAMES
+MESH_PAIR_SIZE = (176, 320)
 SERVE_CALLS = {193: 2 * 6 + 1 * 2, SERVE_SHORT_FRAMES: 2 * 3 + 1 * 2}
 # the workflow's LLM providers read these; unset, the full workflow runs its offline fallbacks
 PROVIDER_ENV = ("GEMINI_API_KEY", "DASHSCOPE_API_KEY", "DUALFORCE_LLM_API_BASE",
                 "DUALFORCE_LLM_API_KEY", "DUALFORCE_IMAGE_API_BASE", "DUALFORCE_IMAGE_API_KEY")
+
+
+def _serve_passes(cfg):
+    """(the expert boundary's step, forward passes) of a served request under
+    phase 20's flags (`cfg_passes`), for the model config `cfg`."""
+    from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
+    from dualforce_tpu_torch.diffusion.sampler import build_plan
+
+    sched = FlowMatchPairScheduler(cfg.scheduler)
+    sched.set_timesteps(REQUEST["num_inference_steps"], shift=REQUEST["sigma_shift"])
+    boundary = build_plan(sched, cfg.boundary_ratio).boundary_step
+    return boundary, cfg_passes(REQUEST["num_inference_steps"], boundary, SERVE_CACHE_INTERVAL)
 
 
 def cfg_passes(steps: int, boundary: int, interval: int) -> int:
@@ -3171,8 +3275,6 @@ def phase_serve_http(ckpt: str, root: str):
 
     from dualforce_tpu_torch.cli import serve as serve_cli
     from dualforce_tpu_torch.data.transforms import crop_and_resize, image_to_tensor
-    from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
-    from dualforce_tpu_torch.diffusion.sampler import build_plan
     from dualforce_tpu_torch.ops import sage_attention as sa
     from dualforce_tpu_torch.ops.flash_attention import flash_attention
     from dualforce_tpu_torch.serving.client import VideoClient
@@ -3194,10 +3296,7 @@ def phase_serve_http(ckpt: str, root: str):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     pipe = server.pipe
-    sched = FlowMatchPairScheduler(pipe.cfg.scheduler)
-    sched.set_timesteps(REQUEST["num_inference_steps"], shift=REQUEST["sigma_shift"])
-    boundary = build_plan(sched, pipe.cfg.boundary_ratio).boundary_step
-    passes = cfg_passes(REQUEST["num_inference_steps"], boundary, SERVE_CACHE_INTERVAL)
+    boundary, passes = _serve_passes(pipe.cfg)
     want_launches = {f: calls * passes for f, calls in SERVE_CALLS.items()}
     log(f"[serve] build_server (checkpoint load in fp8, pipeline, warmup, server, UI) "
         f"{load_s:.2f} s; boundary_step={boundary}: {passes} passes per request under "
@@ -3247,21 +3346,21 @@ def phase_serve_http(ckpt: str, root: str):
     rng = np.random.default_rng(0)
     h, w = REQUEST["height"], REQUEST["width"]
 
-    def png():
+    def png(size=(h, w)):
         buf = io.BytesIO()
-        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, "PNG")
+        Image.fromarray(rng.integers(0, 256, (*size, 3), dtype=np.uint8)).save(buf, "PNG")
         return buf.getvalue()
 
     negative = "blurry, low quality, distorted audio"
-    common = dict(size=f"{w}x{h}", fps=REQUEST["video_fps"],
-                  guidance_scale=REQUEST["cfg_scale"],
+    common = dict(fps=REQUEST["video_fps"], guidance_scale=REQUEST["cfg_scale"],
                   num_inference_steps=REQUEST["num_inference_steps"], negative_prompt=negative)
     requests = {}
 
     def submit(client, name, prompt, seed, image, frames):
-        requests[name] = dict(prompt=prompt, seed=seed, image=image, frames=frames,
-                              t0=time.perf_counter(), negative=negative)
-        task = client.submit_video_task(prompt, image, num_frames=frames, seed=seed, **common)
+        requests[name] = dict(prompt=prompt, seed=seed, image=image, frames=frames, height=h,
+                              width=w, t0=time.perf_counter(), negative=negative)
+        task = client.submit_video_task(prompt, image, num_frames=frames, seed=seed,
+                                        size=f"{w}x{h}", **common)
         requests[name]["id"] = task.task_id
         return task
 
@@ -3328,7 +3427,7 @@ def phase_serve_http(ckpt: str, root: str):
                                     timeout=60) as r:
             frame_png = r.read()
         requests["f"] = dict(prompt=full["rewritten_prompt"], seed=5, image=frame_png,
-                             frames=SERVE_SHORT_FRAMES, t0=t0, negative="",
+                             frames=SERVE_SHORT_FRAMES, height=h, width=w, t0=t0, negative="",
                              id=full["task_id"])
         download(client, "f", client.wait_for_completion(full["task_id"], 0.1, 600))
         with urllib.request.urlopen(f"{base}/workflow/tasks/{full['task_id']}",
@@ -3401,13 +3500,14 @@ def phase_serve_http(ckpt: str, root: str):
     # every downloaded clip against its group run again in process, saved the same way
     for names in (["a", "b"], ["e"], ["f"]):
         rs = [requests[n] for n in names]
+        hh, ww = rs[0]["height"], rs[0]["width"]
         images = [image_to_tensor(crop_and_resize(Image.open(io.BytesIO(r["image"]))
-                                                  .convert("RGB"), h, w)) for r in rs]
+                                                  .convert("RGB"), hh, ww)) for r in rs]
         t0 = time.perf_counter()
         with torch.no_grad():
             results = pipe.generate(
                 [r["prompt"] for r in rs], images, negative_prompts=[r["negative"] for r in rs],
-                seeds=[r["seed"] for r in rs], height=h, width=w, num_frames=rs[0]["frames"],
+                seeds=[r["seed"] for r in rs], height=hh, width=ww, num_frames=rs[0]["frames"],
                 video_fps=REQUEST["video_fps"],
                 num_inference_steps=REQUEST["num_inference_steps"],
                 cfg_scale=REQUEST["cfg_scale"], cfg_scale_bridge=0.0,
@@ -3415,7 +3515,7 @@ def phase_serve_http(ckpt: str, root: str):
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         for n, r, res in zip(names, rs, results):
-            _check_result(res, dict(REQUEST, num_frames=r["frames"]))
+            _check_result(res, dict(REQUEST, num_frames=r["frames"], height=hh, width=ww))
             path = save_video_with_audio(os.path.join(root, "serve_in_process", f"{n}.mp4"),
                                          res.video, res.audio, fps=res.fps,
                                          sample_rate=res.sample_rate)
@@ -3447,10 +3547,39 @@ def phase_serve_http(ckpt: str, root: str):
     if not all(math.isfinite(v) for v in numbers.values()):
         raise AssertionError(f"the eval CLI's numbers are not finite: {numbers}")
     log(f"[serve] from build_server to the last download {serve_wall:.1f} s")
+
+    # phase 27's pair in process, one group of 2 with a and b's prompts and seeds, its clips
+    # saved as the backend saves them (which the served groups above show byte for byte)
+    mh, mw = MESH_PAIR_SIZE
+    pair = dict(prompt=[requests[n]["prompt"] for n in ("a", "b")], seed=[0, 1],
+                negative=[negative] * 2, image=[png(MESH_PAIR_SIZE) for _ in range(2)],
+                frames=MESH_PAIR_FRAMES, height=mh, width=mw)
+    images = [image_to_tensor(crop_and_resize(Image.open(io.BytesIO(b)).convert("RGB"), mh, mw))
+              for b in pair["image"]]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        results = pipe.generate(
+            pair["prompt"], images, negative_prompts=pair["negative"], seeds=pair["seed"],
+            height=mh, width=mw, num_frames=MESH_PAIR_FRAMES, video_fps=REQUEST["video_fps"],
+            num_inference_steps=REQUEST["num_inference_steps"], cfg_scale=REQUEST["cfg_scale"],
+            cfg_scale_bridge=0.0, cfg_cache_interval=SERVE_CACHE_INTERVAL)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    pair.update(clips=[], results=[])
+    for i, res in enumerate(results):
+        _check_result(res, dict(REQUEST, num_frames=MESH_PAIR_FRAMES, height=mh, width=mw))
+        path = save_video_with_audio(os.path.join(root, "serve_in_process", f"mesh{i}.mp4"),
+                                     res.video, res.audio, fps=res.fps,
+                                     sample_rate=res.sample_rate)
+        with open(path, "rb") as f:
+            pair["clips"].append(f.read())
+        pair["results"].append((res.video, res.audio))
+    log(f"[serve] phase 27's pair ({mw}x{mh}, {MESH_PAIR_FRAMES} frames) in process as one "
+        f"group of 2: {gen_s:.2f} s")
     # the server's worker thread (a daemon, as the JAX package's) keeps the server and
     # its pipeline alive after the phase: its modules leave the card here
     pipe.modules.clear()
-    return {"launches": launches}
+    return {"launches": launches, "pair": pair}
 
 
 # phase 21: full fine-tuning through the training CLI (configs/training/lora_360p.py on one
@@ -3465,10 +3594,9 @@ FULL_FT_SETS = ["mesh={}", "trainer.mode=full", "trainer.warmup_steps=1",
                 "trainer.log_interval=1", "trainer.save_interval=1000", "data.num_workers=1"]
 FULL_FT_LAUNCHES = {False: (2 * TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS),
                     True: (TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS, TRAIN_FLASH_CALLS)}
-# B2's dQ sums over key tiles in an order that varies between runs, so two runs' grads
-# differ in their last bits: the global grad norms within the first relative gap, each
-# parameter's gradient norm within the second (the largest gaps read on an H100: global
-# 2.3e-6, per parameter 3.1e-4)
+# the two runs' global grad norms within the first relative gap, each parameter's gradient
+# norm within the second (the largest gaps read on an H100 while B2 summed dQ in an order
+# that varied between runs: global 2.3e-6, per parameter 3.1e-4; B2's order is fixed now)
 FULL_FT_NORM_REL_TOL = 1e-5
 FULL_FT_LEAF_REL_TOL = 1e-3
 # one AdamW step from fresh moments on a repeated batch (timestep and noise pinned) of
@@ -3915,6 +4043,16 @@ def _sp_inputs(b, s, n, seed, device="cuda"):
 
 
 SP_RUNS = (("cp2", ["--cp_size", str(SP_CP)]), ("fsdp2", ["--fsdp_size", "2"]))
+# phase 27's quantized requests at fsdp 2, phase 17's base request at 49 frames and 2 steps
+# (CFG 5, no cache: 4 passes of 2 x 3 + 1 x 2 = 8 B1 calls, none with the LSE), each against
+# the same request in one process
+MESH_Q_FRAMES = 49
+MESH_Q_STEPS = 2
+MESH_Q_RUNS = tuple((f"fsdp2_{mode}", ["--fsdp_size", "2", "--quantize", mode, "--num_frames",
+                                      str(MESH_Q_FRAMES), "--num_inference_steps",
+                                      str(MESH_Q_STEPS)]) for mode in ("int8", "int4"))
+MESH_Q_LAUNCHES = {"lse": 0, "nolse": (2 * 3 + 1 * 2) * 2 * MESH_Q_STEPS}
+MESH_Q_REFERENCE_LAUNCHES = len(MESH_Q_RUNS) * sum(MESH_Q_LAUNCHES.values())
 
 
 def _sp_count_launches(fa):
@@ -4060,7 +4198,7 @@ def _sp_serve(out: str, argv, runs) -> dict:
     MOVAPipeline.denoise_state = denoise
     image = np.load(os.path.join(out, "first_frame.npy"))
     try:
-        for name, flags in SP_RUNS:
+        for name, flags in SP_RUNS + MESH_Q_RUNS:
             if name not in runs:
                 continue
             report = reports[name] = {"steps": [], "blocks_rel": None, "extra": 0}
@@ -4287,25 +4425,40 @@ def _lora_snapshot(store):
     return snap
 
 
-def _cached_loads():
-    """`load_pipeline_params` served from this process's first load for the
-    runs after it (the checkpoint is read once); returns the restore."""
-    from dualforce_tpu_torch.convert import load_checkpoint as lc
+# {weight dtype: modules} that `_cached_loads` serves
+_LOAD_CACHE = {}
 
-    cache = {}
+
+def _drop_load(dtype: str) -> None:
+    """Let the cached load of `dtype` go, and its memory on the card."""
+    import gc
+
+    import torch
+
+    _LOAD_CACHE.pop(dtype, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cached_loads():
+    """`load_pipeline_params` served from this process's first load of each
+    weight dtype for the runs after it (the checkpoint is read once a
+    dtype); returns the restore."""
+    from dualforce_tpu_torch.convert import load_checkpoint as lc
 
     def load(real):
         def run(*args, **kwargs):
-            if "modules" not in cache:
-                cache["modules"] = real(*args, **kwargs)
-            return cache["modules"]
+            key = str(kwargs["dtype"])
+            if key not in _LOAD_CACHE:
+                _LOAD_CACHE[key] = real(*args, **kwargs)
+            return _LOAD_CACHE[key]
         return run
 
     restore = _patch(lc, "load_pipeline_params", load)
 
     def done():
         restore()
-        cache.clear()
+        _LOAD_CACHE.clear()
     return done
 
 
@@ -4331,17 +4484,6 @@ def _cached_encodes():
         restore()
         cache.clear()
     return done
-
-
-def _force_split(on: bool):
-    """Route every backward to the split pair (B3: a deterministic dq pass)
-    while `on`; returns the restore."""
-    from dualforce_tpu_torch.ops import flash_attention as fa
-
-    real = fa.bwd_takes_split
-    if on:
-        fa.bwd_takes_split = lambda sq, d=HEAD_DIM: True
-    return lambda: setattr(fa, "bwd_takes_split", real)
 
 
 def _mesh_rel(a: dict, b: dict) -> float:
@@ -4394,9 +4536,9 @@ def _ft_snapshot(out: str, store=None):
 
 def _mesh_train_runs(out: str, ckpt: str, meta: str, sets, runs, rank: int) -> dict:
     """Phase 25's `MESH_RUNS` of `runs` in one rank of the world, through
-    `cli.train.run` (fsdp 2 with every backward routed to the deterministic
-    split pair, as its one-process references run): each micro-step's
-    record and launches, the LoRA after each step (each rank writes its
+    `cli.train.run` (each backward on its natural route, B2 at these
+    lengths, as in the one-process references): each micro-step's record
+    and launches, the LoRA after each step (each rank writes its
     own), full fine-tuning's weights held against the one-process run's
     after each step, its shards' share, and rank 0's export read back: each
     rank holds its shards against the export's slices of them."""
@@ -4416,13 +4558,9 @@ def _mesh_train_runs(out: str, ckpt: str, meta: str, sets, runs, rank: int) -> d
         save_dir = os.path.join(out, f"{name}_ckpt")
         loras, ft = {}, {}
         snap = _ft_snapshot(out, ft) if name == "fullft" else _lora_snapshot(loras)
-        restore = _force_split(name != "cp2")
         pm.TRANSFER.update(bytes=0, seconds=0.0, calls=0)
         t0 = time.perf_counter()
-        try:
-            trainer, records = _mesh_train(_mesh_argv(ckpt, meta, save_dir, sets, extra), snap)
-        finally:
-            restore()
+        trainer, records = _mesh_train(_mesh_argv(ckpt, meta, save_dir, sets, extra), snap)
         rep = reports[f"train_{name}"] = {
             "run_s": time.perf_counter() - t0, "steps": records,
             "transfer": dict(pm.TRANSFER), "ft_rel": ft,
@@ -4458,13 +4596,131 @@ def _mesh_train_runs(out: str, ckpt: str, meta: str, sets, runs, rank: int) -> d
     return reports
 
 
+# phase 27: the server under a mesh, phase 20's flags and in-process pair (176x320x49, 4 steps,
+# the CFG negative pass cached every 3 steps: `cfg_passes` passes a group). Per pass and
+# rank: at cp 2 the video self ring's 2 steps in each of the 3 video layers with the LSE, the
+# text cross in each video layer and a2v in each shared layer without it (the v2a combine's
+# 104 audio queries take the plain inner); at fsdp 2 one process's 8 calls, without it
+MESH_SERVE_RUNS = (("cp2", ["--cp_size", str(SP_CP)]), ("fsdp2", ["--fsdp_size", "2"]))
+
+
+def mesh_serve_launches(passes: int) -> dict:
+    return {"cp2": {"lse": 3 * SP_CP * passes, "nolse": (3 + 2) * passes},
+            "fsdp2": {"lse": 0, "nolse": SERVE_CALLS[MESH_PAIR_FRAMES] * passes}}
+
+
+def _mesh_serve(out: str, ckpt: str, name: str) -> dict:
+    """Phase 27 in one rank: `cli.serve.build_server` with phase 20's flags
+    under `MESH_SERVE_RUNS[name]`. Rank 0 serves over HTTP on 127.0.0.1 and
+    submits phase 20's pair (`pair.json` and its PNGs in `out`) together,
+    downloads both clips into `out` and stops the server; the other rank
+    follows until the stop. B1's launches counted from the build to the
+    stop."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.cli import serve as serve_cli
+    from dualforce_tpu_torch.ops import flash_attention as fa
+    from dualforce_tpu_torch.parallel import mesh as pm
+    from dualforce_tpu_torch.serving.client import VideoClient
+    from dualforce_tpu_torch.serving.server import serve_in_thread
+    from dualforce_tpu_torch.utils.av_io import save_video_with_audio
+
+    with open(os.path.join(out, "pair.json")) as f:
+        pair = json.load(f)
+    launch = fa._launch_fwd
+    counts, counting = _sp_count_launches(fa)
+    pm.TRANSFER.update(bytes=0, seconds=0.0, calls=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        args = serve_cli.parse_args(["--ckpt_path", ckpt, "--host", "127.0.0.1", "--out_dir",
+                                     os.path.join(out, f"serve_{name}")]
+                                    + SERVE_FLAGS + dict(MESH_SERVE_RUNS)[name])
+        server = serve_cli.build_server(args, tokenizer=ByteTokenizer())
+        rep = {"build_s": time.perf_counter() - t0}
+        pipe = server.pipe
+        if not hasattr(server, "app"):                 # a follower, until rank 0 stops
+            rep["groups"] = server.follow()
+        else:
+            groups, results, real = [], [], server.batch_backend
+            finalize = pipe.finalize_state
+
+            def spy(tasks, out_dir, progress=None):
+                groups.append(len(tasks))
+                return real(tasks, out_dir, progress=progress)
+
+            def kept(state):           # the group's results, as the backend writes them
+                res = finalize(state)
+                results.extend(res)
+                return res
+
+            server.batch_backend, pipe.finalize_state = spy, kept
+            server.batch_window_s = 60.0        # closes once the second request is in
+            base, stop = serve_in_thread(server.app)
+            try:
+                client = VideoClient(base, timeout=120)
+                common = dict(size=f"{pair['width']}x{pair['height']}",
+                              num_frames=pair["frames"], fps=REQUEST["video_fps"],
+                              guidance_scale=REQUEST["cfg_scale"],
+                              num_inference_steps=REQUEST["num_inference_steps"])
+                tasks = []
+                for i in range(2):
+                    with open(os.path.join(out, f"pair{i}.png"), "rb") as f:
+                        tasks.append(client.submit_video_task(
+                            pair["prompt"][i], f.read(), seed=pair["seed"][i],
+                            negative_prompt=pair["negative"][i], **common))
+                done = [client.wait_for_completion(t.task_id, 0.1, 900) for t in tasks]
+                same = []
+                for i, t in enumerate(done):
+                    if t.status != "completed":
+                        raise AssertionError(f"phase 27 {name}: request {i} {t.status}: "
+                                             f"{t.error}")
+                    ext = os.path.splitext(t.file_path)[1]
+                    dest = os.path.join(out, f"serve_{name}_{i}{ext}")
+                    client.download(dataclasses.replace(t, file_path=None), dest)
+                    r = results[i]
+                    saved = save_video_with_audio(os.path.join(out, f"saved_{name}_{i}.mp4"),
+                                                  r.video, r.audio, fps=r.fps,
+                                                  sample_rate=r.sample_rate)
+                    with open(dest, "rb") as f, open(saved, "rb") as g:
+                        same.append(f.read() == g.read())
+                np.savez(os.path.join(out, f"serve_{name}_results.npz"),
+                         **{f"{k}{i}": getattr(r, k) for i, r in enumerate(results)
+                            for k in ("video", "audio")})
+                rep.update(groups=groups, clips=[f"serve_{name}_{i}{ext}" for i in range(2)],
+                           downloads_are_results=same,
+                           inference_s=[t.inference_time_s for t in done])
+            finally:
+                stop()
+                server.stop()
+        rep.update(run_s=time.perf_counter() - t0, launches=dict(counts),
+                   transfer=dict(pm.TRANSFER), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        fa._launch_fwd = launch
+        counting["on"] = False
+    # the server's worker thread (a daemon) keeps its pipeline: its modules go here (the
+    # dict is the cached load's, which the next run reads)
+    pipe.modules = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
 def mesh_worker(argv) -> int:
     """`chip_smoke.py --mesh-worker OUT CKPT META SETS... -- CLI-ARGS...`,
-    one rank under torchrun, the world of phases 24 and 25: the SP
-    primitives, then with the checkpoint read once (and each training
-    batch encoded once) phase 24's request at cp 2, phase 25's LoRA at cp 2,
-    phase 24's request at fsdp 2 (which shards the modules in place), phase
-    25's LoRA and full fine-tuning at fsdp 2 (last: it trains the weights).
+    one rank under torchrun, the world of phases 24, 25 and 27: the SP
+    primitives, then with the checkpoint read once a weight dtype (and each
+    training batch encoded once) phase 27's servers at cp 2 and fsdp 2 on
+    the fp8 load alone (each rank decodes the pair whole: the bf16 load
+    beside it would not fit two ranks on one card), phase 24's request at
+    cp 2, phase 25's LoRA at cp 2, phase 24's request at fsdp 2 (which
+    shards the modules in place), phase 27's quantized requests at fsdp 2,
+    phase 25's LoRA and full fine-tuning at fsdp 2 (last: it trains the
+    weights).
     SETS: `MESH_SETS` as the caller has them; CLI-ARGS: phase 17's request."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -4481,9 +4737,13 @@ def mesh_worker(argv) -> int:
     torch.cuda.empty_cache()
     restores = [_cached_loads(), _cached_encodes()]
     try:
+        for name, _ in MESH_SERVE_RUNS:
+            reports[f"serve_{name}"] = _mesh_serve(out, ckpt, name)
+        _drop_load(str(torch.float8_e4m3fn))
         reports.update(_sp_serve(out, cli_args, ["cp2"]))
         reports.update(_mesh_train_runs(out, ckpt, meta, sets, ["cp2"], rank))
         reports.update(_sp_serve(out, cli_args, ["fsdp2"]))
+        reports.update(_sp_serve(out, cli_args, [name for name, _ in MESH_Q_RUNS]))
         reports.update(_mesh_train_runs(out, ckpt, meta, sets, ["fsdp2", "fullft"], rank))
     finally:
         for restore in restores:
@@ -4492,6 +4752,103 @@ def mesh_worker(argv) -> int:
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(reports, f)
     return 0
+
+
+def _quantized_references(out: str, ckpt: dict) -> None:
+    """Phase 27's quantized requests in this process (`MESH_Q_RUNS` without
+    the mesh flag): each result saved beside the world's."""
+    import numpy as np
+
+    from dualforce_tpu_torch.cli import inference_single as cli
+    from dualforce_tpu_torch.ops.flash_attention import flash_attention
+
+    image = np.load(os.path.join(out, "first_frame.npy"))
+    for name, flags in MESH_Q_RUNS:
+        before = flash_attention.launches
+        args = cli.parse_args(["--ckpt_path", ckpt["ckpt"]] + ckpt["request"]
+                              + flags[2:] + ["--output", os.path.join(out, f"one_{name}.mp4")])
+        res, pipe = cli.run(args, tokenizer=ByteTokenizer(), image=image)
+        launched = flash_attention.launches - before
+        np.savez(os.path.join(out, f"one_{name}.npz"), video=res.video, audio=res.audio)
+        log(f"[mesh] (27) {' '.join(flags[2:4])} request at {MESH_Q_FRAMES} frames and "
+            f"{MESH_Q_STEPS} steps in one process: {launched} B1 launches")
+        if launched != sum(MESH_Q_LAUNCHES.values()):
+            raise AssertionError(f"{name} in one process: {launched} launches")
+        del res, pipe
+
+
+def _check_mesh_serve(reps, out: str, pair: dict, passes: int, tag: str) -> dict:
+    """Phase 27's checks on the world's reports: the served pair at fsdp 2
+    byte-equal to phase 20's in-process clips, at cp 2 within `SP_CLI_REL_TOL` of
+    them (decoded), one group of two, the follower back after it, launches
+    per rank as derived; the quantized requests bit-equal to one process.
+    Returns the B1 launches of each run, summed over both ranks."""
+    import numpy as np
+    import torch
+
+    want_launches = mesh_serve_launches(passes)
+    launches = {}
+    for name, _ in MESH_SERVE_RUNS:
+        lead, follower = reps[0][f"serve_{name}"], reps[1][f"serve_{name}"]
+        for r, rep in enumerate((lead, follower)):
+            log(f"[mesh] (27) server at {name}, rank {r}: build {rep['build_s']:.2f} s, run "
+                f"{rep['run_s']:.2f} s; sent {rep['transfer']['bytes'] / 1e9:.3f} GB in "
+                f"{rep['transfer']['seconds']:.2f} s; B1 launches {rep['launches']} "
+                f"(predicted {want_launches[name]}); peak {rep['peak_gib']:.2f} GiB; {tag}")
+            if rep["launches"] != want_launches[name]:
+                raise AssertionError(f"server at {name}, rank {r}: launches "
+                                     f"{rep['launches']}, expected {want_launches[name]}")
+        if lead["groups"] != [2] or follower["groups"] != 1:
+            raise AssertionError(f"server at {name}: groups {lead['groups']} on rank 0, "
+                                 f"{follower['groups']} followed on rank 1")
+        if not all(lead["downloads_are_results"]):
+            raise AssertionError(f"server at {name}: a download is not its result's clip")
+        raw = np.load(os.path.join(out, f"serve_{name}_results.npz"))
+        gaps = []
+        for i, (wv, wa) in enumerate(pair["results"]):
+            with open(os.path.join(out, lead["clips"][i]), "rb") as f:
+                same = f.read() == pair["clips"][i]
+            gv, ga = raw[f"video{i}"], raw[f"audio{i}"]
+            _check_result(types.SimpleNamespace(video=gv, audio=ga),
+                          dict(REQUEST, num_frames=pair["frames"], height=pair["height"],
+                               width=pair["width"]))
+            gaps.append((same, rel_err(torch.from_numpy(gv.astype(np.float32)),
+                                       torch.from_numpy(wv.astype(np.float32))),
+                         rel_err(torch.from_numpy(ga), torch.from_numpy(wa))))
+        log(f"[mesh] (27) server at {name}: the pair as one group in "
+            f"{', '.join(f'{s:.2f}' for s in lead['inference_s'])} s; each download the clip "
+            f"of its result; against phase 20's group: " + "; ".join(
+                f"download byte-equal {s}, video rel L2 {v:.3e}, audio {a:.3e}"
+                for s, v, a in gaps)
+            + f" (limit {SP_CLI_REL_TOL}); the follower returned at the stop after one group; "
+            f"{tag}")
+        if name == "fsdp2" and not all(g[0] and g[1] == 0 and g[2] == 0 for g in gaps):
+            raise AssertionError("server at fsdp 2: not bit-equal to phase 20's group")
+        if max(max(g[1], g[2]) for g in gaps) > SP_CLI_REL_TOL:
+            raise AssertionError(f"server at {name}: off phase 20's group: {gaps}")
+        launches[f"serve_{name}"] = sum(sum(x[f"serve_{name}"]["launches"].values())
+                                        for x in reps)
+    for name, _ in MESH_Q_RUNS:
+        got = np.load(os.path.join(out, f"{name}_result.npz"))
+        want = np.load(os.path.join(out, f"one_{name}.npz"))
+        _check_result(types.SimpleNamespace(video=got["video"], audio=got["audio"]),
+                      dict(REQUEST, num_frames=MESH_Q_FRAMES,
+                           num_inference_steps=MESH_Q_STEPS))
+        same = (np.array_equal(got["video"], want["video"])
+                and np.array_equal(got["audio"], want["audio"]))
+        for r, rep in enumerate(x[name] for x in reps):
+            log(f"[mesh] (27) {name} rank {r}: run (load, quantize, generate) "
+                f"{rep['run_s']:.2f} s; steps " + ", ".join(f"{st['s']:.2f} s"
+                                                            for st in rep["steps"])
+                + f"; sent {rep['transfer']['bytes'] / 1e9:.3f} GB; B1 launches "
+                f"{rep['launches']}; block bytes {rep['block_bytes'] / 1e9:.3f} GB; {tag}")
+            if rep["launches"] != MESH_Q_LAUNCHES:
+                raise AssertionError(f"{name} rank {r}: launches {rep['launches']}")
+        log(f"[mesh] (27) {name}: bit-equal to the same request in one process {same}")
+        if not same:
+            raise AssertionError(f"{name}: not bit-equal to one process")
+        launches[name] = sum(sum(x[name]["launches"].values()) for x in reps)
+    return launches
 
 
 def _mesh_world(out: str, ckpt: dict, meta: str):
@@ -4508,10 +4865,14 @@ def _mesh_world(out: str, ckpt: dict, meta: str):
            "--mesh-worker", out, ckpt["ckpt"], meta] + MESH_SETS + [
                "--", "--ckpt_path", ckpt["ckpt"]] + ckpt["request"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
-                          cwd=os.path.dirname(script))
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
+                              cwd=os.path.dirname(script))
+    except subprocess.TimeoutExpired as e:     # what the world said before it was stopped
+        raise AssertionError(f"the two-process world did not end in {MESH_TIMEOUT_S} s:\n"
+                             f"{(e.stdout or b'')[-3000:]}\n{(e.stderr or b'')[-6000:]}")
     for line in proc.stdout.splitlines():
-        if line.startswith(("[dist]", "[info]", "[timer]", "[trainer]", "[done]")):
+        if line.startswith(("[dist]", "[info]", "[timer]", "[trainer]", "[done]", "[serve]")):
             log(f"  {line}")
     if proc.returncode != 0:
         raise AssertionError(f"the two-process world failed ({proc.returncode}):\n"
@@ -4520,8 +4881,8 @@ def _mesh_world(out: str, ckpt: dict, meta: str):
     for r in range(2):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             reports.append(json.load(f))
-    log(f"[mesh] the world of two (phases 24 and 25): {time.perf_counter() - t0:.1f} s with "
-        "start-up")
+    log(f"[mesh] the world of two (phases 24, 25 and 27): {time.perf_counter() - t0:.1f} s "
+        "with start-up")
     return reports
 
 
@@ -4543,10 +4904,10 @@ def _mesh_totals(records) -> dict:
             for k in ("flash_fwd", "flash_bwd", "flash_bwd_split", "flash_bwd_preprocess")}
 
 
-def _check_mesh_launches(name: str, records, split: bool = False) -> None:
+def _check_mesh_launches(name: str, records) -> None:
     calls = MESH_CALLS[name]
-    want = {"lse": 2 * calls, "nolse": 0, "flash_bwd": 0 if split else calls,
-            "flash_bwd_split": calls if split else 0, "flash_bwd_preprocess": calls}
+    want = {"lse": 2 * calls, "nolse": 0, "flash_bwd": calls, "flash_bwd_split": 0,
+            "flash_bwd_preprocess": calls}
     for i, st in enumerate(records):
         got = {k: st[k] for k in want}
         if got != want or st["flash_fwd"] != 2 * calls:
@@ -4554,7 +4915,7 @@ def _check_mesh_launches(name: str, records, split: bool = False) -> None:
                                  f"{st['flash_fwd']}), expected {want}")
 
 
-def phase_mesh(first, ckpt: dict, root: str, smi: str):
+def phase_mesh(first, ckpt: dict, root: str, smi: str, pair: dict):
     """Phases 24 and 25 in one world of two processes on the card (gloo:
     NCCL refuses two ranks on one card; its collectives take the CUDA
     tensors, its send/recv page-locked host copies), started once, the
@@ -4564,7 +4925,9 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
     mesh (`cli.train` under torchrun with the 360p recipe from phase 17's
     checkpoint on phase 19's clips: LoRA at cp 2 and at fsdp 2, full
     fine-tuning at fsdp 2), each against the same run in one process here,
-    run first. Returns (phase 24's launches, phase 25's)."""
+    run first; phase 27, the server under the mesh with phase 20's `pair`
+    and quantized requests, in the same world. Returns (phase 24's
+    launches, phase 25's, phase 27's)."""
     import gc
     import shutil
 
@@ -4575,19 +4938,26 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
     out = os.path.join(root, "mesh")
     os.makedirs(out, exist_ok=True)
     np.save(os.path.join(out, "first_frame.npy"), first["image"])
+    with open(os.path.join(out, "pair.json"), "w") as f:
+        json.dump({k: pair[k] for k in ("prompt", "seed", "negative", "frames", "height",
+                                        "width")}, f)
+    for i, image in enumerate(pair["image"]):
+        with open(os.path.join(out, f"pair{i}.png"), "wb") as f:
+            f.write(image)
     meta = os.path.join(root, "clips", "metadata.json")
     if not os.path.isfile(meta):
         meta = _write_clips(os.path.join(root, "clips"))
 
     # (0) the one-process references, the checkpoint read and each batch encoded once,
-    # every backward on the split pair (B3: its dq pass is deterministic, where B2 adds
-    # dQ's tiles in an order that varies between runs), no checkpoint written
+    # every backward on its natural route (B2 at these lengths, its dQ summed in a fixed
+    # order), no checkpoint written; first phase 27's quantized requests
     ref, ref_records, ref_launches = {}, {}, {}
-    restores = [_cached_loads(), _cached_encodes(), _force_split(True),
+    restores = [_cached_loads(), _cached_encodes(),
                 _patch(__import__("dualforce_tpu_torch.engine.trainer",
                                   fromlist=["LoRATrainer"]).LoRATrainer, "save",
                        lambda real: lambda self: None)]
     try:
+        _quantized_references(out, ckpt)
         for name, extra in (("one", ["mesh={}"]), ("one_ft", ["mesh={}"] + MESH_FT_SETS)):
             store = {}
             snap = _ft_snapshot(out) if name == "one_ft" else _lora_snapshot(store)
@@ -4598,7 +4968,7 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
             wall = time.perf_counter() - t0
             for i, st in enumerate(records):
                 log(f"[mesh] ({name}) one process, step {i + 1}: " + _mesh_step_line(tag, st))
-            _check_mesh_launches("one", records, split=True)
+            _check_mesh_launches("one", records)
             log(f"[mesh] ({name}) one process: {wall:.2f} s (load once, clips, 2 steps)")
             ref[name], ref_records[name] = store, records
             ref_launches[name] = _mesh_totals(records)
@@ -4615,6 +4985,10 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
         f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     reps = _mesh_world(out, ckpt, meta)
     sp = _check_sp(reps, ckpt, out)
+    from dualforce_tpu_torch.convert.load_checkpoint import config_from_checkpoint
+
+    served = _check_mesh_serve(reps, out, pair,
+                               _serve_passes(config_from_checkpoint(ckpt["ckpt"]))[1], tag)
     launches = {}
     for name, _ in MESH_RUNS:
         for r, rep in enumerate(x[f"train_{name}"] for x in reps):
@@ -4624,7 +4998,7 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
                 f"{rep['run_s']:.2f} s; sent {rep['transfer']['bytes'] / 1e9:.3f} GB in "
                 f"{rep['transfer']['seconds']:.2f} s over {rep['transfer']['calls']} calls; "
                 f"block weights {rep['block_bytes'] / 1e9:.3f} GB; {tag}")
-            _check_mesh_launches(name, rep["steps"], split=name != "cp2")
+            _check_mesh_launches(name, rep["steps"])
         launches[name] = _mesh_totals([st for x in reps for st in x[f"train_{name}"]["steps"]])
     loras = {name: [torch.load(os.path.join(out, f"{name}_lora.rank{r}.pt"))
                     for r in range(2)] for name in ("cp2", "fsdp2")}
@@ -4633,7 +5007,7 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
                 [lo[s] for s in sorted(lo)] for lo in loras[name]]) for k in a):
             raise AssertionError(f"{name}: the two ranks' LoRAs differ")
 
-    # (a) cp 2 LoRA (B2 with the ring's LSE cotangent) against one process (the split pair)
+    # (a) cp 2 LoRA (B2 with the ring's LSE cotangent) against one process
     one, cp = ref_records["one"], reps[0]["train_cp2"]["steps"]
     for i, (a, b) in enumerate(zip(one, cp)):
         loss_rel = abs(b["loss"] - a["loss"]) / abs(a["loss"])
@@ -4663,11 +5037,11 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
     if not all(moved.values()):
         raise AssertionError(f"cp 2: a LoRA b is still zero after step 2: {moved}")
 
-    # (b) fsdp 2 LoRA, every backward on the split pair, bit-equal to the same in one process
+    # (b) fsdp 2 LoRA, every backward on B2, bit-equal to the same in one process
     for i, (a, b) in enumerate(zip(ref_records["one"], reps[0]["train_fsdp2"]["steps"])):
         same = all(torch.equal(loras["fsdp2"][0][i + 1][k], v)
                    for k, v in ref["one"][i + 1].items())
-        log(f"[mesh] (b) fsdp 2 against one process (both on the split backward), step "
+        log(f"[mesh] (b) fsdp 2 against one process (both on B2, the fused backward), step "
             f"{i + 1}: loss {b['loss']:.9g} / {a['loss']:.9g}, grad norm {b['grad_norm']:.9g} "
             f"/ {a['grad_norm']:.9g}, LoRA bit-equal {same}; {tag}")
         if b["loss"] != a["loss"] or not same:
@@ -4696,7 +5070,7 @@ def phase_mesh(first, ckpt: dict, root: str, smi: str):
                              f"export {ft[0]['export_equal']}, halves "
                              f"{[x['halves'] for x in ft]}, files {ft[0]['files']}")
     shutil.rmtree(out, ignore_errors=True)
-    return sp, {**{f"reference_{k}": v for k, v in ref_launches.items()}, **launches}
+    return sp, {**{f"reference_{k}": v for k, v in ref_launches.items()}, **launches}, served
 
 
 START = time.perf_counter()
@@ -4727,6 +5101,7 @@ def main() -> int:
     timed_phase("small", phase_small_step)
     serve_launches, cfg, modules, first = timed_phase("main", phase_main_path)
     bwd_rows, bwd_max_abs = timed_phase("backward", phase_backward_kernels)
+    timed_phase("determinism", phase_deterministic_bwd, bwd_rows)
     timed_phase("small-backward", phase_small_backward)
     train = timed_phase("train", phase_train_path, cfg, modules, root)
     prec_rows, prec_max_abs = timed_phase("precision-kernels", phase_precision_kernels)
@@ -4774,7 +5149,8 @@ def main() -> int:
         full_ft = timed_phase("fullft", phase_full_ft, first, ckpt["ckpt"], ckpt_root, smi)
         gc.collect()
         torch.cuda.empty_cache()
-        sp, mesh = timed_phase("mesh", phase_mesh, first, ckpt, ckpt_root, smi)
+        sp, mesh, served = timed_phase("mesh", phase_mesh, first, ckpt, ckpt_root, smi,
+                                       serve_http["pair"])
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     lr_l, cli_l = lowres["launches"], train_cli["launches"]
@@ -4796,7 +5172,8 @@ def main() -> int:
                      + sum(group_cli.values()) + lr_l["fwd"]
                      + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]
                      + ft_l["fwd"] + ft_save_l["fwd"] + sp["cp2"] + sp["fsdp2"]
-                     + sum(m["flash_fwd"] for m in mesh.values())),
+                     + sum(m["flash_fwd"] for m in mesh.values()) + sum(served.values())
+                     + MESH_Q_REFERENCE_LAUNCHES),
         "launches_by_path": {"serve": serve_launches, "train": train["fwd"],
                              "serve_sage_int8": prec["sage"]["exact"],
                              "serve_fast_int4": prec["fast"]["exact"],
@@ -4816,7 +5193,9 @@ def main() -> int:
                              "train_full_ft": ft_l["fwd"],
                              "train_full_ft_remat_save": ft_save_l["fwd"],
                              "serve_cp2": sp["cp2"], "serve_fsdp2": sp["fsdp2"],
-                             **{f"train_mesh_{k}": m["flash_fwd"] for k, m in mesh.items()}},
+                             **{f"train_mesh_{k}": m["flash_fwd"] for k, m in mesh.items()},
+                             **{f"mesh_{k}": v for k, v in served.items()},
+                             "mesh_quantized_references": MESH_Q_REFERENCE_LAUNCHES},
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_group_peaks_gib": full["group_peaks_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],

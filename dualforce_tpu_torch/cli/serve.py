@@ -12,6 +12,17 @@ exit with a message that names their ROADMAP item, as the inference CLI's
 do; `--compile_cache` is accepted and unused (the port has no XLA compile).
 Importing this module loads neither the model code, PIL nor transformers, so
 `--help` is quick.
+
+Under a mesh (`--cp_size C --fsdp_size F`, one process per rank):
+
+    torchrun --nproc-per-node 2 -m dualforce_tpu_torch.cli.serve \
+        --ckpt_path CKPT --fsdp_size 2 [--quantize int8]
+
+every rank joins the world, loads the checkpoint, keeps its fsdp shards and
+builds the pipeline over the mesh; rank 0 serves HTTP and the others follow
+its groups (`serving.server.MeshControl`). `--offload` with a mesh exits,
+as the JAX script does. The server's stop (Ctrl-C to rank 0, which the
+followers ignore) ends every rank, each leaving the group and exiting 0.
 """
 
 from __future__ import annotations
@@ -31,11 +42,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--out_dir", type=str, default="./server_outputs")
     ap.add_argument("--cp_size", type=int, default=1,
-                    help="sequence parallelism: not ported in the server yet (ROADMAP "
-                         "A7c), 1 only")
+                    help="sequence parallelism: token sequences split over this many "
+                         "ranks (under torchrun)")
     ap.add_argument("--fsdp_size", type=int, default=1,
-                    help="weight sharding: not ported in the server yet (ROADMAP A7c), "
-                         "1 only")
+                    help="weight sharding: block weights split over this many ranks "
+                         "(under torchrun)")
     ap.add_argument("--attn_type", type=str, default="auto", choices=ATTN_TYPES,
                     help="attention route (`MOVAPipeline(attn_impl=...)`)")
     ap.add_argument("--quantize", type=str, default="none",
@@ -93,26 +104,32 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
     `VideoServer` with the UI attached, not yet serving (`run` serves).
     tokenizer: the checkpoint's (`load_tokenizer`) unless given; dtype: the
     towers' and UMT5's weight dtype under `--weight_dtype bf16` and the
-    compute dtype (bf16 unless given). The pipeline is `server.pipe`."""
-    from dualforce_tpu_torch.cli.inference_single import (offload_kwargs, offload_mode,
-                                                          refuse_unported)
+    compute dtype (bf16 unless given). The pipeline is `server.pipe`.
 
-    if args.cp_size > 1 or args.fsdp_size > 1:
-        raise SystemExit("--cp_size and --fsdp_size above 1 are not ported in the server "
-                         "yet (ROADMAP A7c); the inference CLIs take them under torchrun")
+    Under a mesh every rank calls it (joining the torchrun world first, if
+    this process has not): rank 0 gets the server (its `control`, the
+    `MeshControl`, leads the others; `stop` ends them), every other rank
+    the `MeshControl` to `follow` with (its pipeline is `control.pipe`)."""
+    from dualforce_tpu_torch.cli.inference_single import (device_and_mesh, offload_kwargs,
+                                                          offload_mode, refuse_unported,
+                                                          shard)
+
+    if args.cp_size * args.fsdp_size > 1 and args.offload != "none":
+        raise SystemExit("--offload is for single-chip serving; use --fsdp_size to shard "
+                         "weights across chips")
     refuse_unported(args)
     import torch
 
-    from dualforce_tpu_torch import resolve_device
     from dualforce_tpu_torch.convert.load_checkpoint import (config_from_checkpoint,
                                                              load_pipeline_params,
                                                              load_tokenizer)
     from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
-    from dualforce_tpu_torch.serving.server import (VideoServer, make_pipeline_backend,
+    from dualforce_tpu_torch.serving.server import (MeshControl, VideoServer,
+                                                    make_pipeline_backend,
                                                     make_pipeline_batch_backend)
     from dualforce_tpu_torch.workflow.app import attach_ui
 
-    device = resolve_device(args.device)
+    device, mesh = device_and_mesh(args)
     offload = offload_mode(args)
     dtype = dtype or torch.bfloat16
     t0 = time.perf_counter()
@@ -120,9 +137,10 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
     wdtype = torch.float8_e4m3fn if args.weight_dtype == "fp8" else dtype
     modules = load_pipeline_params(args.ckpt_path, cfg, dtype=wdtype, device=device,
                                    host=offload != "none")
+    modules = shard(modules, mesh, device)
     pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
-                        quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad,
+                        quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad, mesh=mesh,
                         **offload_kwargs(args))
     print(f"[serve] checkpoint loaded and pipeline built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -135,23 +153,46 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
                         num_inference_steps=steps, batch_size=b)
         print("[serve] warmup done")
 
+    control = MeshControl(pipe) if mesh is not None else None
+    if control is not None and control.rank != 0:
+        return control
     overrides = ({"cfg_cache_interval": args.cfg_cache_interval}
                  if args.cfg_cache_interval != 1 else None)
     server = VideoServer(
-        make_pipeline_backend(pipe, overrides), out_dir=args.out_dir,
-        batch_backend=(make_pipeline_batch_backend(pipe, overrides)
+        make_pipeline_backend(pipe, overrides, control), out_dir=args.out_dir,
+        batch_backend=(make_pipeline_batch_backend(pipe, overrides, control)
                        if args.max_batch > 1 else None),
         max_batch=args.max_batch, queue_timeout_s=args.queue_timeout_s)
     server.pipe = pipe
+    server.control = control
     attach_ui(server)
     return server
 
 
 def main(argv=None) -> None:
+    import signal
+
+    from dualforce_tpu_torch.parallel.mesh import leave
+    from dualforce_tpu_torch.serving.server import MeshControl
+
     args = parse_args(argv)
     server = build_server(args)
-    print(f"serving on http://{args.host}:{args.port} (UI at /)")
-    server.run(args.host, args.port)
+    try:
+        if isinstance(server, MeshControl):
+            # a Ctrl-C reaches every rank of the terminal's process group: the followers
+            # leave it to rank 0, whose stop ends them
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            print(f"[serve] rank {server.rank} follows rank 0's groups", flush=True)
+            groups = server.follow()
+            print(f"[serve] rank {server.rank}: stopped after {groups} groups", flush=True)
+        else:
+            print(f"serving on http://{args.host}:{args.port} (UI at /)")
+            try:
+                server.run(args.host, args.port)
+            finally:
+                server.stop()
+    finally:
+        leave()
 
 
 if __name__ == "__main__":

@@ -38,15 +38,38 @@
 // transpose bit). dK and dV (64 x 128 fp32 each per warpgroup) stay in registers; P never
 // leaves them. The fused kernel (kDq) also stores dS^T once in shared memory, computes the
 // tile's dQ = dS K (each warpgroup one 64-column half of D, A = dS^T and B = K both
-// MN-major), stages its half as fp32 in shared memory and adds it into the fp32 workspace
-// with one bulk `cp.reduce.async.bulk ... add.f32`; `dq_finish_kernel` scales the workspace
-// and casts it to bf16. The TPU kernel accumulates dQ over the key axis in a whole-row VMEM
-// scratch because its grid runs in order; here the key tiles run in parallel on different
-// SMs, so the workspace's fp32 summation order, and dQ's last bits, vary from run to run. dK
-// and dV are deterministic. The workspace holds each 64-row tile in the order of the
-// accumulator registers (`dq_finish_kernel` reads it back), so the staging stores are
-// conflict-free and each warpgroup's half is one contiguous 16 KiB range.
+// MN-major), stages it as fp32 in one of two shared-memory buffers, and a writer thread of the
+// producer warpgroup adds each half into the fp32 workspace with one bulk
+// `cp.reduce.async.bulk ... add.f32`; `dq_finish_kernel` scales the workspace and casts it to
+// bf16. The workspace holds each 64-row tile in the order of the accumulator registers
+// (`dq_finish_kernel` reads it back), so the staging stores are conflict-free and each
+// warpgroup's half is one contiguous 16 KiB range.
 //
+// dQ's summation order. The TPU kernel accumulates dQ over the key axis in a whole-row VMEM
+// scratch because its grid runs in order, so its dQ is the same from run to run. Here the key
+// tiles are CTAs that run in parallel, so the fused kernel fixes the order itself (as
+// FlashAttention-2/3's deterministic backward does): beside the workspace lies one int32 turn
+// counter per (batch * head, 64-row tile), zeroed with the workspace by `bwd_preprocess_kernel`.
+// The one writer thread of key tile ki waits (ld.acquire.gpu) until the tile's counter equals
+// ki, issues the bulk reduces of both warpgroup halves, waits for them to complete
+// (`cp.async.bulk.wait_group 0`, the writes and not only the reads of shared memory), fences
+// the async proxy and stores ki + 1 (st.release.gpu). So each tile's fp32 sum is taken in key-tile order 0, 1, 2, ...,
+// which depends on the shape alone, and dQ, dK and dV are bit-equal between launches.
+// - No deadlock: a CTA waits only on the CTA of the key tile before it, the same blockIdx.y
+//   and a lower blockIdx.x, so a lower linear block index (the grid is x = key tile, y =
+//   batch * head); the hardware dispatches blocks in that order, so the CTA waited on is
+//   resident or done. Key tiles wholly past kv_len return before the loop and take no place
+//   in the order: the tiles that hold a valid key are 0 .. n - 1, so a tile's rank is
+//   blockIdx.x. Within a CTA, the consumers wait for a staging buffer that the writer frees
+//   after its turn two tiles back, and the writer for the consumers' staging and for the
+//   previous key tile's turn: no cycle.
+// - No lost overlap: the consumers never wait on the counter. They stage tile i into buffer
+//   i % 2 and go on to tile i + 1 while the writer waits for its turn; they wait only when the
+//   writer is two tiles behind. Both buffers (2 x 32 KiB) fit beside the rest: smem_dkv(true)
+//   is 231,552 bytes of the 232,448.
+// - A barrier or turn that never completes traps after kWaitTrapCycles instead of holding
+//   the card.
+
 // Known limit: the dk/dv core holds two 64 x 128 fp32 accumulators a thread beside S^T and
 // dP^T, more than the 168 registers ptxas allocates a thread of this launch (it does not raise
 // them for the consumers after `setmaxnreg.inc`); ptxas serialises its wgmmas (C7512) and
@@ -66,7 +89,7 @@
 // `bwd_preprocess_kernel` computes delta straight from bf16 O and dO in fp32, writes it and
 // lse * log2(e) in a [B*N, Sq_pad] layout padded to whole 128-row tiles (rows past Sq: delta 0,
 // lse +inf, so their P is exactly 0), which the producers copy with plain bulk copies, and
-// zeroes the fused kernel's workspace. Tensors are read as [B, S, N, D] through their strides
+// zeroes the fused kernel's workspace and its turn counters. Tensors are read as [B, S, N, D] through their strides
 // (4-D tensor maps: coordinates within int32, byte strides below 2^40); rows past S are
 // zero-filled by TMA; kv_len is masked in the kernels. A key tile that lies wholly past
 // kv_len[b] writes zeros and stops; the dq pass stops at the last key tile that holds a valid
@@ -102,24 +125,28 @@ constexpr int kStageBytes = 2 * tile_bytes(kRows);               // Q then dO
 constexpr int kOffRowStats = kOffQ + kStages * kStageBytes;      // lse[64], delta[64] per stage
 constexpr int kOffDs = kOffRowStats + 1024;                      // 2 x dS^T [128 keys, 64 rows]
 constexpr int kDsBytes = kKeys * kRows * 2;
-constexpr int kOffDqStage = kOffDs + 2 * kDsBytes;               // dQ tile, 64 x 128 fp32
+constexpr int kOffDqStage = kOffDs + 2 * kDsBytes;               // 2 x dQ tile, 64 x 128 fp32
+constexpr int kDqTileBytes = kRows * kHeadDim * 4;              // half c at + c * 16 KiB
+constexpr int kDqHalfFloats = kRows * kHeadDim / 2;
+constexpr int kWriterTid = 32;                                   // warp 1 of the producers
 __host__ __device__ constexpr int off_bar_dkv(bool dq) {
-  return dq ? kOffDqStage + kRows * kHeadDim * 4 : kOffDs;
+  return dq ? kOffDqStage + 2 * kDqTileBytes : kOffDs;
 }
 __host__ __device__ constexpr int smem_dkv(bool dq) {  // + slack for the 1024-byte alignment
-  return off_bar_dkv(dq) + 64 + 1024;
+  return off_bar_dkv(dq) + 128 + 1024;
 }
 constexpr uint32_t kStageTx = kStageBytes + 2 * kRows * 4;
 constexpr uint32_t kKvTx = 2 * tile_bytes(kKeys);
 
 static_assert(kStages * 2 * kRows * 4 <= 1024, "row statistics fit their slot");
+static_assert(8 * (2 * kStages + 1 + 4) <= 128, "the barriers fit their slot");
 
 // dq pass shared memory
 constexpr int kDqOffQ = 0;
 constexpr int kDqOffDo = kDqOffQ + tile_bytes(kDqRows);
 constexpr int kDqOffKv = kDqOffDo + tile_bytes(kDqRows);         // stage s: K then V
-constexpr int kDqStageBytes = 2 * tile_bytes(kDqKeys);
-constexpr int kDqOffBar = kDqOffKv + kDqStages * kDqStageBytes;
+constexpr int kDqKvStageBytes = 2 * tile_bytes(kDqKeys);
+constexpr int kDqOffBar = kDqOffKv + kDqStages * kDqKvStageBytes;
 constexpr int kSmemDq = kDqOffBar + 64 + 1024;
 constexpr uint32_t kDqQTx = 2 * tile_bytes(kDqRows);
 
@@ -138,6 +165,32 @@ __device__ __forceinline__ void store_swizzled(unsigned char* buf, int r0, int c
       *reinterpret_cast<uint32_t*>(buf + r * 128 + ((j ^ (r % 8)) << 4) + 2 * cq) =
           pack_bf16x2(x[4 * j + 2 * hi], x[4 * j + 2 * hi + 1]);
     }
+}
+
+// The fused kernel's turn counters (one int32 per 64-row dQ tile): read
+// with acquire and written with release semantics at GPU scope, so a bulk reduce that
+// completed before a release is seen by the CTA whose acquire reads it.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Async-proxy global writes (the bulk reduces) ordered with generic-proxy accesses.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Waits until *turn == rank; like `mbar_wait`, a wait that lasts kWaitTrapCycles traps.
+__device__ __forceinline__ void wait_turn(const int* turn, int rank) {
+  if (ld_acquire(turn) == rank) return;
+  const long long t0 = clock64();
+  while (ld_acquire(turn) != rank)
+    if (clock64() - t0 > kWaitTrapCycles) __trap();
 }
 
 // D[64 x 64] = A B over K = 128 keys, A and B both MN-major, 16 K rows (2048 bytes) per step.
@@ -189,16 +242,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   const int n_tiles = (sq + kRows - 1) / kRows;  // tiles that hold rows; sq_pad / kRows in all
-  const uint32_t bar0 = base + off_bar_dkv(kDq);  // full[kStages], empty[kStages], kv_full
+  // full[kStages], empty[kStages], kv_full; with kDq staged[2] and freed[2] (dQ staging buffers)
+  const uint32_t bar0 = base + off_bar_dkv(kDq);
   auto full = [&](int s) { return bar0 + 8 * s; };
   auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
   const uint32_t kv_full = bar0 + 8 * 2 * kStages;
+  auto staged = [&](int buf) { return kv_full + 8 * (1 + buf); };
+  auto freed = [&](int buf) { return kv_full + 8 * (3 + buf); };
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumerThreads);
     }
     mbar_init(kv_full, 1);
+    if constexpr (kDq) {
+      for (int buf = 0; buf < 2; ++buf) {
+        mbar_init(staged(buf), kConsumerThreads);
+        mbar_init(freed(buf), 1);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -231,6 +293,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t stats = base + kOffRowStats + s * 2 * kRows * 4;
         bulk_load(stats, lse_bh + i * kRows, kRows * 4, full(s));
         bulk_load(stats + kRows * 4, delta_bh + i * kRows, kRows * 4, full(s));
+      }
+    } else if (kDq && tid == kWriterTid) {
+      // Writer: each staged dQ tile into the workspace, in key-tile order (the header's turns).
+      const int64_t tile0 = static_cast<int64_t>(bh) * (sq_pad / kRows);
+      int* turns = reinterpret_cast<int*>(dq_acc + static_cast<int64_t>(gridDim.y) * sq_pad *
+                                                       kHeadDim) + tile0;
+      const int rank = blockIdx.x;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int buf = i % 2;
+        mbar_wait(staged(buf), (i / 2) & 1);
+        wait_turn(turns + i, rank);
+        fence_async_global();
+        for (int c = 0; c < 2; ++c)
+          bulk_reduce_add_f32(dq_acc + (tile0 + i) * kRows * kHeadDim + c * kDqHalfFloats,
+                              base + kOffDqStage + buf * kDqTileBytes + c * (kDqTileBytes / 2),
+                              kDqTileBytes / 2);
+        bulk_wait_all();
+        fence_async_global();
+        st_release(turns + i, rank + 1);
+        mbar_arrive(freed(buf));
       }
     }
     return;
@@ -322,31 +404,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(dq);
       mbar_arrive(empty(s));
       // Stage this warpgroup's half of the tile in register order (float4 group j of thread t
-      // at (8 c + j) * 128 + t), then its first thread adds the half into the workspace.
-      if (t == 0) bulk_wait_read();  // the previous tile's reduce has read the staging
-      warpgroup_sync(c);
-      float4* stage = reinterpret_cast<float4*>(smem + kOffDqStage);
+      // at (8 c + j) * 128 + t) into buffer i % 2, once the writer has added what tile i - 2
+      // left there; the writer adds it into the workspace in its turn.
+      const int buf = i % 2;
+      mbar_wait(freed(buf), ((i / 2) & 1) ^ 1);
+      float4* stage = reinterpret_cast<float4*>(smem + kOffDqStage + buf * kDqTileBytes);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         stage[(8 * c + j) * 128 + t] =
             make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
       fence_async_smem();
-      warpgroup_sync(c);
-      if (t == 0) {
-        const int64_t tile = static_cast<int64_t>(bh) * (sq_pad / kRows) + i;
-        bulk_reduce_add_f32(dq_acc + tile * kRows * kHeadDim + c * (kRows * kHeadDim / 2),
-                            base + kOffDqStage + c * (kRows * kHeadDim * 2),
-                            kRows * kHeadDim * 2);
-      }
+      mbar_arrive(staged(buf));
     } else {
       wgmma_wait<0>();
       fence_regs(acc_dv);
       fence_regs(acc_dk);
       mbar_arrive(empty(s));
     }
-  }
-  if constexpr (kDq) {
-    if (t == 0) bulk_wait_all();
   }
 
   // Epilogue: dK (scaled) and dV for this warpgroup's keys; masked keys hold exact zeros.
@@ -449,8 +523,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < n_blocks; ++j) {
         const int s = j % kDqStages;
         mbar_wait(empty(s), ((j / kDqStages) & 1) ^ 1);
-        mbar_expect_tx(full(s), kDqStageBytes);
-        const uint32_t k_s = base + kDqOffKv + s * kDqStageBytes;
+        mbar_expect_tx(full(s), kDqKvStageBytes);
+        const uint32_t k_s = base + kDqOffKv + s * kDqKvStageBytes;
         const uint32_t v_s = k_s + tile_bytes(kDqKeys);
         for (int half = 0; half < 2; ++half) {
           tma_load(k_s + half * box_bytes(kDqKeys), &tm_k, full(s), half * kHalf, h, j * kDqKeys,
@@ -486,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = 0; j < n_blocks; ++j) {
     const int s = j % kDqStages;
     mbar_wait(full(s), (j / kDqStages) & 1);
-    const uint32_t k_s = base + kDqOffKv + s * kDqStageBytes;
+    const uint32_t k_s = base + kDqOffKv + s * kDqKvStageBytes;
     const uint32_t v_s = k_s + tile_bytes(kDqKeys);
 
     // S = Q K^T and dP = dO V^T: 64 rows x 64 keys each.
@@ -631,7 +705,8 @@ extern "C" int dft_flash_bwd_preprocess(const void* o, const void* dout, const v
 // `make_map`). lse_pad and delta_pad come from `dft_flash_bwd_preprocess`. kv_len is a device
 // pointer to [B] int32, or null for no key mask. dk and dv are written through their strides
 // (in elements). dq_acc is the zeroed workspace of B*N*sq_pad*128 fp32 that receives the
-// unscaled dQ in the fused kernel's tile order (`dft_flash_bwd_dq_finish` turns it into dQ);
+// unscaled dQ in the fused kernel's tile order (`dft_flash_bwd_dq_finish` turns it into dQ),
+// followed by B*N*(sq_pad/64) zeroed int32 turn counters (rounded up to a multiple of 4);
 // a null dq_acc runs the split backward's dk/dv pass instead: the same kernel without the dQ
 // product, so its dK and dV are bit-equal to the fused kernel's. Returns the cudaError_t of
 // the launch (0 on success), or -1 if a tensor map could not be encoded.

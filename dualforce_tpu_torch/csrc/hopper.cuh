@@ -118,10 +118,6 @@ __device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src, ui
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }

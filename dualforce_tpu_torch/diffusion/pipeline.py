@@ -35,7 +35,7 @@ from dualforce_tpu_torch.diffusion.step import make_rope_pack
 from dualforce_tpu_torch.diffusion.streamed import denoise_streamed
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
 from dualforce_tpu_torch.ops.attention import ATTN_IMPLS
-from dualforce_tpu_torch.parallel.mesh import mesh_shape
+from dualforce_tpu_torch.parallel import sharding
 
 QUANTIZE_MODES = ("none", "int8", "int4")
 QUANTIZED_TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")
@@ -131,8 +131,10 @@ class MOVAPipeline:
         (sequence chunks on cp, the batch on data where it divides, weights
         gathered per layer on fsdp). Group offload is refused on a mesh of
         more than one rank (the JAX package refuses it on a cp mesh; the
-        streamed groups would carry fsdp shards), and quantized towers on
-        an fsdp one."""
+        streamed groups would carry fsdp shards). With `quantize`, sharded
+        towers are quantized layer by layer from their gathered whole
+        weights and sharded again (`parallel.sharding.quantize_sharded`):
+        the numbers of quantizing the whole tower, as in JAX."""
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if not callable(attn_impl) and attn_impl not in ATTN_IMPLS:
@@ -143,9 +145,6 @@ class MOVAPipeline:
         if offload == "group" and self.mesh is not None:
             raise ValueError("offload='group' is a single-chip escape hatch; use cp/fsdp "
                              "sharding instead of offload on a multi-chip mesh")
-        if quantize != "none" and mesh_shape(mesh).get("fsdp", 1) > 1:
-            raise ValueError("quantized towers under fsdp sharding are not ported "
-                             "(ROADMAP A7c)")
         self.device = resolve_device(device)
         self.offload = offload
         self.offload_group_size = int(offload_group_size)
@@ -161,8 +160,8 @@ class MOVAPipeline:
                 raise ValueError(f"{name} is on {p.device}; offload {offload!r} wants "
                                  f"it on {home}")
         if quantize != "none":
-            modules = {name: (self._quantized(m, quantize) if name in QUANTIZED_TOWERS
-                              else m)
+            modules = {name: (self._quantized(name, m, quantize)
+                              if name in QUANTIZED_TOWERS else m)
                        for name, m in modules.items()}
         self.cfg = cfg
         self.modules = modules
@@ -175,9 +174,13 @@ class MOVAPipeline:
         # progress_cb(step, total): called on the host after each denoise step
         self.progress_cb = None
 
-    def _quantized(self, module: torch.nn.Module, mode: str) -> torch.nn.Module:
+    def _quantized(self, name: str, module: torch.nn.Module, mode: str) -> torch.nn.Module:
         """`module` quantized; with offload, on the device and then moved to
-        host memory, so only one tower's quantized weights are ever there."""
+        host memory, so only one tower's quantized weights are ever there;
+        fsdp shards quantized from each layer's gathered whole weights and
+        sharded again, where they lie."""
+        if getattr(sharding.block_holder(name, module), "fsdp_axis", None) is not None:
+            return sharding.quantize_sharded(name, module, mode)
         if self.offload == "none":
             return dnn.quantize_modules(module, mode)
         with off.staged(module, self.device) as m:

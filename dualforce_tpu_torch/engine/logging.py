@@ -1,8 +1,11 @@
 """Metric loggers (the port's copy of `dualforce_tpu/engine/logging.py`).
 
-Sinks: JSONL (always, unless logging is off) and TensorBoard through
-`torch.utils.tensorboard` when the `tensorboard` package is present. Kinds:
-"none", "jsonl", "tensorboard".
+Sinks: JSONL (always, unless logging is off), TensorBoard through
+`torch.utils.tensorboard` when the `tensorboard` package is present, and
+W&B behind an import guard. Kinds as the JAX package's `build_logger` takes
+them: None or "none" (nothing), "tensorboard", "wandb", "both" (TensorBoard
+and W&B); any other kind ("jsonl" among them) gives JSONL alone. A sink that
+fails to start, whatever the exception, leaves JSONL alone with a message.
 """
 
 from __future__ import annotations
@@ -56,6 +59,25 @@ class TensorBoardLogger(BaseLogger):
         self._writer.close()
 
 
+class WandbLogger(BaseLogger):
+    """W&B sink with JAX's lifecycle: `wandb.init(project, name, dir,
+    config, resume="allow")`, `wandb.log` per step, the run's `finish`."""
+
+    def __init__(self, log_dir: str, project: str = "dualforce-tpu",
+                 run_name: Optional[str] = None, config: Optional[Dict] = None):
+        import wandb  # guarded: not a dependency of the port
+
+        self._wandb = wandb
+        self._run = wandb.init(project=project, name=run_name, dir=log_dir,
+                               config=config or {}, resume="allow")
+
+    def log_scalars(self, metrics, step):
+        self._wandb.log({k: float(v) for k, v in metrics.items()}, step=step)
+
+    def close(self):
+        self._run.finish()
+
+
 class CompositeLogger(BaseLogger):
     def __init__(self, loggers: List[BaseLogger]):
         self.loggers = loggers
@@ -74,13 +96,17 @@ def build_logger(kind: Optional[str], log_dir: str, is_main: bool = True) -> Bas
     main one of a mesh (`is_main` False) logs nothing."""
     if kind in (None, "none") or not is_main:
         return DummyLogger()
-    if kind not in ("jsonl", "tensorboard"):
-        raise ValueError(f"unknown logger {kind!r} (none, jsonl, tensorboard)")
     loggers: List[BaseLogger] = [JsonlLogger(os.path.join(log_dir, "metrics.jsonl"))]
-    if kind == "tensorboard":
+    if kind in ("tensorboard", "both"):
         try:
             loggers.append(TensorBoardLogger(log_dir))
-        except ImportError as e:
+        except Exception as e:  # noqa: BLE001 (any failing sink leaves JSONL, as in JAX)
             print(f"[logger] tensorboard requested but unavailable ({e!r}); "
                   "continuing with JSONL only")
+    if kind in ("wandb", "both"):
+        try:
+            loggers.append(WandbLogger(log_dir))
+        except Exception as e:  # noqa: BLE001
+            print(f"[logger] wandb requested but unavailable ({e!r}); "
+                  "continuing without it")
     return CompositeLogger(loggers)

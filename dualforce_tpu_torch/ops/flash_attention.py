@@ -20,9 +20,10 @@ log2 units, and a keyless row's LSE is cap * ln 2.
 The backward (`csrc/flash_bwd.cu`) computes dq, dk and dv from q, k, v, dO,
 the LSE and delta = rowsum(dO * O) - dlse, in one of two ways that compute
 the same function: the fused kernel (one pass; dq summed over key tiles by
-bulk fp32 reductions into a workspace of whole 64-row tiles) or the split
-pair (a dk/dv pass and a dq pass that sums over key tiles in registers: no
-workspace, a deterministic dq). So one plain version,
+bulk fp32 reductions into a workspace of whole 64-row tiles, in key-tile
+order through turn counters beside it) or the split pair (a dk/dv pass and a
+dq pass that sums over key tiles in registers: no workspace). Both give the
+same dq, dk and dv from run to run. So one plain version,
 `flash_attention_bwd_plain`, serves both. Both first run the preprocess
 kernel (`flash_bwd_preprocess`), which computes delta and lse * log2(e) from
 bf16 O and dO into rows padded to whole 128-row tiles; its plain version is
@@ -340,6 +341,14 @@ def bwd_workspace_floats(b: int, n: int, sq: int) -> int:
     return b * n * _rows_padded(sq) * HEAD_DIM
 
 
+def bwd_turn_counters(b: int, n: int, sq: int) -> int:
+    """int32 turn counters the fused kernel keeps after its workspace, one per
+    (batch * head, 64-row dQ tile), rounded up to whole float4s for the
+    preprocess's zeroing: each tile's key tiles add into the workspace in
+    key-tile order (csrc/flash_bwd.cu)."""
+    return _ceil_to(b * n * (_rows_padded(sq) // 64), 4)
+
+
 def tma_geometry(shape, stride, elem_bytes: int = 2):
     """The seven values the kernels build a [B, S, N, 128] tensor map from:
     the dims innermost first (128, N, S, B) and the byte strides of N, S and
@@ -444,8 +453,11 @@ class _Bwd:
             return
         self.ptrs = ptrs[:4]
         self.geom = _geometry(shapes[:4], strides[:4])
-        self.dq_acc = None if split else torch.empty(bwd_workspace_floats(b, n, sq),
-                                                     dtype=torch.float32, device=q.device)
+        # the workspace, then its turn counters (int32 zeros are fp32 zeros), zeroed by the
+        # preprocess
+        self.dq_acc = None if split else torch.empty(
+            bwd_workspace_floats(b, n, sq) + bwd_turn_counters(b, n, sq), dtype=torch.float32,
+            device=q.device)
         self.delta, self.lse2 = _launch_preprocess(o, do, lse, dlse, (shapes[4], shapes[3]),
                                                    (strides[4], strides[3]), self.dq_acc)
         lens = _lens(kv_valid_len)

@@ -12,6 +12,16 @@ layout ([L] + the JAX leaf's shape: a linear's weight is [in, out] there,
 [out, in] here) and maps the chosen dim back to the port's tensor, so that
 each rank holds exactly the slice JAX's `param_pspecs` gives it.
 
+Quantized towers (`nn.Int8Linear`, `nn.Int4Linear`) shard as JAX's
+`param_pspecs` of the quantized tree: each quantized leaf (the int8 weight
+and its per-output-channel scales, the packed int4 nibbles and their group
+scales) by the same rule on its own JAX shape, and `GatheredWeights`
+gathers them per layer with the rest, int8 moving as int8. JAX quantizes
+GSPMD-global arrays, so its numbers are those of the whole tower: a tower
+sharded before it is quantized (`quantize_sharded`) quantizes each layer
+whole and shards the result, and a tower quantized first shards its
+quantized leaves; both give each rank the same slices.
+
 Only the blocks and the conditioners are sharded; UMT5, the VAEs and the
 towers' embeddings and heads stay whole on every rank (JAX's GSPMD shards
 them too: a difference in memory only). `GatheredWeights` gathers one
@@ -27,6 +37,8 @@ each rank's own slice (counted once, not fsdp times), and
 
 from __future__ import annotations
 
+import copy
+import itertools
 from collections.abc import Mapping
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -55,47 +67,105 @@ def leaf_spec(shape: Sequence[int], fsdp_size: int) -> Optional[int]:
     return None
 
 
-def _jax_order(module: nn.Module, name: str, p: torch.Tensor) -> Tuple[int, ...]:
-    """The port's dims in the JAX leaf's order: a linear's weight (and the
-    packed `in_proj_weight`) is transposed there."""
+# the quantized layers' transposed leaves: [out, in] (int4: [out, in / 2], [out, in / group])
+# here, [in, out] in JAX's `kernel_q`, `kernel_q4`, `kernel_scale4`
+_TRANSPOSED = {dnn.Int8Linear: ("weight_q",), dnn.Int4Linear: ("weight_q4", "weight_scale4")}
+
+
+def _jax_order(module: nn.Module, name: str, p: torch.Tensor) -> Tuple[Optional[int], ...]:
+    """The port's dims in the JAX leaf's order (None: a dim of size 1 the
+    port's tensor lacks): a linear's weight (and the packed
+    `in_proj_weight`) is transposed there, as are a quantized linear's
+    int8 weight and int4 nibbles and scales; an int8 linear's scales are
+    [1, out] there, [out] here."""
     owner = module.get_submodule(name.rpartition(".")[0]) if "." in name else module
     leaf = name.rpartition(".")[2]
     if p.ndim == 2 and ((leaf == "weight" and isinstance(owner, nn.Linear))
-                        or leaf == "in_proj_weight"):
+                        or leaf == "in_proj_weight"
+                        or leaf in _TRANSPOSED.get(type(owner), ())):
         return (1, 0)
+    if isinstance(owner, dnn.Int8Linear) and leaf == "weight_scale":
+        return (None, 0)
     return tuple(range(p.ndim))
 
 
 def leaf_dim(module: nn.Module, name: str, p: torch.Tensor, layers: int,
              fsdp_size: int) -> Optional[int]:
-    """The dim of the port's parameter `name` (a block's, stacked `layers`
-    deep in the JAX tree) that `fsdp` shards, or None (whole)."""
+    """The dim of the port's parameter or buffer `name` (a block's, stacked
+    `layers` deep in the JAX tree) that `fsdp` shards, or None (whole)."""
     order = _jax_order(module, name, p)
-    stacked = [layers] + [p.shape[i] for i in order]
+    stacked = [layers] + [1 if i is None else p.shape[i] for i in order]
     spec = leaf_spec(stacked, fsdp_size)
     if spec is None or spec + len(stacked) == 0:     # the layer dim: replicated
         return None
     return order[spec + len(stacked) - 1]
 
 
+def _tensors(holder: nn.Module):
+    """A holder's parameters and buffers (a quantized linear's weights are
+    buffers), by name."""
+    yield from holder.named_parameters()
+    yield from holder.named_buffers()
+
+
+def _get(holder: nn.Module, name: str) -> torch.Tensor:
+    owner, _, leaf = name.rpartition(".")
+    return getattr(holder.get_submodule(owner) if owner else holder, leaf)
+
+
+def _set(holder: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Replace the parameter or buffer `name` by `t` (a parameter keeps its
+    object, its data replaced)."""
+    owner, _, leaf = name.rpartition(".")
+    mod = holder.get_submodule(owner) if owner else holder
+    if leaf in mod._parameters:
+        mod._parameters[leaf].data = t
+    else:
+        mod._buffers[leaf] = t
+
+
+def block_holder(name: str, module: nn.Module) -> nn.Module:
+    """The module holding what fsdp shards: a tower's `blocks`, the bridge."""
+    return module.blocks if name in TOWERS else module
+
+
 def _block_sets(name: str, module: nn.Module):
-    """(module holding the sharded parameters, {its parameter name: stack depth})."""
+    """(module holding the sharded tensors, {its parameter or buffer name:
+    stack depth})."""
     if name in TOWERS:
         blocks = module.blocks
-        return blocks, {n: len(blocks) for n, _ in blocks.named_parameters()}
+        return blocks, {n: len(blocks) for n, _ in _tensors(blocks)}
     stacks = {s: len(getattr(module, s)) for s in BRIDGE_STACKS}
-    return module, {n: stacks[n.partition(".")[0]] for n, _ in module.named_parameters()
+    return module, {n: stacks[n.partition(".")[0]] for n, _ in _tensors(module)
                     if n.partition(".")[0] in stacks}
+
+
+def _shard_holder(holder: nn.Module, depth: Dict[str, int], fsdp: int, idx: int
+                  ) -> Dict[str, int]:
+    """Keep this rank's slice (the `idx`-th of `fsdp`) of each of the
+    holder's tensors in `depth` that `leaf_dim` shards; returns {name:
+    sharded dim}."""
+    dims = {}
+    for pname, p in list(_tensors(holder)):
+        if pname not in depth:
+            continue
+        d = leaf_dim(holder, pname, p, depth[pname], fsdp)
+        if d is None:
+            continue
+        size = p.shape[d] // fsdp
+        _set(holder, pname, p.data.narrow(d, idx * size, size).clone())
+        dims[pname] = d
+    return dims
 
 
 def shard_params(modules: Dict[str, nn.Module], mesh) -> Dict[str, nn.Module]:
     """Keep this rank's `fsdp` slice of every tower block and bridge
-    conditioner parameter (in place; the whole tensors are freed). The
-    holder of the blocks (a tower's `blocks`, the bridge) records
-    {parameter name: sharded dim} as `fsdp_dims`, which `GatheredWeights`
-    reads. Quantized towers are not sharded (ROADMAP A7c). A shard stays the
-    same `Parameter` object, so a module that trains (full fine-tuning)
-    trains its shards; a module sharded already keeps its shards. Returns
+    conditioner parameter (in place; the whole tensors are freed), and of a
+    quantized linear's weights and scales. The holder of the blocks (a
+    tower's `blocks`, the bridge) records {tensor name: sharded dim} as
+    `fsdp_dims`, which `GatheredWeights` reads. A shard stays the same
+    `Parameter` object, so a module that trains (full fine-tuning) trains
+    its shards; a module sharded already keeps its shards. Returns
     `modules`."""
     fsdp = pm.mesh_shape(mesh).get("fsdp", 1)
     if fsdp <= 1:
@@ -111,21 +181,48 @@ def shard_params(modules: Dict[str, nn.Module], mesh) -> Dict[str, nn.Module]:
                 raise ValueError(f"{name} is sharded over fsdp {pm.axis_size(axis)}, "
                                  f"not {fsdp}")
             continue
-        if any(isinstance(m, (dnn.Int8Linear, dnn.Int4Linear)) for m in holder.modules()):
-            raise ValueError("fsdp sharding of quantized towers is not ported (ROADMAP A7c)")
-        dims = {}
-        for pname, p in holder.named_parameters():
-            if pname not in depth:
-                continue
-            d = leaf_dim(holder, pname, p, depth[pname], fsdp)
-            if d is None:
-                continue
-            size = p.shape[d] // fsdp
-            p.data = p.data.narrow(d, idx * size, size).clone()
-            dims[pname] = d
-        holder.fsdp_dims = dims
+        holder.fsdp_dims = _shard_holder(holder, depth, fsdp, idx)
         holder.fsdp_axis = pm.MeshAxis(mesh, "fsdp")
     return modules
+
+
+@torch.no_grad()
+def quantize_sharded(name: str, module: nn.Module, mode: str) -> nn.Module:
+    """`nn.quantize_modules(module, mode)` for a tower or bridge whose
+    blocks `shard_params` sharded: a copy (sharing what it does not
+    quantize) in which each layer's shards are gathered whole, the layer
+    quantized whole (so the numbers are those of quantizing the whole
+    tower, as JAX's GSPMD arrays give them), and its tensors sharded again
+    by `leaf_dim`, the quantized leaves on their JAX shapes. One layer is
+    whole at a time. `module` is left as it was."""
+    holder, depth = _block_sets(name, module)
+    axis, dims = holder.fsdp_axis, holder.fsdp_dims
+    memo = {id(t): t for t in itertools.chain(module.parameters(), module.buffers())}
+    memo[id(axis)] = axis
+    out = copy.deepcopy(module, memo)
+    out_holder, _ = _block_sets(name, out)
+    fsdp, idx = pm.axis_size(axis), pm.axis_index(axis)
+    new_dims = {}
+    for layer in sorted({_layer_of(n) for n in depth}, key=lambda x: (len(x), x)):
+        names = sorted(n for n in dims if n.startswith(layer))
+        whole = pm.all_gather_many([_get(holder, n) for n in names],
+                                   [dims[n] for n in names], axis) if names else []
+        parent, _, key = layer[:-1].rpartition(".")
+        owner = out_holder.get_submodule(parent) if parent else out_holder
+        sub = getattr(owner, key)
+        for n, w in zip(names, whole):     # the copy's tensors whole, the source's untouched
+            leaf_owner, _, leaf = n[len(layer):].rpartition(".")
+            m = sub.get_submodule(leaf_owner) if leaf_owner else sub
+            if leaf in m._parameters:
+                m._parameters[leaf] = nn.Parameter(w, requires_grad=False)
+            else:
+                m._buffers[leaf] = w
+        setattr(owner, key, dnn.quantize_modules(sub, mode))
+        stack = next(d for k, d in depth.items() if k.startswith(layer))
+        layer_depth = {layer + n: stack for n, _ in _tensors(getattr(owner, key))}
+        new_dims.update(_shard_holder(out_holder, layer_depth, fsdp, idx))
+    out_holder.fsdp_dims = new_dims
+    return out
 
 
 def _layer_of(name: str) -> str:
@@ -166,7 +263,7 @@ class GatheredWeights(Mapping):
             names = [n for n in self.dims if n.startswith(layer)]
             # the fsdp ranks use the whole weights alike: a trained shard's
             # gradient is its slice of the whole one's
-            whole = pm.all_gather_many([self.holder.get_parameter(n) for n in names],
+            whole = pm.all_gather_many([_get(self.holder, n) for n in names],
                                        [self.dims[n] for n in names], self.axis,
                                        identical=True)
             self.pending = dict(zip(names, whole))
@@ -206,7 +303,7 @@ def shards_of(modules: Dict[str, nn.Module], params: Sequence[torch.Tensor]
     for name, module in modules.items():
         if name not in TOWERS and name != "bridge":
             continue
-        holder = module.blocks if name in TOWERS else module
+        holder = block_holder(name, module)
         axis = getattr(holder, "fsdp_axis", None)
         for pname, d in getattr(holder, "fsdp_dims", {}).items():
             p = holder.get_parameter(pname)
@@ -223,7 +320,7 @@ def whole_shapes(modules: Dict[str, nn.Module]) -> Dict[str, Dict[str, Tuple[int
     for name, module in modules.items():
         if name not in TOWERS and name != "bridge":
             continue
-        holder = module.blocks if name in TOWERS else module
+        holder = block_holder(name, module)
         prefix = "blocks." if name in TOWERS else ""
         for pname, d in getattr(holder, "fsdp_dims", {}).items():
             shape = list(holder.get_parameter(pname).shape)
@@ -292,7 +389,7 @@ def block_bytes(modules: Dict[str, nn.Module]) -> int:
     for name, module in modules.items():
         if name in TOWERS or name == "bridge":
             holder, depth = _block_sets(name, module)
-            total += sum(p.numel() * p.element_size() for n, p in holder.named_parameters()
+            total += sum(p.numel() * p.element_size() for n, p in _tensors(holder)
                          if n in depth)
     return total
 

@@ -14,6 +14,12 @@ use a fake; production passes `make_pipeline_backend(pipe)` over the port's
 `MOVAPipeline`, and `make_pipeline_batch_backend(pipe)` runs same-geometry
 tasks as one batch.
 
+Under a (fsdp, cp) mesh the port runs one process per rank (the JAX
+server is one process driving every chip): rank 0 runs this server and its
+worker thread, and `MeshControl` hands each group's generate arguments to
+the other ranks, which follow (`MeshControl.follow`) and run the same
+`generate`; only rank 0 writes clips, updates progress and answers HTTP.
+
 Progress: the port's sampler calls `MOVAPipeline.progress_cb(step, total)`
 on the host once a step's launches are queued, not when the card has run
 them (JAX's `jax.debug.callback` fires when the device reaches the step).
@@ -27,6 +33,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import sys
 import threading
 import time
 import traceback
@@ -163,10 +170,171 @@ def _call_with_optional_progress(backend, task, out_dir, progress):
     return backend(task, out_dir)
 
 
-def make_pipeline_backend(pipe, gen_overrides: Optional[Dict[str, Any]] = None
-                          ) -> Callable:
+# a follower waits for the next group in a collective of the control group; its own
+# timeout (7 days) keeps an idle server from dying of gloo's default 30 minutes
+CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
+
+
+# a rank whose generate failed waits this long for the other ranks' outcomes: they come at once
+# where it failed in `prepare_state` (no collective there) or where every rank failed alike,
+# and never where another rank still waits in a collective of the denoise the failed rank left
+FAILURE_WAIT_S = 120.0
+
+
+class GroupFailed(RuntimeError):
+    """A group's generate failed on some rank of the mesh."""
+
+
+class MeshControl:
+    """How rank 0's server drives the other ranks of a mesh through each
+    group's `generate` (one process per rank, as torchrun starts them).
+
+    Every rank makes one in the same order after joining the world: a gloo
+    group of the whole world of its own (whatever the data backend, NCCL
+    included), with a timeout of `CONTROL_TIMEOUT_S`, so that a follower
+    may wait for the next group as long as the server idles. Rank 0 calls
+    `lead(kwargs, images)` from its worker thread once a group's first
+    frames are decoded and checked: it broadcasts the generate arguments (the
+    prompts, negatives, seeds, geometry, steps, guidance and the server's
+    overrides) as one object and the images as one fp32 tensor, and every
+    rank runs the group's generate on them in two stages. Each rank's ok
+    flag or error string is gathered after `prepare_state` (the encodes,
+    which make no collective), before the first data collective, and again
+    after the denoise and decode. A failure at either gather, on any rank,
+    raises on rank 0 with the first failed rank's message, and every rank
+    goes on serving. A failure inside the denoise on some ranks only leaves
+    the others waiting in one of its collectives: the failed rank waits
+    `FAILURE_WAIT_S` for their outcomes, then ends its process, as does a
+    rank whose control collective fails (a rank gone), so that the others'
+    collectives raise and torchrun stops the world: an error, never a hang.
+    The other ranks sit in `follow` until `stop`: rank 0 broadcasts a stop
+    message once the group in flight (if any) has ended, and each follower
+    returns."""
+
+    def __init__(self, pipe):
+        import datetime
+
+        import torch.distributed as dist
+
+        self.pipe = pipe
+        self.group = dist.new_group(backend="gloo",
+                                    timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+        self.rank = dist.get_rank()
+        self.lock = threading.Lock()
+        self.stopped = False
+        self.groups = 0         # groups run on this rank
+
+    def _run(self, kwargs: Dict[str, Any], images) -> list:
+        """This rank's generate on the group (`pipe.generate`'s stages), with
+        every rank's outcome gathered after `prepare_state` and at the end;
+        raises with the first failed rank's error where one failed."""
+        pipe = self.pipe
+        self.groups += 1
+        state = self._stage(lambda: pipe.prepare_state(images=list(images.numpy()), **kwargs))
+        return self._stage(lambda: pipe.finalize_state(pipe.denoise_state(state)))
+
+    def _stage(self, fn):
+        """fn() on this rank, then every rank's outcome; raises `GroupFailed`
+        with the first failed rank's error where one failed."""
+        import torch
+
+        result, error = None, None
+        try:
+            with torch.no_grad():
+                result = fn()
+        except Exception as e:  # noqa: BLE001 — reported to every rank, then raised
+            traceback.print_exc()
+            error = f"rank {self.rank}: {type(e).__name__}: {e}"
+        failed = self._outcomes(error)
+        if failed:
+            raise GroupFailed(failed[0])
+        return result
+
+    def _outcomes(self, error: Optional[str]) -> list:
+        """Every failed rank's error string, in rank order (none where the
+        group succeeded everywhere); ends this process where the ranks'
+        outcomes cannot be had (see the class)."""
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        flags = [torch.zeros(1, dtype=torch.int32) for _ in range(dist.get_world_size())]
+        try:
+            work = dist.all_gather(flags, torch.tensor([int(error is not None)], dtype=torch.int32),
+                                   group=self.group, async_op=True)
+            done = (work.wait() if error is None else
+                    work.wait(timeout=datetime.timedelta(seconds=FAILURE_WAIT_S)))
+        except RuntimeError as e:
+            done, error = False, f"{error or 'the outcomes'}; {type(e).__name__}: {e}"
+        if not done:
+            self._abort(f"the other ranks' outcomes did not come ({error})")
+        if not any(int(f) for f in flags):
+            return []
+        outcomes = [None] * dist.get_world_size()
+        dist.all_gather_object(outcomes, error, group=self.group)     # every rank is here
+        return [x for x in outcomes if x is not None]
+
+    def _abort(self, reason: str) -> None:
+        print(f"[serve] rank {self.rank}: {reason}; this process ends so that the other "
+              "ranks' collectives raise", file=sys.stderr, flush=True)
+        os._exit(1)
+
+    def _broadcast(self, message, images=None):
+        import torch
+        import torch.distributed as dist
+
+        box = [message]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        message = box[0]
+        if message["op"] == "generate":
+            if images is None:
+                images = torch.empty(message["images"], dtype=torch.float32)
+            dist.broadcast(images, src=0, group=self.group)
+        return message, images
+
+    def lead(self, kwargs: Dict[str, Any], images) -> list:
+        """Rank 0: the group's generate on every rank (images: the decoded
+        first frames, [B, H, W, 3] fp32 numpy)."""
+        import numpy as np
+        import torch
+
+        with self.lock:
+            if self.stopped:
+                raise RuntimeError("the server is stopping")
+            images = torch.from_numpy(np.ascontiguousarray(np.stack(images), np.float32))
+            try:
+                self._broadcast({"op": "generate", "kwargs": kwargs,
+                                 "images": tuple(images.shape)}, images)
+            except RuntimeError as e:
+                self._abort(f"the group could not reach the other ranks ({e})")
+            return self._run(kwargs, images)
+
+    def follow(self) -> int:
+        """Another rank: run each group rank 0 leads until it stops; returns
+        the number of groups run."""
+        while True:
+            message, images = self._broadcast(None)
+            if message["op"] == "stop":
+                return self.groups
+            try:
+                self._run(message["kwargs"], images)
+            except GroupFailed:
+                pass            # rank 0 marks the group failed; the next one follows
+
+    def stop(self) -> None:
+        """Rank 0: after the group in flight, tell every follower to return
+        (once)."""
+        with self.lock:
+            if not self.stopped:
+                self.stopped = True
+                self._broadcast({"op": "stop"})
+
+
+def make_pipeline_backend(pipe, gen_overrides: Optional[Dict[str, Any]] = None,
+                          control: Optional[MeshControl] = None) -> Callable:
     """Wrap a MOVAPipeline into the backend callable used by the worker."""
-    batch = make_pipeline_batch_backend(pipe, gen_overrides)
+    batch = make_pipeline_batch_backend(pipe, gen_overrides, control)
 
     def backend(task: Task, out_dir: str, progress=None) -> Dict[str, Any]:
         return batch([task], out_dir, progress=progress)[0]
@@ -175,8 +343,8 @@ def make_pipeline_backend(pipe, gen_overrides: Optional[Dict[str, Any]] = None
 
 
 def make_pipeline_batch_backend(pipe,
-                                gen_overrides: Optional[Dict[str, Any]] = None
-                                ) -> Callable:
+                                gen_overrides: Optional[Dict[str, Any]] = None,
+                                control: Optional[MeshControl] = None) -> Callable:
     """Batched backend: same-geometry tasks run as one batch through
     `MOVAPipeline.generate`, the continuous-batching unit (SURVEY.md §7.2
     phase 8): each attention of the group is one launch at batch B.
@@ -189,7 +357,11 @@ def make_pipeline_batch_backend(pipe,
     mode is thread-local), and every tensor goes to `pipe.device`, never to
     the thread's current device. `peak_memory_mb` is the card's peak
     allocated memory since the process started or its peak statistics were
-    last reset (`torch.cuda.max_memory_allocated`), 0 on the CPU."""
+    last reset (`torch.cuda.max_memory_allocated`), 0 on the CPU.
+
+    control: under a mesh, rank 0's `MeshControl`: the group's first frames
+    are decoded and checked here first (a bad image fails on rank 0 alone,
+    before any rank hears of the group), then every rank generates."""
     import torch
     from PIL import Image
 
@@ -228,8 +400,8 @@ def make_pipeline_batch_backend(pipe,
         return out
 
     def _generate(pipe, tasks, images, h, w, p0):
-        return pipe.generate(
-            prompts=[t.prompt for t in tasks], images=images,
+        kwargs = dict(
+            prompts=[t.prompt for t in tasks],
             negative_prompts=[t.params.get("negative_prompt", "") for t in tasks],
             seeds=[t.params.get("seed", 42) for t in tasks],
             height=h, width=w, num_frames=p0.get("num_frames", 193),
@@ -238,6 +410,9 @@ def make_pipeline_batch_backend(pipe,
             cfg_scale=p0.get("guidance_scale", 5.0),
             cfg_scale_bridge=p0.get("guidance_scale_bridge", 0.0),
             **(gen_overrides or {}))
+        if control is not None:
+            return control.lead(kwargs, images)
+        return pipe.generate(images=images, **kwargs)
 
     return batch_backend
 
@@ -268,6 +443,8 @@ class VideoServer:
         self.queue_timeout_s = queue_timeout_s
         self.store = TaskStore(out_dir)
         self.out_dir = out_dir
+        # under a mesh, the `MeshControl` the backends lead the other ranks with
+        self.control: Optional[MeshControl] = None
         self.model_name = model_name
         self.queue: "Queue[str]" = Queue()
         # restart recovery: tasks.json survives the process (reference
@@ -522,6 +699,12 @@ class VideoServer:
 
     def run(self, host: str = "0.0.0.0", port: int = 8000):
         web.run_app(self.app, host=host, port=port)
+
+    def stop(self) -> None:
+        """Under a mesh, tell the following ranks to return once the group
+        in flight has ended (`MeshControl.stop`); nothing otherwise."""
+        if self.control is not None:
+            self.control.stop()
 
 
 def serve_in_thread(app: web.Application) -> Tuple[str, Callable[[], None]]:

@@ -251,13 +251,33 @@ def test_autograd_goes_through_the_kernels(cuda):
         assert flash_attention(q, k, v).grad_fn is None
 
 
+@pytest.mark.parametrize("b,n,sq,sk,lens", [
+    (1, 4, 11440, 11440, None),
+    (3, 2, 1000, 512, (512, 77, 0)),
+    (1, 12, 403, 11440, None),
+], ids=["video_self_360p", "masked", "v2a_403"])
+def test_fused_bwd_is_deterministic(cuda, b, n, sq, sk, lens):
+    """The fused kernel adds each dQ tile's key tiles into its workspace in
+    key-tile order (turn counters; key tiles past kv_len take no turn), so
+    the same backward three times gives bit-equal dq, dk and dv."""
+    from dualforce_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, dlse, tl = _bwd_inputs(cuda, b, n, sq, sk, lens, 10)
+    o, lse = fa.flash_attention_with_lse(q, k, v, tl)
+    runs = [fa.flash_attention_bwd_fused(q, k, v, o, lse, do, tl, dlse) for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for name, x, y in zip(("dq", "dk", "dv"), runs[0], again):
+            assert torch.equal(x, y), name
+
+
 # --- the split backward (dq pass + dk/dv pass) ------------------------------
 # The same tolerance as the fused kernel's against the fp32 plain backward
 # (2e-2 relative L2). The dk/dv pass is the fused kernel without its dQ
 # product, so dk and dv must be bit-equal to the fused kernel's; the dq pass
 # sums over key tiles in registers, so two runs must be bit-equal, and its dq
-# differs from the fused kernel's (fp32 atomics, another summation order)
-# only by rounding: within 2e-2.
+# differs from the fused kernel's (another summation order) only by rounding:
+# within 2e-2.
 
 def _split_and_fused(q, k, v, do, dlse, tl):
     from dualforce_tpu_torch.ops import flash_attention as fa

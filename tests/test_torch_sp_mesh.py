@@ -140,11 +140,24 @@ def case_ulysses(mesh, c):
 
 
 def case_shard(mesh, c):
-    from dualforce_tpu_torch.parallel.sharding import shard_params
+    """This rank's shards ({module: {name: tensor}}); with c["quantize"],
+    of the towers quantized both ways: sharded first, then quantized from
+    each layer's gathered whole weights (`quantize_sharded`, the pipeline's
+    way), and quantized whole, then sharded."""
+    from dualforce_tpu_torch.nn import quantize_modules
+    from dualforce_tpu_torch.parallel.sharding import quantize_sharded, shard_params
 
-    modules = shard_params(copy.deepcopy(c["modules"]), mesh)
-    return {name: {n: p.detach().clone() for n, p in m.named_parameters()}
-            for name, m in modules.items()}
+    mode = c.get("quantize")
+    if mode is None:
+        modules = shard_params(copy.deepcopy(c["modules"]), mesh)
+        return {name: {n: p.detach().clone() for n, p in m.named_parameters()}
+                for name, m in modules.items()}
+    first = shard_params(copy.deepcopy(c["modules"]), mesh)
+    ways = {"sharded_first": {n: quantize_sharded(n, m, mode) for n, m in first.items()},
+            "quantized_first": shard_params({n: quantize_modules(m, mode) for n, m in
+                                             copy.deepcopy(c["modules"]).items()}, mesh)}
+    return {way: {name: {n: t.clone() for n, t in m.state_dict().items()}
+                  for name, m in mods.items()} for way, mods in ways.items()}
 
 
 def case_blocks(mesh, c):
@@ -166,16 +179,112 @@ def case_pipeline(mesh, c):
                                                 dtype=torch.float32, seed=0), mesh)
     pipe = MOVAPipeline(c["cfg"], modules, tokenizer=ByteTokenizer(),
                         compute_dtype=torch.float32, device="cpu", mesh=mesh,
-                        attn_impl=c.get("attn_impl", "auto"))
-    return generate(pipe, c["prompt"], c["image"], c["request"])
+                        attn_impl=c.get("attn_impl", "auto"),
+                        quantize=c.get("quantize", "none"))
+    return generate(pipe, c["prompt"], c["image"], c["request"], c.get("seed", 3))
 
 
-def generate(pipe, prompt, image, request):
+SERVE_REQUEST = dict(size="32x32", num_frames=5, fps=24.0, num_inference_steps=2,
+                     negative_prompt="blurry")
+
+
+def case_serve(mesh, c):
+    """`cli.serve.build_server` under the mesh flags c["flags"] on the tiny
+    checkpoint c["ckpt"]. Rank 0 serves over HTTP (`serve_in_thread`) and
+    submits a same-geometry pair (batched), a task it cancels while queued,
+    and a task whose reference is no image (it fails on rank 0 alone), then
+    downloads the pair's clips; then a task whose `prepare_state` fails on
+    rank 1 alone (as an out-of-memory in the encode would) and one more
+    task, whose clip it downloads, and stops the server; the other ranks
+    follow until the stop. Rank 0 returns each task's final status and
+    error, the groups its backend ran, each group's generate results, the
+    clips written for them and the downloaded bytes; another rank the number
+    of groups it followed."""
+    import threading
+    import urllib.request
+
+    from dualforce_tpu_torch.cli import serve as serve_cli
+    from dualforce_tpu_torch.serving.client import VideoClient
+    from dualforce_tpu_torch.serving.server import serve_in_thread
+    from dualforce_tpu_torch.utils.av_io import save_video_with_audio
+
+    args = serve_cli.parse_args(["--ckpt_path", c["ckpt"], "--device", "cpu", "--max_batch",
+                                 "2", "--out_dir", os.path.join(c["out"], "served")]
+                                + c["flags"])
+    server = serve_cli.build_server(args, tokenizer=ByteTokenizer(), dtype=torch.float32)
+    if not hasattr(server, "app"):
+        prepare, prepared = server.pipe.prepare_state, []
+
+        def failing_second(**kw):           # rank 1's encode of the second group fails
+            prepared.append(1)
+            if server.rank == 1 and len(prepared) == 2:
+                raise RuntimeError("out of memory in the encode, on this rank alone")
+            return prepare(**kw)
+
+        server.pipe.prepare_state = failing_second
+        return {"followed": server.follow(), "rank": server.rank}
+    groups, results, saved, queued_in = [], [], [], threading.Event()
+    real_batch, real_finalize = server.batch_backend, server.pipe.finalize_state
+
+    def batch(tasks, out_dir, progress=None):
+        groups.append([t.task_id for t in tasks])
+        server.batch_window_s = 0.25        # the pair is in: later groups need no wait
+        queued_in.wait(60)                  # the pair runs once the others are queued
+        return real_batch(tasks, out_dir, progress=progress)
+
+    def finalize(state):
+        out = real_finalize(state)
+        results.append([(r.video, r.audio) for r in out])
+        saved.append([])
+        for i, r in enumerate(out):     # the clips as the backend writes them, here
+            path = save_video_with_audio(os.path.join(c["out"], f"saved{i}.mp4"), r.video,
+                                         r.audio, fps=r.fps, sample_rate=r.sample_rate)
+            with open(path, "rb") as f:
+                saved[-1].append(f.read())
+        return out
+
+    server.batch_backend, server.pipe.finalize_state = batch, finalize
+    server.batch_window_s = 60.0             # closes once the second request is in
+    base, stop = serve_in_thread(server.app)
+    try:
+        client = VideoClient(base, timeout=60)
+        pair = [client.submit_video_task(p, img, seed=seed, **SERVE_REQUEST)
+                for (p, seed), img in zip(c["prompts"], c["images"])]
+        queued = client.submit_video_task("cancelled", c["images"][0], seed=1,
+                                          **SERVE_REQUEST)
+        cancelled = client.cancel(queued.task_id)
+        bad = client.submit_video_task("bad", b"no image", seed=2, **SERVE_REQUEST)
+        queued_in.set()
+        done = {t.task_id: client.wait_for_completion(t.task_id, poll_interval=0.05,
+                                                      timeout=600)
+                for t in pair + [bad]}
+        done[queued.task_id] = client.get_task(queued.task_id)
+        later = {}
+        for name, seed in (("lost", 3), ("after", 4)):
+            task = client.submit_video_task(name, c["images"][0], seed=seed, **SERVE_REQUEST)
+            later[name] = task.task_id
+            done[task.task_id] = client.wait_for_completion(task.task_id, poll_interval=0.05,
+                                                            timeout=600)
+        downloads = []
+        for tid in [t.task_id for t in pair] + [later["after"]]:
+            with urllib.request.urlopen(base + done[tid].download_url, timeout=60) as r:
+                downloads.append(r.read())
+    finally:
+        stop()
+        server.stop()
+    ids = {"pair": [t.task_id for t in pair], "queued": queued.task_id, "bad": bad.task_id,
+           **later}
+    return {"ids": ids, "cancel_status": cancelled.status,
+            "status": {i: (t.status, t.error) for i, t in done.items()},
+            "groups": groups, "results": results, "downloads": downloads, "saved": saved}
+
+
+def generate(pipe, prompt, image, request, seed: int = 3):
     """One request through the pipeline's three stages: the denoised
     latents and the decoded clip."""
     with torch.no_grad():
         state = pipe.denoise_state(pipe.prepare_state([prompt], [image],
-                                                      negative_prompts=["blurry"], seeds=[3],
+                                                      negative_prompts=["blurry"], seeds=[seed],
                                                       **request))
         res = pipe.finalize_state(state)[0]
     return {"latents": state["latents"].numpy(), "audio_latents": state["audio_latents"].numpy(),

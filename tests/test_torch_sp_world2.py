@@ -3,26 +3,37 @@ CPU processes, against the JAX package's functions under `shard_map` on
 the conftest's virtual devices (fp32, JAX's tolerances: 2e-5 for the
 attention collectives, tests/test_ring_attention.py; 3e-5 for the block
 stack, tests/test_sp_equivalence.py) and against the port's own cp = 1
-paths. One world runs every case (`test_torch_sp_mesh.run_world`).
+paths: fsdp over int8 and int4 towers (the shards JAX's `param_pspecs` of
+the quantized tree names; a quantized request bit-equal to one process),
+and the `/v1/videos` server under the mesh, rank 0 serving while rank 1
+follows. One world runs every case (`test_torch_sp_mesh.run_world`).
 """
 
 import functools
+import io
 
 import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from dualforce_tpu import nn as jnn
 from dualforce_tpu.ops.attention import attention_ref as jax_attention_ref
 from dualforce_tpu.parallel import ring_attention as jra
 from dualforce_tpu.parallel.sharding import param_pspecs
 
+from dualforce_tpu_torch import nn as tnn
+from dualforce_tpu_torch.cli import serve as serve_cli
 from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.convert import from_jax
+from dualforce_tpu_torch.convert import load_checkpoint as lc
+from dualforce_tpu_torch.data.transforms import crop_and_resize, image_to_tensor
 from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
 from dualforce_tpu_torch.models.factory import init_pipeline_params
-from test_torch_sp_mesh import (ByteTokenizer, blocks_case, generate, jax_blocks_setup,
-                                jax_shard_map, jax_sp_blocks, port_blocks, run_world)
+from dualforce_tpu_torch.utils.av_io import save_video_with_audio
+from test_torch_sp_mesh import (SERVE_REQUEST, ByteTokenizer, blocks_case, generate,
+                                jax_blocks_setup, jax_shard_map, jax_sp_blocks, port_blocks,
+                                run_world)
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 CP = 2
@@ -33,6 +44,48 @@ BLOCK_TOL = 3e-5
 VALID = [("whole", None), ("padded", 13), ("rank1_padding", 6)]
 REQUEST = dict(height=32, width=32, num_frames=5, num_inference_steps=2, sigma_shift=5.0,
                cfg_scale=5.0)
+QUANTIZE = ("int8", "int4")
+QUANTIZED_LEAVES = {"int8": ("weight_q", "weight_scale"), "int4": ("weight_q4", "weight_scale4")}
+# the served pair: (prompt, seed), and each reference's PNG (height, width, seed)
+SERVE_PAIR = [("a cat playing piano", 11), ("a dog on a skateboard", 12)]
+SERVE_PNGS = [(40, 48, 4), (36, 30, 5)]
+SERVE_FLAGS = {"fsdp2": ["--fsdp_size", "2"], "cp2": ["--cp_size", "2"]}
+
+
+def _png(h, w, seed) -> bytes:
+    from PIL import Image
+
+    arr = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _one_process_pair(ckpt, root):
+    """The served pair as one process runs the same group: the clips'
+    generate results and the bytes `save_video_with_audio` writes for them."""
+    from PIL import Image
+
+    pipe = serve_cli.build_server(serve_cli.parse_args(
+        ["--ckpt_path", ckpt, "--device", "cpu", "--out_dir", str(root / "one")]),
+        tokenizer=ByteTokenizer(), dtype=torch.float32).pipe
+    frames = [image_to_tensor(crop_and_resize(
+        Image.open(io.BytesIO(_png(*png))).convert("RGB"), 32, 32)) for png in SERVE_PNGS]
+    with torch.no_grad():
+        results = pipe.generate(
+            prompts=[p for p, _ in SERVE_PAIR], images=frames,
+            negative_prompts=[SERVE_REQUEST["negative_prompt"]] * 2,
+            seeds=[s for _, s in SERVE_PAIR], height=32, width=32,
+            num_frames=SERVE_REQUEST["num_frames"], video_fps=SERVE_REQUEST["fps"],
+            num_inference_steps=SERVE_REQUEST["num_inference_steps"], cfg_scale=5.0,
+            cfg_scale_bridge=0.0)
+    clips = []
+    for i, r in enumerate(results):
+        path = save_video_with_audio(str(root / "one" / f"{i}.mp4"), r.video, r.audio,
+                                     fps=r.fps, sample_rate=r.sample_rate)
+        with open(path, "rb") as f:
+            clips.append(f.read())
+    return {"results": [(r.video, r.audio) for r in results], "clips": clips}
 
 
 
@@ -120,11 +173,37 @@ def world(tmp_path_factory):
     cases.append(dict(name="pipeline", kind="pipeline", mesh=(1, 1, CP), cfg=cfg,
                       prompt="a cat playing piano", image=image, request=REQUEST))
     cases.append(dict(name="refusals", kind="refusals", mesh=(1, 1, CP), cfg=cfg))
-    ranks = run_world(2, cases, tmp_path_factory.mktemp("sp2"))
-    pipe = MOVAPipeline(cfg, init_pipeline_params(cfg, device="cpu", dtype=torch.float32,
-                                                  seed=0),
-                        tokenizer=ByteTokenizer(), compute_dtype=torch.float32, device="cpu")
+    for mode in QUANTIZE:
+        cases.append(dict(name=f"shard_{mode}", kind="shard", mesh=(1, 2, 1),
+                          modules=st["modules"], quantize=mode))
+        cases.append(dict(name=f"pipeline_fsdp2_{mode}", kind="pipeline", mesh=(1, 2, 1),
+                          cfg=cfg, prompt="a cat playing piano", image=image,
+                          request=REQUEST, quantize=mode))
+    root = tmp_path_factory.mktemp("sp2")
+    ckpt = str(root / "ckpt")
+    lc.save_pipeline_params(init_pipeline_params(cfg, device="cpu", dtype=torch.float32,
+                                                 seed=0), cfg, ckpt)
+    for name, flags in SERVE_FLAGS.items():
+        cases.append(dict(name=f"serve_{name}", kind="serve", mesh=(1, 1, CP), ckpt=ckpt,
+                          out=str(root / name), flags=flags, prompts=SERVE_PAIR,
+                          images=[_png(*png) for png in SERVE_PNGS]))
+    ranks = run_world(2, cases, root)
+    source = init_pipeline_params(cfg, device="cpu", dtype=torch.float32, seed=0)
+    pipe = MOVAPipeline(cfg, source, tokenizer=ByteTokenizer(), compute_dtype=torch.float32,
+                        device="cpu")
     port_want["pipeline"] = generate(pipe, "a cat playing piano", image, REQUEST)
+    for mode in QUANTIZE:
+        pipe = MOVAPipeline(cfg, source, tokenizer=ByteTokenizer(),
+                            compute_dtype=torch.float32, device="cpu", quantize=mode)
+        port_want[f"pipeline_{mode}"] = generate(pipe, "a cat playing piano", image, REQUEST)
+        quantize_tree = jnn.quantize_tree_int8 if mode == "int8" else jnn.quantize_tree_int4
+        port_want[f"whole_{mode}"] = {
+            name: {k: tuple(t.shape) for k, t in tnn.quantize_modules(m, mode).state_dict().items()}
+            for name, m in st["modules"].items()}
+        jax_want[f"shard_{mode}"] = [
+            _shards_of({n: quantize_tree(p) for n, p in st["jparams"].items()}, st["cfg"], 2, r)
+            for r in range(2)]
+    port_want["serve"] = _one_process_pair(ckpt, root)
     return dict(ranks=ranks, jax=jax_want, port=port_want, setup=st)
 
 
@@ -215,3 +294,85 @@ def test_refusals(world):
         got = world["ranks"][r]["refusals"]
         assert "single-chip escape hatch" in got["group_offload"]
         assert "needs a world of 4 processes, this one has 2" in got["world_mismatch"]
+
+
+@pytest.mark.parametrize("mode", QUANTIZE)
+def test_fsdp2_quantized_shards_are_jax_pspecs_slices(world, mode):
+    """Each rank's int8 (weights and per-output-channel scales) or int4
+    (packed nibbles and group scales) shards are the slices JAX's
+    `param_pspecs` of the quantized tree names, whether the towers were
+    sharded before they were quantized (the pipeline's way) or after."""
+    for r in range(2):
+        want = world["jax"][f"shard_{mode}"][r]
+        got = world["ranks"][r][f"shard_{mode}"]
+        assert set(got) == {"sharded_first", "quantized_first"}
+        whole = world["port"][f"whole_{mode}"]
+        for way, mods in got.items():
+            n_split = 0
+            for name, sd in want.items():
+                assert set(mods[name]) >= set(sd)
+                for k, w in sd.items():
+                    g = mods[name][k]
+                    assert tuple(g.shape) == w.shape, (way, name, k)
+                    np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{way} {name}.{k}")
+                    n_split += int(k.rpartition(".")[2] in QUANTIZED_LEAVES[mode]
+                                   and tuple(g.shape) != whole[name][k])
+            assert n_split > 20, (way, n_split)
+
+
+@pytest.mark.parametrize("mode", QUANTIZE)
+def test_fsdp2_quantized_request_equals_one_process(world, mode):
+    want = world["port"][f"pipeline_{mode}"]
+    for r in range(2):
+        got = world["ranks"][r][f"pipeline_fsdp2_{mode}"]
+        for key in ("latents", "audio_latents", "video", "audio"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("name", list(SERVE_FLAGS))
+def test_server_under_the_mesh(world, name):
+    """Rank 0 served the pair as one group on both ranks; the cancelled task
+    never reached a backend and the bad image failed on rank 0 alone (rank
+    1 never heard of it); both ranks ended at the stop. The downloads are
+    the clips of the pair's results, which are bit-equal to one process's
+    at fsdp 2 and within `test_pipeline_cp2_matches_cp1`'s tolerance at cp 2."""
+    lead = world["ranks"][0][f"serve_{name}"]
+    ids = lead["ids"]
+    assert lead["groups"][:2] == [ids["pair"], [ids["bad"]]]
+    assert lead["cancel_status"] == "cancelled"
+    for tid in ids["pair"]:
+        assert lead["status"][tid] == ("completed", None)
+    assert lead["status"][ids["queued"]][0] == "cancelled"
+    status, error = lead["status"][ids["bad"]]
+    assert status == "failed" and "cannot identify image file" in error
+    want = world["port"]["serve"]
+    got = lead["results"][0]
+    assert lead["downloads"][:2] == lead["saved"][0]
+    for i, ((video, audio), (wvideo, waudio)) in enumerate(zip(got, want["results"])):
+        assert video.shape == wvideo.shape == (5, 32, 32, 3)
+        if name == "fsdp2":
+            np.testing.assert_array_equal(video, wvideo)
+            np.testing.assert_array_equal(audio, waudio)
+            assert lead["downloads"][i] == want["clips"][i]
+        else:
+            np.testing.assert_allclose(audio, waudio, rtol=1e-4, atol=1e-4)
+            diff = np.abs(video.astype(np.int16) - wvideo.astype(np.int16))
+            assert diff.max() <= 1 and np.mean(diff > 0) < 1e-3
+
+
+@pytest.mark.parametrize("name", list(SERVE_FLAGS))
+def test_server_survives_a_rank_failing_alone(world, name):
+    """A group whose `prepare_state` failed on rank 1 alone (before any data
+    collective) failed on rank 0 with rank 1's error, and both ranks served
+    the next group: rank 1 followed the pair, the failed group and the next
+    one, and the next one's download is the clip of its result."""
+    lead, follower = world["ranks"][0][f"serve_{name}"], world["ranks"][1][f"serve_{name}"]
+    ids = lead["ids"]
+    assert follower == {"followed": 3, "rank": 1}
+    assert lead["groups"][2:] == [[ids["lost"]], [ids["after"]]]
+    status, error = lead["status"][ids["lost"]]
+    assert status == "failed"
+    assert error.startswith("rank 1: RuntimeError: out of memory in the encode"), error
+    assert lead["status"][ids["after"]] == ("completed", None)
+    assert len(lead["results"]) == 2 and len(lead["results"][1]) == 1
+    assert lead["downloads"][2:] == lead["saved"][1]

@@ -127,15 +127,15 @@ def test_component_offload_with_a_mesh_is_refused(tmp_path):
 
 
 def test_what_stays_refused_names_a7c(tmp_path, monkeypatch):
-    """`serve --cp_size/--fsdp_size` and fsdp over quantized towers."""
-    from dualforce_tpu_torch.cli import serve
-    from dualforce_tpu_torch.nn import quantize_modules
+    """fsdp over a quantized tower, refused until A7c: `shard_params` keeps
+    rank 0's slice of an int8 tower's weights and scales, int8 kept, each
+    the slice of the whole tower's quantization (per-output-channel scales:
+    the numbers of quantizing the whole tower). The serve CLI's mesh flags
+    are refused only with --offload now (tests/test_torch_serving.py)."""
+    from dualforce_tpu_torch.nn import Int8Linear, quantize_modules
     from dualforce_tpu_torch.parallel import mesh as pm
     from dualforce_tpu_torch.parallel import sharding
 
-    for flag in ("--cp_size", "--fsdp_size"):
-        with pytest.raises(SystemExit, match="A7c"):
-            serve.build_server(serve.parse_args(["--ckpt_path", str(tmp_path), flag, "2"]))
     cfg = tiny_test_config(visual_layers=1, audio_layers=1)
     mods = init_pipeline_params(cfg, device="cpu", dtype=torch.float32, seed=0,
                                 with_vaes=False, with_text=False, two_video_towers=False)
@@ -145,6 +145,23 @@ def test_what_stays_refused_names_a7c(tmp_path, monkeypatch):
             return 0
 
     monkeypatch.setattr(pm, "mesh_shape", lambda mesh: {"data": 1, "fsdp": 2, "cp": 1})
-    with pytest.raises(ValueError, match="A7c"):
-        sharding.shard_params({"video_dit": quantize_modules(mods["video_dit"], "int8")},
-                              Fsdp2())
+    whole = quantize_modules(mods["video_dit"], "int8")
+    want = {n: t.clone() for n, t in whole.blocks.state_dict().items()}
+    sharding.shard_params({"video_dit": whole}, Fsdp2())
+    dims = whole.blocks.fsdp_dims
+    got = whole.blocks.state_dict()
+    quantized = [n for n, m in whole.blocks.named_modules() if isinstance(m, Int8Linear)]
+    assert quantized
+    halved = 0
+    for name in quantized:
+        for leaf in ("weight_q", "weight_scale"):
+            key = f"{name}.{leaf}"
+            assert got[key].dtype == want[key].dtype
+            if key in dims:
+                d = dims[key]
+                n = want[key].shape[d] // 2
+                torch.testing.assert_close(got[key], want[key].narrow(d, 0, n), rtol=0, atol=0)
+                halved += 1
+            else:
+                torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+    assert halved >= len(quantized)
