@@ -92,7 +92,7 @@ Phases, each of which must pass:
    split shapes the fused kernel on the same inputs too (its time and its
    gap to the split's results); times of the routed kernel, its bound, the
    SDPA backward and the plain version on the two heads (at >= 100k tokens
-   one warm-up, the checked call, and two timed calls); a masked case with
+   each checked call, and SDPA's, timed once between CUDA events); a masked case with
    an LSE cotangent through the split kernels (B 3, N 2, Sq 98,305, Sk 512,
    kv_len [512, 77, 0]: the length-0 batch exactly zero dq, masked keys
    exactly zero dk and dv); and phase 7 again with every backward routed to
@@ -110,31 +110,33 @@ Phases, each of which must pass:
    expert, 30 audio, 30 shared bridge layers, UMT5 24) from seed 0, each
    module drawn on the card and handed back in page-locked host memory
    (bf16 masters, 73.3 GiB: the card's host holds them, so the fp8
-   fallback for smaller hosts is not taken), then phase 5's request at 2
-   steps (step 0 on the high-noise expert, step 1 on the low-noise one)
-   through `MOVAPipeline(offload="component")`. It must give phase 5's
-   shapes, launch the flash kernel exactly 800 times, peak under both
+   fallback for smaller hosts is not taken), then phase 5's request at 49
+   frames and 2 steps (step 0 on the high-noise expert, step 1 on the
+   low-noise one) through `MOVAPipeline(offload="component")`. It must give
+   the request's shapes, launch the flash kernel exactly 440 times (the
+   103 audio tokens take plain attention), peak under both
    experts' bf16 bytes (53.2 GiB, which no run holding both could stay
    under) and leave the allocated memory within 1 GiB of its level before
    the request. Prints prepare, step and decode seconds, each staging's
    seconds and rate, the host's memory and lock limit. Then the same
    request through `MOVAPipeline(offload="group")` at group size 8 (6
    groups), its denoise as two chained one-step ranges: video and audio
-   bit-equal to the staged request's, the same 800 launches, the
+   bit-equal to the staged request's, the same 440 launches, the
    denoise's peak under one expert's bf16 bytes (26.6 GiB); prints per
    step the bytes streamed, the copy stream's busy seconds and rate and
    the step against the staged one, and the prepare, denoise and decode
    peaks. Last, step 0 again with `offload_resident_small` (only the video
-   groups stream): 400 launches, latents bit-equal to the first range's,
+   groups stream): 220 launches, latents bit-equal to the first range's,
    its bytes against the full stream's.
 15. full depth, fp8: the same request, its first step alone, with the
    towers and UMT5 stored in fp8 (`init_pipeline_params(dtype=float8_e4m3fn)`)
-   resident on the card: 400 launches; prints the fp8 modules' bytes against
+   resident on the card: 220 launches; prints the fp8 modules' bytes against
    bf16's and the peak.
-16. sampler options: at phase 5's geometry and depth cut (seed 0), one
-   request with `cfg_batch` and `mask_ctx_pad`: exactly 56 launches, each at
+16. sampler options: at phase 5's frame size and depth cut (seed 0), 49
+   frames (the 103 audio tokens on plain attention), one
+   request with `cfg_batch` and `mask_ctx_pad`: exactly 32 launches, each at
    B = 2, the text cross-attentions with per-batch kv lengths, its decoded
-   video within 2e-2 relative L2 (fp32) of the same request unbatched (112
+   video within 2e-2 relative L2 (fp32) of the same request unbatched (64
    launches); one request with `cfg_cache_interval=2`, its launches
    printed; then the unbatched request again with the same modules moved
    to page-locked host memory, through `offload="component"`: bit-equal to
@@ -151,7 +153,7 @@ Phases, each of which must pass:
    L2 (the end-to-end audio differs more, ~6e-4: cuDNN runs the fp32
    convolutions in TF32, whose rounding any one-ulp weight change shows;
    printed); the same
-   request with `--weight_dtype fp8 --profile DIR`: 112 launches, every fp8
+   request at 2 steps with `--weight_dtype fp8 --profile DIR`: 56 launches, every fp8
    tower and UMT5 byte-equal to `nn.cast_modules_fp8` of the bf16 load, the
    ten operations with the most device time printed from the profiler's
    averages; and through `cli.inference_single_lora.run` with an
@@ -159,8 +161,10 @@ Phases, each of which must pass:
    seed) and `--offload cpu`: 112 launches, the experts never staged
    together, three merged weights within half a bf16 step (and a few fp32
    steps) of W + (alpha/r) * scale * B A computed on the card in fp32, the
-   video changed. Each clip is written with `save_video_with_audio` (the
-   WAV alone where PIL is absent). The checkpoint stays for phase 19.
+   video changed. The base request's clip is written with
+   `save_video_with_audio` (the WAV alone where PIL is absent; the fp8 and
+   LoRA clips, the same writer's work, are not written). The
+   checkpoint stays for phase 19.
 18. low-resource training at full depth: MOVA-360p uncut from seed 0, the
    towers and UMT5 drawn on the card, cast to fp8 and moved into
    page-locked host memory, then `LoRATrainer` with the `trainer` settings
@@ -235,7 +239,8 @@ Phases, each of which must pass:
    serves one 49-frame request through `cli.inference_single` (64 launches)
    whose clip is bit-equal to the same request in process on the trainer's
    modules. Then the first two steps again with
-   `trainer.remat_save_attention=true`: the same losses bit for bit (the
+   `trainer.remat_save_attention=true` (without the final save, which the
+   first run covers): the same losses bit for bit (the
    first step's lr is 0, so both see the checkpoint's weights), the global
    grad norms within 1e-5 relative and each parameter's within 1e-3, and 8 forward,
    8 fused backward and 8 preprocess launches per micro-step. Last, each of
@@ -326,6 +331,20 @@ Phases, each of which must pass:
    request at 49 frames through the CLI at `--fsdp_size 2` with
    `--quantize int8` and `--quantize int4` at 2 steps: each bit-equal to
    the same request in one process, 32 B1 launches per rank.
+28. the port's first 720p request (run after phase 22, on phase 17's
+   checkpoint): `cli.inference_single.run` with
+   `examples/inference_720p.sh`'s flags and `--vae_encode_dtype bf16`
+   (`--offload group --weight_dtype fp8 --cfg_cache_interval 3
+   --offload_resident_small`), 1280x720x193 at 24 fps, CFG 5, shift 5, seed
+   42, 3 steps (the plan switches experts at step 2 and reuses the negative
+   prediction at step 1; printed): 176,400 video and 403 audio tokens; the
+   video uint8 [193, 720, 1280, 3], the audio finite with 386,000 samples;
+   B1 launched exactly 14 times per pass (no LSE), no cap, sage or plain
+   attention; then the prepare alone with the fp32 encode: the bf16
+   encode's condition latents within 3e-2 relative L2 of it. Prints the
+   prepare's, each step's and the decode's seconds, the request's peak,
+   each encode's peak, the group stream's GB per step and the AVI write's
+   seconds.
 
 Every phase prints its wall time, and a summary line before the kernels
 lists every phase's seconds and the script's. The run sets
@@ -411,6 +430,9 @@ TRAIN_720P_SHAPES = [
     ("audio_text_cross", 12, 403, 512),
 ]
 TRAIN_720P = dict(height=720, width=1280, num_frames=193, audio_samples=386000)
+# Sq * Sk from which a 720p call takes seconds (video self): phase 12 times its checked
+# calls rather than making them again
+HUGE_720P = 10 ** 10
 TRAIN_720P_STEPS = 2
 # per 720p micro-step: all 6 attentions of each of 2 shared layers take the kernels (the
 # 403-token audio side passes the Sq >= 256 gate) and the 2 of the 1 tail layer: 14 calls,
@@ -1663,6 +1685,20 @@ def time_long_ms(fn, reps: int = 2, warmup: int = 1) -> float:
     return total / reps
 
 
+def time_one_ms(fn):
+    """(fn()'s result, its device ms): one call between two CUDA events. A call
+    of seconds is timed where it is made for its check, not made again."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def phase_720p_backward_kernels():
     """The forward with its LSE output and the routed backward at the 720p
     micro-step's six shapes against their plain versions on two heads, the
@@ -1680,10 +1716,12 @@ def phase_720p_backward_kernels():
         split = fa.bwd_takes_split(sq)
         route = "split" if split else "fused"
         q, k, v, do = (_rand(g, 1, s, n, HEAD_DIM) for s in (sq, sk, sk, sq))
-        o, lse = fa.flash_attention_with_lse(q, k, v)
+        long = max(sq, sk) >= 100_000
+        # at video self (seconds a call) each checked call is also the timed one
+        huge = sq * sk >= HUGE_720P
+        (o, lse), fwd_ms = time_one_ms(lambda: fa.flash_attention_with_lse(q, k, v))
         before = (fa.flash_attention_bwd.launches, fa.flash_attention_bwd.split_launches)
-        grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
+        grads, bwd_ms = time_one_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
         launched = (fa.flash_attention_bwd.launches - before[0],
                     fa.flash_attention_bwd.split_launches - before[1])
         if launched != ((0, 1) if split else (1, 0)):
@@ -1691,11 +1729,11 @@ def phase_720p_backward_kernels():
                                  f"expected the {route} route")
         heads = [0, n - 1]
         sub = [x[:, :, heads].float() for x in (q, k, v, o, do)]
-        t0 = time.perf_counter()
-        want_o, want_lse = fa.flash_attention_plain(*sub[:3], return_lse=True)
-        want = fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4])
-        torch.cuda.synchronize()
-        check_s = time.perf_counter() - t0
+        (want_o, want_lse), plain_fwd_ms = time_one_ms(
+            lambda: fa.flash_attention_plain(*sub[:3], return_lse=True))
+        want, plain_bwd_ms = time_one_ms(
+            lambda: fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4]))
+        check_s = (plain_fwd_ms + plain_bwd_ms) / 1e3
         lse_err = float((lse[:, heads] - want_lse).abs().max())
         o_err = rel_err(o[:, :, heads], want_o)
         errs = {gn: rel_err(got[:, :, heads], w)
@@ -1710,19 +1748,17 @@ def phase_720p_backward_kernels():
             raise AssertionError(f"720p {name}: lse abs err {lse_err}, o rel err {o_err}, "
                                  f"grad rel errs {errs}")
         del want_o, want_lse, want
-        long = max(sq, sk) >= 100_000
-        if long:     # the checked calls above were the warm-ups; one timed call each
+        if long and not huge:     # the checked calls above were the warm-ups
             fwd_ms = time_long_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps=1,
                                   warmup=0)
             bwd_ms = time_long_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
                                   reps=1, warmup=0)
-            # the plain versions are yardsticks of seconds per call: one call each
             plain_fwd_ms = time_long_ms(
                 lambda: fa.flash_attention_plain(*sub[:3], return_lse=True), reps=1, warmup=0)
             plain_bwd_ms = time_long_ms(
                 lambda: fa.flash_attention_bwd_plain(*sub[:4], lse[:, heads], sub[4]),
                 reps=1, warmup=0)
-        else:
+        elif not long:
             fwd_ms, _ = time_ms(lambda: fa.flash_attention_with_lse(q, k, v), reps=7, warmup=2)
             bwd_ms, _ = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
                                 reps=7, warmup=2)
@@ -1765,13 +1801,11 @@ def phase_720p_backward_kernels():
                          f"dkv_pass_ms={dkv_pass_ms:.4f} (bound {dkv_bound:.4f}, 8 units)")
         nolse_note, nolse_ms = "", None
         if name == "video_self":   # the forward without the LSE: the LSE's cost apart
-            o_nolse = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
+            o_nolse, nolse_ms = time_one_ms(lambda: fa.flash_attention(q, k, v))
             if not torch.equal(o_nolse, o):
                 raise AssertionError("720p video_self: the forward without the LSE differs from "
                                      "the forward with it")
             del o_nolse
-            nolse_ms = time_long_ms(lambda: fa.flash_attention(q, k, v), reps=1, warmup=0)
             nolse_note = f" nolse_ms={nolse_ms:.4f} (the forward without the LSE, o bit-equal)"
         prep_note, prep = "", None
         if name == "video_self":   # the delta preprocess at the path's largest query length
@@ -1786,14 +1820,19 @@ def phase_720p_backward_kernels():
                          f"`_delta` {prep_plain_ms:.4f}, not a yardstick; "
                          f"delta_rel_err={prep_err:.3e})")
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        lib_fwd_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        out = F.scaled_dot_product_attention(qt, kt, vt)
+        if huge:   # a warm-up whose graph the backward takes, then one timed call each
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            lib_fwd_ms = time_one_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))[1]
+        else:
+            lib_fwd_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
 
         def sdpa_bwd():
-            return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=not huge)
 
-        lib_bwd_ms = (time_long_ms(sdpa_bwd, reps=1) if long else
+        lib_bwd_ms = (time_long_ms(sdpa_bwd, reps=1, warmup=0) if huge else
+                      time_long_ms(sdpa_bwd, reps=1) if long else
                       time_ms(sdpa_bwd, reps=7, warmup=2)[0])
         fwd_bound, fwd_by = attention_bound_ms(1, n, sq, sk, sk, lse=True)
         bwd_bound, bwd_by = attention_bwd_bound_ms(1, n, sq, sk, sk)
@@ -1927,14 +1966,18 @@ def phase_train_720p(cfg, modules, root: str):
 # video-only tail layers x 2, per pass, x 2 passes x 4 steps
 # the full-depth requests of phases 14-15: phase 5's at 2 steps (step 0 on the high-noise
 # expert, step 1 on the low-noise one: shift 5 puts t = 833 below the 900 boundary), cut from
-# 4 to make room for the group-streamed requests; per request (30 shared layers x 6
-# attentions + 10 tail layers x 2) x 2 CFG passes x 2 steps
+# 4 to make room for the group-streamed requests, and at 49 frames (11,440 video tokens, the
+# training recipe's clip) instead of 193 to make room for phase 28; the 103 audio tokens take
+# plain attention, so per request (30 shared layers x 3 video-side attentions + 10 tail
+# layers x 2) x 2 CFG passes x 2 steps
 FULL_DEPTH_STEPS = 2
-FULL_DEPTH_REQUEST = dict(REQUEST, num_inference_steps=FULL_DEPTH_STEPS)
+FULL_DEPTH_FRAMES = 49
+FULL_DEPTH_REQUEST = dict(REQUEST, num_inference_steps=FULL_DEPTH_STEPS,
+                          num_frames=FULL_DEPTH_FRAMES)
 # phase 15's fp8-resident request: one step (the high-noise expert), cut from 2 to make room
 # for the training world of phase 25
-FP8_REQUEST = dict(REQUEST, num_inference_steps=1)
-FULL_DEPTH_LAUNCHES = (30 * 6 + 10 * 2) * 2 * FULL_DEPTH_STEPS
+FP8_REQUEST = dict(FULL_DEPTH_REQUEST, num_inference_steps=1)
+FULL_DEPTH_LAUNCHES = (30 * 3 + 10 * 2) * 2 * FULL_DEPTH_STEPS
 # the group-streamed request: the CLI's default group size
 GROUP_SIZE = 8
 # bf16 masters of the full-depth model fit the card's host: 101 GiB (`free -g` on the
@@ -1943,6 +1986,11 @@ GROUP_SIZE = 8
 FULL_DEPTH_MASTER_DTYPE = "bfloat16"
 MEMORY_RETURN_GIB = 1.0
 OPTIONS_REL_TOL = 2e-2
+# phase 16's requests: phase 5's at 49 frames (cut from 193 to make room for phase 28); the
+# 103 audio tokens take plain attention, so (2 shared layers x 3 video-side attentions + 1
+# tail layer x 2) x 2 CFG passes x 4 steps
+OPTIONS_REQUEST = dict(REQUEST, num_frames=49)
+OPTIONS_LAUNCHES = (2 * 3 + 1 * 2) * 2 * 4
 
 
 def _host_memory():
@@ -2271,7 +2319,7 @@ def phase_full_depth_fp8():
 
 def phase_sampler_options():
     """Phase 16: the sampler's serving options on the card at phase 5's
-    geometry and modules (depth cut, seed 0)."""
+    frame size and modules (depth cut, seed 0), 49 frames."""
     import numpy as np
     import torch
 
@@ -2296,15 +2344,15 @@ def phase_sampler_options():
     attn_mod.flash_attention = spy
     try:
         (batched, _, b_steps, _), b_counts = _count_flash(lambda: _serve_request(
-            pipe, prompt, 0, REQUEST, np.random.default_rng(16), cfg_batch=True))
+            pipe, prompt, 0, OPTIONS_REQUEST, np.random.default_rng(16), cfg_batch=True))
     finally:
         attn_mod.flash_attention = real
     (single, _, s_steps, _), s_counts = _count_flash(lambda: _serve_request(
-        pipe, prompt, 0, REQUEST, np.random.default_rng(16)))
+        pipe, prompt, 0, OPTIONS_REQUEST, np.random.default_rng(16)))
     plain = MOVAPipeline(cfg, modules, tokenizer=ByteTokenizer(),
                          compute_dtype=torch.bfloat16, device="cuda")
     (cached, _, c_steps, _), c_counts = _count_flash(lambda: _serve_request(
-        plain, prompt, 0, REQUEST, np.random.default_rng(16), cfg_cache_interval=2))
+        plain, prompt, 0, OPTIONS_REQUEST, np.random.default_rng(16), cfg_cache_interval=2))
     # the same modules moved to page-locked host memory and staged per phase
     for m in modules.values():
         offload.to_host(m, "cuda")
@@ -2312,7 +2360,7 @@ def phase_sampler_options():
                           compute_dtype=torch.bfloat16, device="cuda", mask_ctx_pad=True,
                           offload="component")
     (restaged, _, r_steps, _), r_counts = _count_flash(lambda: _serve_request(
-        staged, prompt, 0, REQUEST, np.random.default_rng(16)))
+        staged, prompt, 0, OPTIONS_REQUEST, np.random.default_rng(16)))
     rel = float(np.linalg.norm(batched.video.astype(np.float32) - single.video.astype(np.float32))
                 / np.linalg.norm(single.video.astype(np.float32)))
     rel_audio = float(np.linalg.norm(batched.audio - single.audio)
@@ -2332,25 +2380,26 @@ def phase_sampler_options():
         f"page-locked host memory): launches {r_counts}; steps "
         f"{', '.join(f'{x:.2f}' for x in r_steps)} s; bit-equal to resident: {same}")
     for res in (batched, single, cached, restaged):
-        _check_result(res, REQUEST)
+        _check_result(res, OPTIONS_REQUEST)
     if not same or r_counts != s_counts:
         raise AssertionError("the staged request differs from the resident one")
-    if b_counts != {"exact": LAUNCHES_PER_REQUEST // 2, "cap": 0, "sage": 0}:
+    if b_counts != {"exact": OPTIONS_LAUNCHES // 2, "cap": 0, "sage": 0}:
         raise AssertionError(f"batched launches {b_counts}, expected "
-                             f"{LAUNCHES_PER_REQUEST // 2}")
-    if len(calls) != LAUNCHES_PER_REQUEST // 2 or any(b != 2 for b, _ in calls):
-        raise AssertionError(f"batched calls {[b for b, _ in calls]}, expected 56 at B = 2")
+                             f"{OPTIONS_LAUNCHES // 2}")
+    if len(calls) != OPTIONS_LAUNCHES // 2 or any(b != 2 for b, _ in calls):
+        raise AssertionError(f"batched calls {[b for b, _ in calls]}, expected "
+                             f"{OPTIONS_LAUNCHES // 2} at B = 2")
     if not with_len or any(len(lens) != 2 or lens[0] == lens[1] == 512 for lens in with_len):
         raise AssertionError(f"text cross-attention kv lengths {with_len}")
-    if s_counts["exact"] != LAUNCHES_PER_REQUEST:
+    if s_counts["exact"] != OPTIONS_LAUNCHES:
         raise AssertionError(f"unbatched launches {s_counts}")
     # the cached request runs its negative pass at steps i % 2 == 0 and at each
     # expert's first step: one positive pass per step, one negative per refresh
-    steps = REQUEST["num_inference_steps"]
-    plain.scheduler.set_timesteps(steps, shift=REQUEST["sigma_shift"])
+    steps = OPTIONS_REQUEST["num_inference_steps"]
+    plain.scheduler.set_timesteps(steps, shift=OPTIONS_REQUEST["sigma_shift"])
     boundary = build_plan(plain.scheduler, cfg.boundary_ratio).boundary_step
     refreshes = {i for i in range(steps) if i % 2 == 0 or i == boundary}
-    want = {"exact": LAUNCHES_PER_REQUEST // (2 * steps) * (steps + len(refreshes)),
+    want = {"exact": OPTIONS_LAUNCHES // (2 * steps) * (steps + len(refreshes)),
             "cap": 0, "sage": 0}
     if c_counts != want:
         raise AssertionError(f"cfg_cache_interval=2 launches {c_counts}, expected {want} "
@@ -2366,6 +2415,9 @@ def phase_sampler_options():
 # a little
 FOLD_REL_TOL = 1e-6
 CLI_AUDIO_REL_TOL = 1e-5
+# the profiled fp8 request's steps (step 0 on the high-noise expert, step 1 on the low-noise
+# one), cut from 4 to make room for phase 28: the trace's export takes longer than the steps
+PROFILED_STEPS = 2
 LORA_RANK, LORA_ALPHA, LORA_SCALE = 16, 16.0, 0.75
 
 
@@ -2553,17 +2605,20 @@ def phase_checkpoint_cli(first, root: str):
                              f"(limit {audio_limit:.3e})")
     written = [_write_av(os.path.join(root, "base.mp4"), base)]
 
-    # 3. fp8 storage, profiled
+    # 3. fp8 storage, profiled, at PROFILED_STEPS steps
     trace_dir = os.path.join(root, "profile")
     args8 = cli.parse_args(["--ckpt_path", ckpt, "--weight_dtype", "fp8", "--profile",
-                            trace_dir] + request)
+                            trace_dir] + request
+                           + ["--num_inference_steps", str(PROFILED_STEPS)])
+    want8 = dict(want, exact=LAUNCHES_PER_REQUEST // REQUEST["num_inference_steps"]
+                 * PROFILED_STEPS)
     t0 = time.perf_counter()
     (res8, pipe8), counts8 = _count_flash(lambda: cli.run(
         args8, tokenizer=ByteTokenizer(), image=first["image"]))
-    log(f"[cli] fp8 request, profiled (load, generate, trace export) "
+    log(f"[cli] fp8 request ({PROFILED_STEPS} steps), profiled (load, generate, trace export) "
         f"{time.perf_counter() - t0:.2f} s; launches {counts8}")
-    if counts8 != want:
-        raise AssertionError(f"fp8 CLI launches {counts8}, expected {want}")
+    if counts8 != want8:
+        raise AssertionError(f"fp8 CLI launches {counts8}, expected {want8}")
     for name in ("video_dit", "video_dit_2", "audio_dit", "bridge", "text_encoder"):
         cast = dnn.cast_modules_fp8(copy.deepcopy(pipe.modules[name]))
         loaded = dict(pipe8.modules[name].named_parameters())
@@ -2592,7 +2647,6 @@ def phase_checkpoint_cli(first, root: str):
             f"{o['calls']:6d} calls: {o['name'][:110]}")
     if total_us <= 0:
         log("[cli] the profiler's averages hold no device time")
-    written.append(_write_av(os.path.join(root, "fp8.mp4"), res8))
     del pipe8, res8, pipe
     torch.cuda.empty_cache()
 
@@ -2653,9 +2707,9 @@ def phase_checkpoint_cli(first, root: str):
     rel = float(np.linalg.norm(resl.video.astype(np.float32) - base.video.astype(np.float32))
                 / np.linalg.norm(base.video.astype(np.float32)))
     log(f"[cli] LoRA video rel L2 against the base request {rel:.3e}")
-    written.append(_write_av(os.path.join(root, "lora.mp4"), resl))
 
-    # 5. the files
+    # 5. the file (the base request's clip alone: the fp8 and LoRA clips would be the same
+    # writer's work)
     log("[cli] wrote " + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB"
                                    for p in written))
     return {"launches": counts["exact"] + counts8["exact"] + countsl["exact"],
@@ -2750,6 +2804,182 @@ def phase_group_cli(first, ckpt: dict, root: str):
     del pipe
     shutil.rmtree(store, ignore_errors=True)
     return launches
+
+
+# phase 28: the port's first 720p request: examples/inference_720p.sh's flags with
+# --vae_encode_dtype bf16 through `cli.inference_single.run` on phase 17's depth-cut
+# checkpoint, at the fewest steps at which the plan both switches experts and reuses the
+# cached negative prediction (3 at shift 5: the switch at step 2, the negative pass at steps
+# 0 and 2, reused at 1)
+REQUEST_720P = dict(height=720, width=1280, num_frames=193, video_fps=24.0,
+                    num_inference_steps=3, sigma_shift=5.0, cfg_scale=5.0)
+FLAGS_720P = ["--offload", "group", "--weight_dtype", "fp8", "--cfg_cache_interval", "3",
+              "--offload_resident_small", "--vae_encode_dtype", "bf16"]
+CACHE_INTERVAL_720P = 3
+PROMPT_720P = "A kitten playing a tiny piano on stage"   # the recipe's default
+# B1 calls per pass at the depth cut: 6 attentions in each of 2 shared layers, 2 in the tail
+CALLS_PER_PASS = 2 * 6 + 1 * 2
+# the bf16 encode's condition latents against an fp32 encode of the same frame
+ENCODE_REL_TOL_720P = 3e-2
+
+
+def _plan_720p(cfg):
+    """(expert boundary step, steps with a negative pass, forward passes) of the
+    720p request's plan, from the sampler's own rule (`cfg_passes`)."""
+    from dualforce_tpu_torch.diffusion.flow_match import FlowMatchPairScheduler
+    from dualforce_tpu_torch.diffusion.sampler import build_plan
+
+    steps = REQUEST_720P["num_inference_steps"]
+    sched = FlowMatchPairScheduler(cfg.scheduler)
+    sched.set_timesteps(steps, shift=REQUEST_720P["sigma_shift"])
+    boundary = build_plan(sched, cfg.boundary_ratio).boundary_step
+    negative = [i for start, stop in ((0, boundary), (boundary, steps))
+                for i in range(start, stop) if i == start or i % CACHE_INTERVAL_720P == 0]
+    return boundary, negative, cfg_passes(steps, boundary, CACHE_INTERVAL_720P)
+
+
+def phase_720p_request(ckpt: dict, root: str):
+    """Phase 28: one 1280x720x193 request through `cli.inference_single.run`
+    with `FLAGS_720P` (group streaming, fp8 storage, the negative cache, the
+    audio tower and bridge resident, the bf16 VAE encode) on phase 17's
+    checkpoint; then the request's prepare alone again with the fp32 encode.
+    Checks the clip's shapes, B1's launches (exactly `CALLS_PER_PASS` per
+    pass, no cap, sage or plain attention), and the bf16 condition latents
+    within `ENCODE_REL_TOL_720P` of the fp32 ones; prints each phase's
+    seconds, the peaks and the group stream's bytes per step."""
+    import numpy as np
+    import torch
+
+    from dualforce_tpu_torch.cli import inference_single as cli
+    from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
+    from dualforce_tpu_torch.diffusion.streamed import StreamStats
+    from dualforce_tpu_torch.ops import attention as attn
+
+    r = REQUEST_720P
+    args = cli.parse_args([
+        "--ckpt_path", ckpt["ckpt"], "--prompt", PROMPT_720P, "--negative_prompt", "",
+        "--ref_path", "unused (first frame given)", "--seed", "42",
+        "--num_frames", str(r["num_frames"]), "--fps", str(r["video_fps"]),
+        "--height", str(r["height"]), "--width", str(r["width"]),
+        "--num_inference_steps", str(r["num_inference_steps"]),
+        "--cfg_scale", str(r["cfg_scale"]), "--sigma_shift", str(r["sigma_shift"]),
+        "--output", os.path.join(root, "output_720p.mp4")] + FLAGS_720P)
+    image = np.random.default_rng(42).uniform(-1, 1, (r["height"], r["width"], 3)
+                                              ).astype(np.float32)
+
+    # spies on the request: the encode (its seconds, peak and condition), the prepare,
+    # each step (with the group stream's bytes), the decode; plain attention's calls
+    seen = {"peaks": [], "steps": [], "stream_gb": [], "plain": 0}
+    real = {n: getattr(MOVAPipeline, n)
+            for n in ("prepare_latents_batch", "prepare_state", "finalize_state")}
+    real_ref = attn.attention_ref
+
+    def encode(self, *a, **kw):
+        torch.cuda.synchronize()
+        seen["peaks"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real["prepare_latents_batch"](self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["encode_s"] = time.perf_counter() - t0
+        seen["encode_peak"] = torch.cuda.max_memory_allocated()
+        seen["condition"] = out[1][:, 4:].clone()
+        return out
+
+    def prepare(self, *a, **kw):
+        self.stream_stats = StreamStats()
+
+        def on_step(step, total):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            seen["steps"].append(now - seen["last"])
+            seen["stream_gb"].append(self.stream_stats.take()[0] / 1e9)
+            seen["last"] = now
+
+        self.progress_cb = on_step
+        t0 = time.perf_counter()
+        out = real["prepare_state"](self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["last"] = time.perf_counter()
+        seen["prepare_s"] = seen["last"] - t0
+        return out
+
+    def finalize(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real["finalize_state"](self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["decode_s"] = time.perf_counter() - t0
+        return out
+
+    def plain(*a, **kw):
+        seen["plain"] += 1
+        return real_ref(*a, **kw)
+
+    boundary, negative, passes = _plan_720p(main_path_config())
+    steps = r["num_inference_steps"]
+    reused = [i for i in range(steps) if i not in negative]
+    log(f"[720p] plan: {steps} steps, the low-noise expert from step {boundary}, the "
+        f"negative pass at steps {negative}, its prediction reused at {reused}: {passes} "
+        f"passes, {CALLS_PER_PASS * passes} B1 launches expected")
+    if not 0 < boundary < steps or not reused:
+        raise AssertionError(f"the 720p plan must switch experts and reuse the negative "
+                             f"pass: boundary {boundary}, reused {reused}")
+    want = {"exact": CALLS_PER_PASS * passes, "cap": 0, "sage": 0}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MOVAPipeline.prepare_latents_batch = encode
+    MOVAPipeline.prepare_state = prepare
+    MOVAPipeline.finalize_state = finalize
+    attn.attention_ref = plain
+    try:
+        t0 = time.perf_counter()
+        (res, pipe), counts = _count_flash(lambda: cli.run(args, tokenizer=ByteTokenizer(),
+                                                           image=image))
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    finally:
+        for n, f in real.items():
+            setattr(MOVAPipeline, n, f)
+        attn.attention_ref = real_ref
+    peak = max(seen["peaks"] + [seen["encode_peak"], torch.cuda.max_memory_allocated()])
+    t0 = time.perf_counter()
+    written = cli.save(args, res)
+    write_s = time.perf_counter() - t0
+    log(f"[720p] load and generate {request_s:.2f} s: prepare {seen['prepare_s']:.2f} s "
+        f"(bf16 encode {seen['encode_s']:.2f} s, peak "
+        f"{seen['encode_peak'] / 2**30:.2f} GiB), steps "
+        + ", ".join(f"{t:.2f}" for t in seen["steps"]) + " s (group stream "
+        + ", ".join(f"{g:.3f}" for g in seen["stream_gb"]) + f" GB), decode "
+        f"{seen['decode_s']:.2f} s; request peak {peak / 2**30:.2f} GiB; launches {counts}, "
+        f"plain attention {seen['plain']}; {os.path.basename(written)} "
+        f"({os.path.getsize(written) / 1e6:.1f} MB) written in {write_s:.2f} s")
+    _check_result(res, r)
+    if counts != want or seen["plain"]:
+        raise AssertionError(f"720p launches {counts} (expected {want}), plain attention "
+                             f"{seen['plain']} (expected 0)")
+
+    # the same prepare alone with the fp32 encode
+    pipe.vae_encode_dtype = None
+    gen = torch.Generator(pipe.device).manual_seed(42)
+    with pipe._staged("video_vae") as m:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, cond32 = pipe.prepare_latents_batch([image], r["height"], r["width"],
+                                               r["num_frames"], [gen], modules=m)
+        torch.cuda.synchronize()
+        fp32_s = time.perf_counter() - t0
+        fp32_peak = torch.cuda.max_memory_allocated()
+    err = rel_err(seen["condition"], cond32[:, 4:])
+    log(f"[720p] fp32 encode {fp32_s:.2f} s, peak {fp32_peak / 2**30:.2f} GiB; the bf16 "
+        f"encode's condition latents {tuple(seen['condition'].shape)} at rel L2 {err:.3e} "
+        f"from the fp32 one (limit {ENCODE_REL_TOL_720P})")
+    if not err <= ENCODE_REL_TOL_720P:
+        raise AssertionError(f"bf16 encode rel L2 {err:.3e} > {ENCODE_REL_TOL_720P}")
+    del pipe, res, cond32
+    return {"launches": counts["exact"], "request_s": request_s, "peak_gib": peak / 2**30,
+            "step_s": seen["steps"], "decode_s": seen["decode_s"]}
 
 
 # phase 23: the model code A9 ported. Pooled AdaLN at 360p token geometry in bf16 against
@@ -3260,6 +3490,50 @@ def cfg_passes(steps: int, boundary: int, interval: int) -> int:
     return steps + neg
 
 
+def _check_in_process_groups(pipe, requests, root: str) -> None:
+    """Phase 20: every downloaded clip against its group run again in process,
+    saved the same way: the same frames and audio, the same bytes."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dualforce_tpu_torch.data.transforms import crop_and_resize, image_to_tensor
+    from dualforce_tpu_torch.utils.av_io import read_mjpeg_avi, save_video_with_audio
+
+    for names in (["a", "b"], ["e"], ["f"]):
+        rs = [requests[n] for n in names]
+        hh, ww = rs[0]["height"], rs[0]["width"]
+        images = [image_to_tensor(crop_and_resize(Image.open(io.BytesIO(r["image"]))
+                                                  .convert("RGB"), hh, ww)) for r in rs]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            results = pipe.generate(
+                [r["prompt"] for r in rs], images, negative_prompts=[r["negative"] for r in rs],
+                seeds=[r["seed"] for r in rs], height=hh, width=ww, num_frames=rs[0]["frames"],
+                video_fps=REQUEST["video_fps"],
+                num_inference_steps=REQUEST["num_inference_steps"],
+                cfg_scale=REQUEST["cfg_scale"], cfg_scale_bridge=0.0,
+                cfg_cache_interval=SERVE_CACHE_INTERVAL)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        for n, r, res in zip(names, rs, results):
+            _check_result(res, dict(REQUEST, num_frames=r["frames"], height=hh, width=ww))
+            path = save_video_with_audio(os.path.join(root, "serve_in_process", f"{n}.mp4"),
+                                         res.video, res.audio, fps=res.fps,
+                                         sample_rate=res.sample_rate)
+            got, want = read_mjpeg_avi(r["clip"]), read_mjpeg_avi(path)
+            with open(r["clip"], "rb") as f, open(path, "rb") as g:
+                same_bytes = f.read() == g.read()
+            same = (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+                    and got[2:] == want[2:])
+            log(f"[serve] {n}: the downloaded clip decodes to the in-process group's "
+                f"({gen_s:.2f} s): {same}; files byte-equal: {same_bytes}")
+            if not (same and same_bytes):
+                raise AssertionError(f"{n}: the served clip differs from the in-process one")
+
+
 def phase_serve_http(ckpt: str, root: str):
     """Phase 20: phase 17's checkpoint served by the port's own server
     (`cli.serve.build_server`) over HTTP on 127.0.0.1, with the studio's proxy
@@ -3497,53 +3771,30 @@ def phase_serve_http(ckpt: str, root: str):
         f"{sorted(set(seen))}; full workflow's prompt {full['rewritten_prompt']!r}, "
         f"artifacts {sorted(artifacts['artifacts'])}")
 
-    # every downloaded clip against its group run again in process, saved the same way
-    for names in (["a", "b"], ["e"], ["f"]):
-        rs = [requests[n] for n in names]
-        hh, ww = rs[0]["height"], rs[0]["width"]
-        images = [image_to_tensor(crop_and_resize(Image.open(io.BytesIO(r["image"]))
-                                                  .convert("RGB"), hh, ww)) for r in rs]
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            results = pipe.generate(
-                [r["prompt"] for r in rs], images, negative_prompts=[r["negative"] for r in rs],
-                seeds=[r["seed"] for r in rs], height=hh, width=ww, num_frames=rs[0]["frames"],
-                video_fps=REQUEST["video_fps"],
-                num_inference_steps=REQUEST["num_inference_steps"],
-                cfg_scale=REQUEST["cfg_scale"], cfg_scale_bridge=0.0,
-                cfg_cache_interval=SERVE_CACHE_INTERVAL)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        for n, r, res in zip(names, rs, results):
-            _check_result(res, dict(REQUEST, num_frames=r["frames"], height=hh, width=ww))
-            path = save_video_with_audio(os.path.join(root, "serve_in_process", f"{n}.mp4"),
-                                         res.video, res.audio, fps=res.fps,
-                                         sample_rate=res.sample_rate)
-            got, want = read_mjpeg_avi(r["clip"]), read_mjpeg_avi(path)
-            with open(r["clip"], "rb") as f, open(path, "rb") as g:
-                same_bytes = f.read() == g.read()
-            same = (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
-                    and got[2:] == want[2:])
-            log(f"[serve] {n}: the downloaded clip decodes to the in-process group's "
-                f"({gen_s:.2f} s): {same}; files byte-equal: {same_bytes}")
-            if not (same and same_bytes):
-                raise AssertionError(f"{n}: the served clip differs from the in-process one")
-
-    # the eval CLI on a downloaded clip (e's, 49 frames), against its reference frame
+    # the eval CLI on a downloaded clip (e's, 49 frames), against its reference frame: a
+    # process of its own on the host's cores, beside the in-process groups below
     ref = os.path.join(root, "serve_downloads", "e_ref.png")
     with open(ref, "wb") as f:
         f.write(requests["e"]["image"])
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "dualforce_tpu_torch.cli.eval",
-                           requests["e"]["clip"], "--first_frame", ref],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"the eval CLI failed:\n{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout)
+    eval_t0 = time.perf_counter()
+    eval_proc = subprocess.Popen([sys.executable, "-m", "dualforce_tpu_torch.cli.eval",
+                                  requests["e"]["clip"], "--first_frame", ref],
+                                 cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        _check_in_process_groups(pipe, requests, root)
+        eval_out, eval_err = eval_proc.communicate(timeout=600)
+    finally:
+        if eval_proc.poll() is None:
+            eval_proc.kill()
+            eval_proc.communicate()
+    if eval_proc.returncode != 0:
+        raise AssertionError(f"the eval CLI failed:\n{eval_err[-3000:]}")
+    report = json.loads(eval_out)
     numbers = {f"{k}.{m}": v for k in ("first_frame", "temporal", "audio")
                for m, v in report[k].items()}
-    log(f"[serve] eval CLI on e's clip in {time.perf_counter() - t0:.2f} s: {numbers}")
+    log(f"[serve] eval CLI on e's clip in {time.perf_counter() - eval_t0:.2f} s (beside the "
+        f"in-process groups): {numbers}")
     if not all(math.isfinite(v) for v in numbers.values()):
         raise AssertionError(f"the eval CLI's numbers are not finite: {numbers}")
     log(f"[serve] from build_server to the last download {serve_wall:.1f} s")
@@ -3965,11 +4216,18 @@ def phase_full_ft(first, ckpt: str, root: str, smi: str):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the first two steps again with remat_save_attention
-    trainer, kept, _, peak_kept, _ = _train_full_ft(
-        base + [f"trainer.save_dir={os.path.join(root, 'full_ft_remat_save')}",
-                f"trainer.max_steps={FULL_FT_SAVE_STEPS}",
-                "trainer.remat_save_attention=true"])
+    # (c) the first two steps again with remat_save_attention; the run's final save (the
+    # export and a state.pt of ~11.5 GB, which (a) wrote and read back) is left out
+    from dualforce_tpu_torch.engine.trainer import LoRATrainer
+
+    restore = _patch(LoRATrainer, "save", lambda real: lambda self: None)
+    try:
+        trainer, kept, _, peak_kept, _ = _train_full_ft(
+            base + [f"trainer.save_dir={os.path.join(root, 'full_ft_remat_save')}",
+                    f"trainer.max_steps={FULL_FT_SAVE_STEPS}",
+                    "trainer.remat_save_attention=true"])
+    finally:
+        restore()
     for i, (a, b) in enumerate(zip(steps, kept)):
         log(f"[fullft] remat_save_attention step {i + 1}: loss {b['loss']:.6f} (full remat "
             f"{a['loss']:.6f}), grad_norm {b['grad_norm']:.6f} ({a['grad_norm']:.6f}), "
@@ -3996,7 +4254,7 @@ def phase_full_ft(first, ckpt: str, root: str, smi: str):
                                  f"{FULL_FT_NORM_REL_TOL}), per-parameter {leaf:.3e} "
                                  f"(limit {FULL_FT_LEAF_REL_TOL})")
     del trainer
-    shutil.rmtree(os.path.join(root, "full_ft_remat_save"))
+    shutil.rmtree(os.path.join(root, "full_ft_remat_save"), ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5134,6 +5392,9 @@ def main() -> int:
         group_cli = timed_phase("groupcli", phase_group_cli, first, ckpt, ckpt_root)
         gc.collect()
         torch.cuda.empty_cache()
+        req720 = timed_phase("720p-request", phase_720p_request, ckpt, ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
         timed_phase("model", phase_model_code, ckpt["audio_latents"])
         gc.collect()
         torch.cuda.empty_cache()
@@ -5169,7 +5430,7 @@ def main() -> int:
                      + full["group_launches"] + full["small_launches"]
                      + fp8["launches"] + options["cfg_batch"] + options["unbatched"]
                      + options["cfg_cache_interval_2"] + ckpt["launches"]
-                     + sum(group_cli.values()) + lr_l["fwd"]
+                     + sum(group_cli.values()) + req720["launches"] + lr_l["fwd"]
                      + cli_l["fwd"] + train_cli["serve"] + serve_http["launches"]
                      + ft_l["fwd"] + ft_save_l["fwd"] + sp["cp2"] + sp["fsdp2"]
                      + sum(m["flash_fwd"] for m in mesh.values()) + sum(served.values())
@@ -5187,6 +5448,7 @@ def main() -> int:
                              "serve_mask_ctx_pad": options["unbatched"],
                              "serve_cfg_cache_interval_2": options["cfg_cache_interval_2"],
                              "serve_cli_checkpoint": ckpt["launches"], **group_cli,
+                             "serve_cli_720p": req720["launches"],
                              "train_low_resource_full_depth": lr_l["fwd"],
                              "train_cli": cli_l["fwd"], "serve_cli_trained_lora":
                              train_cli["serve"], "serve_http": serve_http["launches"],
@@ -5199,6 +5461,7 @@ def main() -> int:
         "full_depth_staged_peak_gib": full["peak_gib"],
         "full_depth_group_peaks_gib": full["group_peaks_gib"],
         "full_depth_fp8_peak_gib": fp8["peak_gib"],
+        "serve_cli_720p_peak_gib": req720["peak_gib"],
         "max_abs_err": max(max_abs, bwd_max_abs["fwd"], max_abs_720p["fwd"]),
         "ms": video_self["kernel_ms"],
         "plain_ms": video_self["plain_ms"],

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from dualforce_tpu_torch import registry  # noqa: F401
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for

@@ -114,8 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cross-attend only the prompt's tokens through the kernel's "
                         "kv mask (the reference attends the zero pads)")
     p.add_argument("--vae_encode_dtype", type=str, default=None, choices=["fp32", "bf16"],
-                   help="the VAE encode's compute dtype: fp32 only; bf16 is not "
-                        "ported yet (ROADMAP A1)")
+                   help="VAE encoder compute dtype for prepare_latents; bf16 halves the "
+                        "streaming encode's activation memory (the JAX CLI needs it at "
+                        "720p on 16 GB chips)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="write a torch.profiler trace of the generation to DIR "
                         "(trace.json, and device_ops.json with time per operation)")
@@ -127,17 +128,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    """Exit, naming the ROADMAP item, where a flag asks for a part that is
-    not ported yet, or (as the JAX CLI does) for a disk store without
-    offload or offload under a mesh."""
+    """Exit where the JAX CLI refuses the flags: a disk store without
+    offload, or offload under a mesh. Every flag of the JAX CLI is ported."""
     if args.cp_size * args.fsdp_size > 1 and offload_mode(args) != "none":
         raise SystemExit("--offload is for single-chip runs; use --fsdp_size to shard "
                          "weights across chips instead")
     if getattr(args, "offload_to_disk_path", None) and args.offload == "none":
         raise SystemExit("--offload_to_disk_path requires --offload cpu/group/component")
-    if getattr(args, "vae_encode_dtype", None) == "bf16":
-        raise SystemExit("--vae_encode_dtype bf16 is not ported yet (ROADMAP A1); the "
-                         "VAE encodes fp32 tensors")
 
 
 def offload_mode(args: argparse.Namespace) -> str:
@@ -267,7 +264,7 @@ def run(args: argparse.Namespace, tokenizer=None, image=None, dtype=None):
                         tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
                         quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad, mesh=mesh,
-                        **offload_kwargs(args))
+                        vae_encode_dtype=args.vae_encode_dtype, **offload_kwargs(args))
     frame = first_frame(args, image)
     trace = args.profile if rank() == 0 else None
     with profile_trace(trace), device_timer("generation", device):

@@ -62,8 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "attend-the-zero-pads semantics)")
     ap.add_argument("--vae_encode_dtype", type=str, default=None,
                     choices=["fp32", "bf16"],
-                    help="the VAE encode's compute dtype: fp32 only; bf16 is not "
-                         "ported yet (ROADMAP A1)")
+                    help="VAE encoder compute dtype for prepare_latents; bf16 halves "
+                         "the streaming encode's activation memory (the JAX server needs "
+                         "it at 720p on 16 GB chips)")
     ap.add_argument("--weight_dtype", type=str, default="bf16",
                     choices=["bf16", "fp8"],
                     help="fp8 stores the matmul weights as float8_e4m3 (half the "
@@ -141,7 +142,7 @@ def build_server(args: argparse.Namespace, tokenizer=None, dtype=None):
     pipe = MOVAPipeline(cfg, modules, tokenizer=tokenizer or load_tokenizer(args.ckpt_path),
                         compute_dtype=dtype, device=device, attn_impl=args.attn_type,
                         quantize=args.quantize, mask_ctx_pad=args.mask_ctx_pad, mesh=mesh,
-                        **offload_kwargs(args))
+                        vae_encode_dtype=args.vae_encode_dtype, **offload_kwargs(args))
     print(f"[serve] checkpoint loaded and pipeline built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     if args.warmup:

@@ -1,15 +1,18 @@
 """Model and pipeline configuration dataclasses.
 
 A copy of the JAX package's configuration (its `config.py`): the same
-fields, defaults, `mova_360p()` preset and `tiny_test_config()`, kept here so
-that the port imports nothing of the JAX package. A test holds the two
-copies equal field for field.
+fields, defaults, `mova_360p()`/`mova_720p()` presets, `tiny_test_config()`
+and JSON helpers (`to_dict`, `save_json`, `load_json`), kept here so that
+the port imports nothing of the JAX package. Tests hold the two copies equal
+field for field and read each package's JSON with the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -205,6 +208,11 @@ def mova_360p() -> MOVAConfig:
     return MOVAConfig()
 
 
+def mova_720p() -> MOVAConfig:
+    """720p shares model configs with 360p; generation geometry differs."""
+    return MOVAConfig()
+
+
 def tiny_test_config(
     *,
     visual_layers: int = 2,
@@ -241,3 +249,47 @@ def tiny_test_config(
         text_encoder=UMT5Config(vocab_size=512, d_model=text_dim, d_kv=16, d_ff=64,
                                 num_layers=2, num_heads=2),
     )
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
+def save_json(cfg: Any, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2, default=list)
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    kwargs = {}
+    for f_ in dataclasses.fields(cls):
+        if f_.name not in d:
+            continue
+        v = d[f_.name]
+        sub = f_.type if isinstance(f_.type, type) else None
+        if dataclasses.is_dataclass(sub) and isinstance(v, dict):
+            v = _from_dict(sub, v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f_.name] = v
+    return cls(**kwargs)
+
+
+def load_json(cls, path: str):
+    """`cls` from a JSON file `save_json` wrote (either package's): nested
+    configs resolved by their fields' default types, lists made tuples."""
+    with open(path) as f:
+        d = json.load(f)
+    kwargs = {}
+    for f_ in dataclasses.fields(cls):
+        if f_.name not in d:
+            continue
+        v = d[f_.name]
+        default = (f_.default_factory() if f_.default_factory is not dataclasses.MISSING
+                   else f_.default)
+        if dataclasses.is_dataclass(default) and isinstance(v, dict):
+            v = _from_dict(type(default), v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[f_.name] = v
+    return cls(**kwargs)

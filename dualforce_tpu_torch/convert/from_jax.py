@@ -165,8 +165,10 @@ def wan_vae_state_dict(params, cfg: WanVAEConfig) -> StateDict:
         sd[f"{prefix}.bias"] = _np32(p["bias"])
 
     def norm(prefix, p, images: bool = False):
-        g = _np32(p["gamma"])
-        sd[f"{prefix}.gamma"] = g.reshape((-1, 1, 1) if images else (-1, 1, 1, 1))
+        shape = (-1, 1, 1) if images else (-1, 1, 1, 1)
+        sd[f"{prefix}.gamma"] = _np32(p["gamma"]).reshape(shape)
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _np32(p["bias"]).reshape(shape)
 
     def res_block(prefix, p):
         norm(f"{prefix}.residual.0", p["norm1"])

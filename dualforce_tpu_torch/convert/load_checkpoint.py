@@ -16,8 +16,10 @@ as F32 ones.
 The port's modules carry the MOVA/HF state-dict names, so most tensors load
 under their own names. The exceptions are those the JAX package's converters
 make: UMT5's embedding may be stored as `encoder.embed_tokens.weight`; the
-Wan VAE's norm gammas come in any shape and a scalar norm `bias` is dropped,
-and an absent `quant_conv`/`post_quant_conv` is the identity; the DAC's
+Wan VAE's norm gammas come in any shape, a per-channel norm `bias` builds the
+VAE with biased norms (`WanVAE(norm_bias=True)`; a norm given none gets
+zeros) while a scalar one is dropped, as the JAX loader reads them, and an
+absent `quant_conv`/`post_quant_conv` is the identity; the DAC's
 weight-normed convolutions (`weight_g`, `weight_v`, norm over axes 1 and 2,
 ConvTranspose1d keeping its input-channel axis) are folded in fp32. A
 parameter the checkpoint lacks raises; tensors that no parameter takes are
@@ -307,6 +309,18 @@ def _wn_fold(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return g * v / v.square().sum(dim=(1, 2), keepdim=True).sqrt()
 
 
+def _is_norm_bias(key: str, names) -> bool:
+    """Whether `key` is the bias of a Wan-VAE RMS norm among `names` (a
+    state dict's keys or a module's parameter names)."""
+    return key.endswith(".bias") and key[:-len(".bias")] + ".gamma" in names
+
+
+def _has_norm_bias(sd: StateDict) -> bool:
+    """A Wan-VAE checkpoint whose RMS norms carry per-channel biases (the
+    scalar 0 of an unbiased norm is dropped, as the JAX loader drops it)."""
+    return any(_is_norm_bias(k, sd) and sd[k].dim() for k in sd)
+
+
 def _sources(name: str, sd: StateDict, module: nn.Module, device: torch.device
              ) -> Tuple[StateDict, list]:
     """({parameter name: tensor to load}, checkpoint keys no parameter takes)."""
@@ -317,7 +331,10 @@ def _sources(name: str, sd: StateDict, module: nn.Module, device: torch.device
         key = pname
         if name == "text_encoder" and pname == "shared.weight" and key not in sd:
             key = "encoder.embed_tokens.weight"
-        if key in sd:
+        if name == "video_vae" and _is_norm_bias(pname, params) and (
+                key not in sd or not sd[key].dim()):
+            out[pname] = torch.zeros(p.shape)      # a norm the checkpoint gives no bias
+        elif key in sd:
             out[pname] = sd[key]
             used.add(key)
         elif name == "audio_vae" and pname.endswith(".weight") and f"{prefix}.weight_g" in sd:
@@ -333,17 +350,11 @@ def _sources(name: str, sd: StateDict, module: nn.Module, device: torch.device
         raise KeyError(f"{name}: the checkpoint lacks {len(missing)} parameters: "
                        f"{missing[:8]}")
     unused = sorted(set(sd) - used)
-    if name == "video_vae":
-        for k in unused:
-            norm = k[:-len(".bias")] + ".gamma"
-            if k.endswith(".bias") and norm in params and sd[k].dim():
-                raise NotImplementedError(f"video_vae: {k} is a norm bias with "
-                                          f"{sd[k].numel()} values; the port's RMS norm "
-                                          "holds none")
     for pname, p in params.items():
         x = out[pname]
         if x.shape != p.shape:
-            if x.numel() != p.numel() or not pname.endswith((".gamma", ".alpha")):
+            if x.numel() != p.numel() or not (pname.endswith((".gamma", ".alpha"))
+                                              or _is_norm_bias(pname, params)):
                 raise ValueError(f"{name}: {pname} is {tuple(x.shape)} in the checkpoint, "
                                  f"{tuple(p.shape)} in the module")
             out[pname] = x.reshape(p.shape)
@@ -359,12 +370,14 @@ def load_module(ckpt_dir: str, name: str, cfg: MOVAConfig,
     subdir, cls, sub_cfg = MODULES[name]
     fp8 = dtype in dnn.FP8_DTYPES
     mdtype = torch.float32 if name in VAES else (torch.bfloat16 if fp8 else dtype)
+    sd = load_state_dict(os.path.join(ckpt_dir, subdir))
+    kw = {"norm_bias": True} if name == "video_vae" and _has_norm_bias(sd) else {}
     with torch.device("meta"):
-        module = cls(sub_cfg(cfg), dtype=mdtype)
+        module = cls(sub_cfg(cfg), dtype=mdtype, **kw)
     if list(module.buffers()):
         raise NotImplementedError(f"{name}: modules with buffers are not loaded")
-    src, unused = _sources(name, load_state_dict(os.path.join(ckpt_dir, subdir)),
-                           module, device)
+    src, unused = _sources(name, sd, module, device)
+    del sd
     if unused:
         print(f"[load] {name}: {len(unused)} checkpoint tensors unused: {unused}")
     for pname, p in list(module.named_parameters()):

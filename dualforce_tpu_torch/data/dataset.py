@@ -29,6 +29,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from dualforce_tpu_torch.data import native
+from dualforce_tpu_torch.registry import DATASETS
 
 
 def resample(audio: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
@@ -58,6 +59,7 @@ def load_wav(path: str, target_sr: int) -> np.ndarray:
     return resample(raw, sr, target_sr)
 
 
+@DATASETS.register_module(name="VideoAudioDataset")
 class VideoAudioDataset:
     def __init__(self, metadata_path: str, height: int = 352, width: int = 640,
                  num_frames: int = 49, fps: float = 24.0, sample_rate: int = 48000):

@@ -2,16 +2,18 @@
 test holds them equal): the inference CLIs' first-frame `crop_and_resize`
 and `image_to_tensor`, `Compose`, and the `TV*` transforms, torchvision's
 semantics over PIL and numpy, which the reference registers by name for
-dataset configs. `TRANSFORMS` names them all; `Compose` builds a dict entry
-{"type": name, **kwargs} through it. The random ones draw from
+dataset configs. `TRANSFORMS` (the `registry.TRANSFORMS` registry) names them
+all; `Compose` builds a dict entry {"type": name, **kwargs} through it. The random ones draw from
 `np.random.default_rng(seed)` in the JAX package's order. PIL is imported
 where an image is made or resized."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Sequence
 
 import numpy as np
+
+from dualforce_tpu_torch.registry import TRANSFORMS
 
 _BILINEAR = 2       # PIL's Image.Resampling.BILINEAR
 
@@ -34,20 +36,10 @@ def image_to_tensor(image) -> np.ndarray:
     return np.asarray(image, np.float32) / 127.5 - 1.0
 
 
-def build(cfg: dict):
-    """The transform a {"type": name, **kwargs} entry names in `TRANSFORMS`."""
-    if not isinstance(cfg, dict) or "type" not in cfg:
-        raise TypeError(f"build() needs a dict with a 'type' key, got {cfg!r}")
-    cfg = dict(cfg)
-    name = cfg.pop("type")
-    if name not in TRANSFORMS:
-        raise KeyError(f"{name!r} not found in transforms; available: {sorted(TRANSFORMS)}")
-    return TRANSFORMS[name](**cfg)
-
-
 class Compose:
     def __init__(self, transforms: Sequence):
-        self.transforms = [build(t) if isinstance(t, dict) else t for t in transforms]
+        self.transforms = [TRANSFORMS.build(t) if isinstance(t, dict) else t
+                           for t in transforms]
 
     def __call__(self, x):
         for t in self.transforms:
@@ -184,12 +176,13 @@ class TVLambda:
         return self.lambd(x)
 
 
-# the JAX package's TRANSFORMS registry, by name
-TRANSFORMS: Dict[str, Callable] = {
+# the JAX package's TRANSFORMS registry's names
+for _name, _fn in {
     "Compose": Compose, "CropAndResize": crop_and_resize, "TVResize": TVResize,
     "TVCenterCrop": TVCenterCrop, "TVRandomCrop": TVRandomCrop,
     "TVRandomHorizontalFlip": TVRandomHorizontalFlip,
     "TVRandomVerticalFlip": TVRandomVerticalFlip, "TVGrayscale": TVGrayscale,
     "TVPad": TVPad, "TVToTensor": TVToTensor, "TVNormalize": TVNormalize,
     "TVLambda": TVLambda,
-}
+}.items():
+    TRANSFORMS.register_module(name=_name, module=_fn)

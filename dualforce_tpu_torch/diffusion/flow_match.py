@@ -1,9 +1,12 @@
 """Flow-matching schedulers.
 
 A copy of the JAX package's numpy schedulers (its
-`diffusion/flow_match.py`) without the registry decorators, kept here so
-that the port imports nothing of the JAX package. Tables are host-side numpy
-and static per generation config; the sampler reads its sigma columns.
+`diffusion/flow_match.py`), registered in the port's
+`registry.DIFFUSION_SCHEDULERS` under the same names and kept here so that
+the port imports nothing of the JAX package. Tables are host-side numpy and
+static per generation config; the sampler reads its sigma columns.
+`FlowMatchEulerDiscreteScheduler` is the diffusers-API scheduler; its
+`step` and `scale_noise` take torch tensors or numpy arrays.
 
 Formulas (flow_match.py):
   sigmas = linspace(sigma_start, sigma_min, N[+1][:-1])
@@ -23,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from dualforce_tpu_torch.config import SchedulerConfig
+from dualforce_tpu_torch.registry import DIFFUSION_SCHEDULERS
 
 
 def _build_sigmas(
@@ -69,6 +73,7 @@ def calculate_shift(
     return image_seq_len * m + b
 
 
+@DIFFUSION_SCHEDULERS.register_module()
 class FlowMatchScheduler:
     """Single-modality flow-matching Euler scheduler."""
 
@@ -157,6 +162,7 @@ class FlowMatchScheduler:
         return float(self.linear_timesteps_weights[tid])
 
 
+@DIFFUSION_SCHEDULERS.register_module()
 class FlowMatchPairScheduler(FlowMatchScheduler):
     """Paired (visual, audio) timesteps with optionally independent sigma
     columns per modality ("dual_sigma_shift", flow_match_pair.py:74-149)."""
@@ -235,3 +241,48 @@ class FlowMatchPairScheduler(FlowMatchScheduler):
         vis = np.array([self.timestep_to_sigma(t) for t in pairs[:, 0]] + [terminal], np.float32)
         aud = np.array([self.timestep_to_sigma(t) for t in pairs[:, 1]] + [terminal], np.float32)
         return vis, aud
+
+
+@DIFFUSION_SCHEDULERS.register_module()
+class FlowMatchEulerDiscreteScheduler:
+    """Diffusers-API flow-match Euler scheduler: set_timesteps(N),
+    `.timesteps`/`.sigmas` float32 arrays, `index_for_timestep`,
+    `scale_noise`, and step(..., return_dict=False) -> (prev_sample,).
+    sigmas = t / num_train_timesteps warped by `shift`, a terminal 0
+    appended."""
+
+    def __init__(self, num_train_timesteps: int = 1000, shift: float = 1.0, **_ignored):
+        self.num_train_timesteps = num_train_timesteps
+        self.shift = shift
+        t = np.linspace(1, num_train_timesteps, num_train_timesteps, dtype=np.float64)[::-1]
+        self._set_from_sigmas(t / num_train_timesteps)
+
+    def _set_from_sigmas(self, sigmas: np.ndarray) -> None:
+        sigmas = self.shift * sigmas / (1 + (self.shift - 1) * sigmas)
+        self.timesteps = (sigmas * self.num_train_timesteps).astype(np.float32)
+        self.sigmas = np.concatenate([sigmas, [0.0]]).astype(np.float32)
+        self._step_index = None
+
+    def set_timesteps(self, num_inference_steps: int) -> None:
+        self.num_inference_steps = num_inference_steps
+        sigmas = np.linspace(1.0, 1.0 / self.num_train_timesteps, num_inference_steps,
+                             dtype=np.float64)
+        self._set_from_sigmas(sigmas)
+
+    def index_for_timestep(self, timestep) -> int:
+        return int(np.argmin(np.abs(self.timesteps - float(timestep))))
+
+    def scale_noise(self, sample, timestep, noise):
+        sigma = float(self.sigmas[self.index_for_timestep(timestep)])
+        return (1 - sigma) * sample + sigma * noise
+
+    def step(self, model_output, timestep, sample, return_dict: bool = False):
+        if return_dict:
+            # raised before the index moves: a failed call leaves the trajectory as it was
+            raise NotImplementedError("return_dict output objects unsupported; "
+                                      "call with return_dict=False")
+        i = (self._step_index if self._step_index is not None
+             else self.index_for_timestep(timestep))
+        prev = sample + model_output * float(self.sigmas[i + 1] - self.sigmas[i])
+        self._step_index = i + 1
+        return (prev,)

@@ -36,9 +36,13 @@ from dualforce_tpu_torch.diffusion.streamed import denoise_streamed
 from dualforce_tpu_torch.models import dac_vae, umt5, wan_vae
 from dualforce_tpu_torch.ops.attention import ATTN_IMPLS
 from dualforce_tpu_torch.parallel import sharding
+from dualforce_tpu_torch.registry import DIFFUSION_PIPELINES
 
 QUANTIZE_MODES = ("none", "int8", "int4")
 QUANTIZED_TOWERS = ("video_dit", "video_dit_2", "audio_dit", "bridge")
+# the VAE encode's compute dtype by name (None: fp32, the checkpoint's)
+VAE_ENCODE_DTYPES = {None: None, "fp32": None, "f32": None, "float32": None,
+                     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
 def basic_clean(text: str) -> str:
@@ -72,6 +76,7 @@ class GenerationResult:
     fps: float
 
 
+@DIFFUSION_PIPELINES.register_module(name="MOVAPipeline")
 class MOVAPipeline:
     """Holds the modules and configs; drives tokenisation, encode, denoise and
     decode. modules: video_dit, video_dit_2 (optional), audio_dit, bridge,
@@ -83,7 +88,8 @@ class MOVAPipeline:
                  device="cuda", attn_impl="auto", quantize: str = "none",
                  offload: str = "none", mask_ctx_pad: bool = False,
                  offload_group_size: int = 8, offload_resident_small: bool = False,
-                 offload_resident_video_groups: int = 0, mesh=None):
+                 offload_resident_video_groups: int = 0, mesh=None,
+                 vae_encode_dtype: Optional[str] = None):
         """attn_impl: "auto" | "fast" | "sage" | "pallas" | "ref" | a callable,
         the route of every attention (`ops.attention.attention`).
 
@@ -134,13 +140,23 @@ class MOVAPipeline:
         streamed groups would carry fsdp shards). With `quantize`, sharded
         towers are quantized layer by layer from their gathered whole
         weights and sharded again (`parallel.sharding.quantize_sharded`):
-        the numbers of quantizing the whole tower, as in JAX."""
+        the numbers of quantizing the whole tower, as in JAX.
+
+        vae_encode_dtype: None, "fp32", "f32" or "float32" encode the first
+        frames in fp32; "bf16" or "bfloat16" run the Wan VAE's encoder in
+        bf16 (`wan_vae.encode_mode_streaming(compute_dtype=...)`: a bf16
+        copy of the encoder's parameters, staged or resident, for the call
+        alone; the quant conv stays fp32), which halves the encode's
+        activation memory at 720p. The condition goes on in fp32."""
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         if not callable(attn_impl) and attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if offload not in ("none", "component", "group"):
             raise ValueError(f"unknown offload mode {offload!r}")
+        if vae_encode_dtype not in VAE_ENCODE_DTYPES:
+            raise ValueError(f"unknown vae_encode_dtype {vae_encode_dtype!r}")
+        self.vae_encode_dtype = VAE_ENCODE_DTYPES[vae_encode_dtype]
         self.mesh = mesh if mesh is not None and mesh.size() > 1 else None
         if offload == "group" and self.mesh is not None:
             raise ValueError("offload='group' is a single-chip escape hatch; use cp/fsdp "
@@ -244,12 +260,14 @@ class MOVAPipeline:
             torch.randn((1, vcfg.z_dim, F_, lh, lw), generator=g, device=self.device)
             for g in generators])
 
-        # [first_frame, zeros...], built on the device from the first frames
+        # [first_frame, zeros...], built on the device from the first frames in the
+        # encode's dtype
+        enc_dt = self.vae_encode_dtype or torch.float32
         ff = torch.from_numpy(np.stack(first_frames).astype(np.float32)).to(self.device)
-        video = torch.zeros((b, num_frames) + ff.shape[1:], dtype=torch.float32,
-                            device=self.device)
+        video = torch.zeros((b, num_frames) + ff.shape[1:], dtype=enc_dt, device=self.device)
         video[:, 0] = ff
-        cond = wan_vae.encode_mode_streaming((modules or self.modules)["video_vae"], video)
+        cond = wan_vae.encode_mode_streaming((modules or self.modules)["video_vae"], video,
+                                             compute_dtype=self.vae_encode_dtype)
         del video
         cond = wan_vae.normalize_latents(cond, vcfg).permute(0, 4, 1, 2, 3).float()
 

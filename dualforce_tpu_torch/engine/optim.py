@@ -29,7 +29,8 @@ LoRA of the expert not trained in a step (every other step, or for
 `expert_switch_interval` steps under offload) would jump by ~1e3 x lr per
 step.
 
-The registry's other fourteen (`OPTIMIZERS`, `build_optimizer`) are the
+The registry's other fourteen (`OPTIMIZERS`, the `registry.OPTIMIZERS`
+registry; `build_optimizer`) are the
 optax families the JAX package registers under torch's names, computed as
 their optax chains compute them (not as the `torch.optim` class of the
 same name does): `clip_by_global_norm` outermost, then
@@ -68,6 +69,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from dualforce_tpu_torch.registry import OPTIMIZERS
 
 Schedule = Callable[[int], float]
 
@@ -708,7 +711,7 @@ def _adam(kw, **extra):
     return _Adam(b1, b2, kw.pop("eps", extra.pop("eps", 1e-8)), **extra)
 
 
-OPTIMIZERS: Dict[str, Callable[..., Any]] = {
+for _name, _factory in {
     "AdamW": AdamW,
     "AdamW8bit": AdamW8bit,
     "Adam": _register("Adam", lambda kw: _adam(kw)),
@@ -734,7 +737,8 @@ OPTIMIZERS: Dict[str, Callable[..., Any]] = {
     "Adafactor": _register("Adafactor", lambda kw: _Adafactor(kw.pop("weight_decay", None))),
     "Novograd": _register("Novograd", lambda kw: _Novograd(
         *_betas(kw, (0.9, 0.25)), kw.pop("eps", 1e-8), kw.pop("weight_decay", 0.0))),
-}
+}.items():
+    OPTIMIZERS.register_module(name=_name, module=_factory)
 
 
 def build_optimizer(name: str, params: List[torch.Tensor], **kwargs):

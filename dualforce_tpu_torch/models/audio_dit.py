@@ -13,8 +13,10 @@ from torch import nn
 from dualforce_tpu_torch import nn as dnn
 from dualforce_tpu_torch.config import AudioDiTConfig
 from dualforce_tpu_torch.models.video_dit import DiTTower
+from dualforce_tpu_torch.registry import MODELS
 
 
+@MODELS.register_module(name="AudioDiT")
 class AudioDiT(DiTTower):
     """The audio tower (WanAudioModel)."""
 

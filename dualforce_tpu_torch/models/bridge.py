@@ -42,6 +42,7 @@ from dualforce_tpu_torch.ops.rope import apply_rope_half
 from dualforce_tpu_torch.parallel import mesh as pm
 from dualforce_tpu_torch.parallel.ring_attention import (inner_for_impl,
                                                          lse_combine_cross_attention)
+from dualforce_tpu_torch.registry import MODELS
 
 
 def _rotation(freqs):
@@ -232,6 +233,7 @@ class ShardedKV(NamedTuple):
     x_valid: Optional[int] = None
 
 
+@MODELS.register_module(name="DualTowerBridge")
 class DualTowerBridge(nn.Module):
     # fp8 storage (`dnn.fp8_stored`): the JAX tree stacks both conditioner
     # lists; the inner attention's `norm_q`/`norm_k` and `y_norm` stay bf16

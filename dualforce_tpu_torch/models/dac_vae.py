@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from dualforce_tpu_torch.config import DACVAEConfig
+from dualforce_tpu_torch.registry import MODELS
 
 
 class Snake1d(nn.Module):
@@ -138,6 +139,7 @@ class ResidualVectorQuantize(nn.Module):
                            device=device, dtype=dtype) for _ in range(cfg.n_codebooks))
 
 
+@MODELS.register_module(name="DACVAE")
 class DACVAE(nn.Module):
     def __init__(self, cfg: DACVAEConfig, device=None, dtype=None):
         super().__init__()

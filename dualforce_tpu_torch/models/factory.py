@@ -33,7 +33,7 @@ from dualforce_tpu_torch.models.bridge import DualTowerBridge, PerFramePooling
 from dualforce_tpu_torch.models.dac_vae import DACVAE
 from dualforce_tpu_torch.models.umt5 import UMT5Encoder
 from dualforce_tpu_torch.models.video_dit import VideoDiT
-from dualforce_tpu_torch.models.wan_vae import WanVAE
+from dualforce_tpu_torch.models.wan_vae import RMSNormCh, WanVAE
 
 _CONVS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose1d)
 
@@ -54,7 +54,7 @@ def _init_weights(module: nn.Module, gen: torch.Generator) -> None:
                 m.bias.uniform_(-bound, bound, generator=gen)
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(generator=gen)
-        elif isinstance(m, dnn.LayerNorm):
+        elif isinstance(m, dnn.LayerNorm) or (isinstance(m, RMSNormCh) and m.bias is not None):
             m.bias.zero_()
         elif isinstance(m, PerFramePooling):
             bound = 1.0 / math.sqrt(m.probe.shape[-1])
@@ -66,10 +66,10 @@ def _init_weights(module: nn.Module, gen: torch.Generator) -> None:
             p.normal_(generator=gen).div_(math.sqrt(p.shape[-1]))
 
 
-def _build(cls, cfg, device, dtype, gen, host: bool = False) -> nn.Module:
+def _build(cls, cfg, device, dtype, gen, host: bool = False, **kw) -> nn.Module:
     fp8 = dtype in dnn.FP8_DTYPES
     with torch.device("meta"):
-        module = cls(cfg, dtype=torch.bfloat16 if fp8 else dtype)
+        module = cls(cfg, dtype=torch.bfloat16 if fp8 else dtype, **kw)
     module = module.to_empty(device=device)
     _init_weights(module, gen)
     if fp8:
@@ -83,19 +83,19 @@ def _build(cls, cfg, device, dtype, gen, host: bool = False) -> nn.Module:
 def init_pipeline_params(cfg: MOVAConfig, device="cuda",
                          dtype: torch.dtype = torch.bfloat16, seed: int = 0, *,
                          with_vaes: bool = True, with_text: bool = True,
-                         two_video_towers: Optional[bool] = None, host: bool = False
-                         ) -> Dict[str, nn.Module]:
+                         two_video_towers: Optional[bool] = None, host: bool = False,
+                         vae_norm_bias: bool = False) -> Dict[str, nn.Module]:
     """{"video_dit", "video_dit_2" (two experts), "audio_dit", "bridge",
     "video_vae", "audio_vae", "text_encoder"} with random weights, drawn on
     `device`; with `host`, handed back in host memory, one module at a
-    time."""
+    time. `vae_norm_bias`: the Wan VAE's RMS norms hold a bias (zeros)."""
     device = resolve_device(device)
     if two_video_towers is None:
         two_video_towers = cfg.two_video_towers
     gen = torch.Generator(device).manual_seed(seed)
 
-    def build(cls, sub_cfg, sub_dtype):
-        return _build(cls, sub_cfg, device, sub_dtype, gen, host)
+    def build(cls, sub_cfg, sub_dtype, **kw):
+        return _build(cls, sub_cfg, device, sub_dtype, gen, host, **kw)
 
     mods = {"video_dit": build(VideoDiT, cfg.video_dit, dtype)}
     if two_video_towers:
@@ -103,7 +103,8 @@ def init_pipeline_params(cfg: MOVAConfig, device="cuda",
     mods["audio_dit"] = build(AudioDiT, cfg.audio_dit, dtype)
     mods["bridge"] = build(DualTowerBridge, cfg.bridge, dtype)
     if with_vaes:
-        mods["video_vae"] = build(WanVAE, cfg.video_vae, torch.float32)
+        mods["video_vae"] = build(WanVAE, cfg.video_vae, torch.float32,
+                                  norm_bias=vae_norm_bias)
         mods["audio_vae"] = build(DACVAE, cfg.audio_vae, torch.float32)
     if with_text:
         mods["text_encoder"] = build(UMT5Encoder, cfg.text_encoder, dtype)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dualforce_tpu_torch.config import UMT5Config
+from dualforce_tpu_torch.registry import MODELS
 
 
 def _t5_ln(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -123,6 +124,7 @@ class _Stack(nn.Module):
         self.final_layer_norm = _T5LayerNorm(cfg.d_model, device, dtype)
 
 
+@MODELS.register_module(name="UMT5Encoder")
 class UMT5Encoder(nn.Module):
     # fp8 storage (`dnn.fp8_stored`): the JAX tree stacks `encoder.block`, and
     # names its RMSNorm scales `ln1`/`ln2`, so no leaf is exempt (HF's

@@ -18,6 +18,7 @@ from dualforce_tpu_torch import nn as dnn
 from dualforce_tpu_torch.config import VideoDiTConfig
 from dualforce_tpu_torch.ops.attention import attention
 from dualforce_tpu_torch.ops.rope import apply_rope_interleaved
+from dualforce_tpu_torch.registry import MODELS
 
 
 class Attention(nn.Module):
@@ -193,6 +194,7 @@ class DiTTower(nn.Module):
         return self.text_embedding(context)
 
 
+@MODELS.register_module(name="VideoDiT")
 class VideoDiT(DiTTower):
     """The video tower (WanModel): Conv3d patchify, 3D RoPE."""
 

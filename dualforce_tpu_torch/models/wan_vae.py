@@ -21,6 +21,7 @@ dtype at use, so fp32 weights serve a bf16 decode.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Optional, Tuple
 
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dualforce_tpu_torch.config import WanVAEConfig
+from dualforce_tpu_torch.registry import MODELS
 
 
 class _Cache:
@@ -75,19 +77,25 @@ class CausalConv3d(nn.Conv3d):
 
 
 class RMSNormCh(nn.Module):
-    """Wan RMS_norm over channels: x / ||x|| * sqrt(C) * gamma, fp32 math.
-    `images=True` gives gamma the 2D shape (C, 1, 1)."""
+    """Wan RMS_norm over channels: x / ||x|| * sqrt(C) * gamma (+ bias), fp32
+    math. `images=True` gives gamma the 2D shape (C, 1, 1). The per-channel
+    bias, gamma's shape, is None unless the VAE was built with `norm_bias`
+    (a checkpoint that carries one)."""
 
     def __init__(self, dim: int, images: bool = False, device=None, dtype=None):
         super().__init__()
         shape = (dim, 1, 1) if images else (dim, 1, 1, 1)
         self.gamma = nn.Parameter(torch.ones(shape, device=device, dtype=dtype))
+        self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         n = xf * torch.rsqrt(xf.square().sum(dim=1, keepdim=True) + 1e-12)
         gamma = self.gamma.float().reshape(1, -1, 1, 1, 1)
-        return (n * math.sqrt(x.shape[1]) * gamma).to(x.dtype)
+        y = n * math.sqrt(x.shape[1]) * gamma
+        if self.bias is not None:
+            y = y + self.bias.float().reshape(1, -1, 1, 1, 1)
+        return y.to(x.dtype)
 
 
 def _conv2d_frames(conv: nn.Conv2d, x: torch.Tensor, padding) -> torch.Tensor:
@@ -265,8 +273,12 @@ class Decoder(nn.Module):
         return self.head[2].stream(F.silu(self.head[0](h)), cache)
 
 
+@MODELS.register_module(name="WanVAE")
 class WanVAE(nn.Module):
-    def __init__(self, cfg: WanVAEConfig, device=None, dtype=None):
+    """`norm_bias`: every RMS norm holds a per-channel bias (zeros until set or
+    loaded), as a checkpoint written with biased norms needs."""
+
+    def __init__(self, cfg: WanVAEConfig, device=None, dtype=None, norm_bias: bool = False):
         super().__init__()
         self.cfg = cfg
         self.encoder = Encoder(cfg, device, dtype)
@@ -275,18 +287,41 @@ class WanVAE(nn.Module):
                                        dtype=dtype)
         self.post_quant_conv = CausalConv3d(cfg.z_dim, cfg.z_dim, 1, device=device,
                                             dtype=dtype)
+        if norm_bias:
+            for m in self.modules():
+                if isinstance(m, RMSNormCh):
+                    m.bias = nn.Parameter(torch.zeros_like(m.gamma))
 
 
-def encode_moments_streaming(vae: WanVAE, video: torch.Tensor,
-                             chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Memory-bounded encode in the video's dtype: video [B, T, H, W, 3] in
-    [-1, 1] -> (mean, logvar), each [B, F, H/8, W/8, z], F = (T - 1) / 4 + 1
-    (logvar as the quant conv gives it, unclipped). After the first frame,
-    chunks of `chunk` raw frames go through the encoder: by default the
-    largest multiple of 4 dividing T - 1 within a 16-frames-at-360p budget
-    scaled by the frame's pixel count; a `chunk` that is no multiple of 4
-    or does not divide T - 1 becomes 4."""
+def _cast_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of `module` whose parameters are `dtype` copies of its own (on
+    their device); the module itself is left as it is."""
+    memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
+            for p in module.parameters()}
+    return copy.deepcopy(module, memo)
+
+
+def encode_moments_streaming(vae: WanVAE, video: torch.Tensor, chunk: Optional[int] = None,
+                             compute_dtype: Optional[torch.dtype] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Memory-bounded encode: video [B, T, H, W, 3] in [-1, 1] -> (mean,
+    logvar), each [B, F, H/8, W/8, z], F = (T - 1) / 4 + 1 (logvar as the
+    quant conv gives it, unclipped). After the first frame, chunks of
+    `chunk` raw frames go through the encoder: by default the largest
+    multiple of 4 dividing T - 1 within a 16-frames-at-360p budget scaled by
+    the frame's pixel count; a `chunk` that is no multiple of 4 or does not
+    divide T - 1 becomes 4.
+
+    compute_dtype None runs in the video's dtype. A dtype runs the encoder
+    in it (the video, a copy of the encoder's parameters made for the call,
+    the carried caches), as the JAX package's `compute_dtype` does; the
+    encoder's output is cast to the quant conv's own dtype, which the quant
+    conv keeps. bf16 halves the encode's activation memory at 720p."""
     cfg = vae.cfg
+    encoder = vae.encoder
+    if compute_dtype is not None:
+        encoder = _cast_copy(encoder, compute_dtype)
+        video = video.to(compute_dtype)
     x = video.permute(0, 4, 1, 2, 3)
     T = x.shape[2]
     st = 2 ** sum(bool(t) for t in cfg.temperal_downsample)
@@ -299,19 +334,24 @@ def encode_moments_streaming(vae: WanVAE, video: torch.Tensor,
     elif chunk % st or (T - 1) % chunk:
         chunk = st
     cache = _Cache()
-    outs = [vae.encoder.chunk(x[:, :, :1], cache, True)]
+    outs = [encoder.chunk(x[:, :, :1], cache, True)]
     for s in range(1, T, chunk):
         cache = _Cache(cache.written)
-        outs.append(vae.encoder.chunk(x[:, :, s:s + chunk], cache, False))
-    moments = vae.quant_conv.conv(torch.cat(outs, dim=2))
+        outs.append(encoder.chunk(x[:, :, s:s + chunk], cache, False))
+    del cache, encoder
+    h = torch.cat(outs, dim=2)
+    del outs
+    if compute_dtype is not None:
+        h = h.to(vae.quant_conv.weight.dtype)
+    moments = vae.quant_conv.conv(h)
     return (moments[:, :cfg.z_dim].permute(0, 2, 3, 4, 1),
             moments[:, cfg.z_dim:].permute(0, 2, 3, 4, 1))
 
 
-def encode_mode_streaming(vae: WanVAE, video: torch.Tensor,
-                          chunk: Optional[int] = None) -> torch.Tensor:
+def encode_mode_streaming(vae: WanVAE, video: torch.Tensor, chunk: Optional[int] = None,
+                          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The mean of `encode_moments_streaming` (sample mode "argmax")."""
-    return encode_moments_streaming(vae, video, chunk)[0]
+    return encode_moments_streaming(vae, video, chunk, compute_dtype)[0]
 
 
 def _sample(mean: torch.Tensor, logvar: torch.Tensor, noise: Optional[torch.Tensor],
@@ -328,9 +368,11 @@ def _sample(mean: torch.Tensor, logvar: torch.Tensor, noise: Optional[torch.Tens
 def encode_sample_streaming(vae: WanVAE, video: torch.Tensor,
                             noise: Optional[torch.Tensor] = None,
                             generator: Optional[torch.Generator] = None,
-                            chunk: Optional[int] = None) -> torch.Tensor:
+                            chunk: Optional[int] = None,
+                            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A draw from the streaming encode's posterior (see `_sample`)."""
-    return _sample(*encode_moments_streaming(vae, video, chunk), noise, generator)
+    return _sample(*encode_moments_streaming(vae, video, chunk, compute_dtype), noise,
+                   generator)
 
 
 def encode_moments(vae: WanVAE, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

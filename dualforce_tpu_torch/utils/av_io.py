@@ -93,13 +93,15 @@ def write_mjpeg_avi(path: str, video: np.ndarray, fps: float,
 
     hdrl = lst(b"hdrl", chunk(b"avih", avih) + strl_v + strl_a)
 
-    movi_payload = b"movi"
+    # the chunks joined once at the end: appending each to one bytes object copies the
+    # stream so far every time (quadratic in the clip's size)
+    movi_parts = [b"movi"]
     index = []
     offset = 4
     for i, f in enumerate(frames):
         c = chunk(b"00dc", f)
         index.append((b"00dc", offset, len(f)))
-        movi_payload += c
+        movi_parts.append(c)
         offset += len(c)
         if pcm is not None:
             # interleave audio in per-frame slices
@@ -108,9 +110,9 @@ def write_mjpeg_avi(path: str, video: np.ndarray, fps: float,
             a = pcm[i * spf:(i + 1) * spf] if i < T - 1 else pcm[i * spf:]
             ac = chunk(b"01wb", a)
             index.append((b"01wb", offset, len(a)))
-            movi_payload += ac
+            movi_parts.append(ac)
             offset += len(ac)
-    movi = chunk(b"LIST", movi_payload)
+    movi = chunk(b"LIST", b"".join(movi_parts))
 
     idx = b"".join(
         cc + struct.pack("<3I", 0x10, off, size) for cc, off, size in index)

@@ -1,10 +1,11 @@
 """The port's inference CLIs (`dualforce_tpu_torch/cli/`) on the CPU: `--help`
 without JAX, PIL or transformers; every flag of the JAX package's CLIs
-accepted with the same destination, default and choices; each flag of a
-part not yet ported refused with its ROADMAP item; one tiny request
-through `inference_single.run` against the JAX package's pipeline; and the
-same request through `--offload group` (with its group size, resident
-audio and bridge, resident groups) and a disk store, bit-equal to it.
+accepted with the same destination, default and choices; the flags once
+refused with a ROADMAP item now passing; one tiny request through
+`inference_single.run` against the JAX package's pipeline; the same
+request through `--offload group` (with its group size, resident audio and
+bridge, resident groups) and a disk store, bit-equal to it; and through
+`--vae_encode_dtype bf16`, bit-equal to the in-process bf16 pipeline.
 
 The tiny request reads an fp32 checkpoint written by the port's writer and
 a PNG written with PIL, in fp32 weights and compute with `--attn_type ref`.
@@ -36,6 +37,7 @@ from dualforce_tpu_torch.cli import inference_single as cli
 from dualforce_tpu_torch.cli import inference_single_lora as lora_cli
 from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.convert import load_checkpoint as lc
+from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 from dualforce_tpu_torch.utils.av_io import read_mjpeg_avi
 
@@ -120,6 +122,8 @@ def test_flags_are_a_superset_of_the_jax_cli(script, monkeypatch):
     assert "--device" in port and port["--device"].default == "cuda"
 
 
+# the flags that once exited naming the ROADMAP item that would port them; all are
+# ported now
 UNPORTED = [
     (["--vae_encode_dtype", "bf16"], "A1"),
 ]
@@ -128,10 +132,13 @@ UNPORTED = [
 @pytest.mark.parametrize("extra,item", UNPORTED, ids=lambda x: "-".join(x)
                          if isinstance(x, list) else x)
 def test_unported_flags_exit_with_their_roadmap_item(extra, item, tmp_path):
+    """No flag of `UNPORTED` exits any more: each passes `refuse_unported`
+    and the run goes on to read the (absent) checkpoint."""
     base = ["--prompt", "x", "--ref_path", "x.png", "--device", "cpu"]
-    absent = str(tmp_path / "absent")   # nothing may be read before the refusal
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        cli.run(cli.parse_args(["--ckpt_path", absent] + base + extra))
+    args = cli.parse_args(["--ckpt_path", str(tmp_path / "absent")] + base + extra)
+    cli.refuse_unported(args)
+    with pytest.raises(FileNotFoundError):
+        cli.run(args)
 
 
 def test_accepted_no_op_flags_parse(tmp_path):
@@ -198,6 +205,32 @@ def test_tiny_request_output_file(tiny_run):
     assert video.shape == tiny_run["result"].video.shape
     assert audio.shape == tiny_run["result"].audio.shape
     assert (sample_rate, fps) == (48000, 24.0)
+
+
+def test_vae_encode_dtype_bf16_serves(tiny_run):
+    """`--vae_encode_dtype bf16` reaches the pipeline, and the request gives
+    the bits of the same request through an in-process
+    `MOVAPipeline(vae_encode_dtype="bf16")` on the loaded modules; the LoRA
+    CLI has no such flag, as the JAX script has none."""
+    args = cli.parse_args(["--ckpt_path", str(tiny_run["root"] / "ckpt"),
+                           "--ref_path", tiny_run["args"].ref_path, "--vae_encode_dtype",
+                           "bf16"] + REQUEST)
+    result, pipe = cli.run(args, tokenizer=FakeTokenizer(), dtype=torch.float32)
+    assert pipe.vae_encode_dtype == torch.bfloat16
+    mine = MOVAPipeline(pipe.cfg, pipe.modules, tokenizer=FakeTokenizer(),
+                        compute_dtype=torch.float32, device="cpu", attn_impl="ref",
+                        vae_encode_dtype="bf16")
+    want = mine(prompt=args.prompt, image=cli.first_frame(args),
+                negative_prompt=args.negative_prompt, seed=args.seed, height=args.height,
+                width=args.width, num_frames=args.num_frames, video_fps=args.fps,
+                num_inference_steps=args.num_inference_steps, sigma_shift=args.sigma_shift,
+                visual_shift=args.visual_shift, cfg_scale=args.cfg_scale)
+    np.testing.assert_array_equal(result.video, want.video)
+    np.testing.assert_array_equal(result.audio, want.audio)
+    assert not np.array_equal(result.video, tiny_run["result"].video)
+    with pytest.raises(SystemExit):
+        lora_cli.parse_args(["--base_model", "c", "--lora_path", "l", "--prompt", "x",
+                             "--ref_path", "r", "--vae_encode_dtype", "bf16"])
 
 
 # the flags A9 opened (once refused), each on the tiny request of `tiny_run`

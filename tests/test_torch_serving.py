@@ -10,9 +10,10 @@ against the JAX package's, on the CPU.
   recovery from a `tasks.json` that the JAX store wrote, and `TaskStore`'s
   compare-and-set results: equal (exact); a threaded race of cancels
   against the worker's transitions keeps every task in one terminal state.
-- The serve CLI: its flags a superset of `scripts/serve.py`'s, the unported
-  ones refused with their ROADMAP item, no CUDA fallback, and `--help`
-  without jax, PIL or transformers.
+- The serve CLI: its flags a superset of `scripts/serve.py`'s, the mesh
+  flags with `--offload` refused with JAX's message, no CUDA fallback, and
+  `--help` without jax, PIL or transformers; `--vae_encode_dtype bf16`
+  serves a request over HTTP bit-equal to it in process.
 - The pipeline backend on the tiny config: `cli.serve.build_server` over a
   tiny fp32 checkpoint on the CPU answers two same-geometry requests sent
   over HTTP as one group; the downloaded clips are bit-equal to the port's
@@ -58,6 +59,7 @@ from dualforce_tpu_torch.cli import serve as serve_cli
 from dualforce_tpu_torch.config import tiny_test_config
 from dualforce_tpu_torch.convert import load_checkpoint as lc
 from dualforce_tpu_torch.data import transforms
+from dualforce_tpu_torch.diffusion.pipeline import MOVAPipeline
 from dualforce_tpu_torch.models.factory import init_pipeline_params
 from dualforce_tpu_torch.serving import server as port_server
 from dualforce_tpu_torch.serving.client import VideoClient
@@ -407,19 +409,66 @@ def test_serve_flags_are_a_superset_of_the_jax_cli(monkeypatch):
 
 
 # a mesh flag with --offload exits with the JAX script's message (scripts/serve.py:103-105)
-# before the world is joined or the checkpoint read; --vae_encode_dtype bf16 names A1
+# before the world is joined or the checkpoint read; --vae_encode_dtype bf16, which once
+# exited naming its ROADMAP item, exits no more (message None): the build goes on to read
+# the absent checkpoint
 @pytest.mark.parametrize("extra,message", [
     (["--cp_size", "2", "--offload", "component"],
      "--offload is for single-chip serving; use --fsdp_size to shard weights across chips"),
     (["--fsdp_size", "2", "--offload", "component"],
      "--offload is for single-chip serving; use --fsdp_size to shard weights across chips"),
-    (["--vae_encode_dtype", "bf16"], "ROADMAP A1")],
+    (["--vae_encode_dtype", "bf16"], None)],
     ids=["cp_size", "fsdp_size", "vae_encode_dtype-bf16"])
 def test_serve_unported_flags_exit_with_their_roadmap_item(extra, message, tmp_path):
     args = serve_cli.parse_args(["--ckpt_path", str(tmp_path / "absent"), "--device", "cpu"]
                                 + extra)
+    if message is None:
+        with pytest.raises(FileNotFoundError):
+            serve_cli.build_server(args)
+        return
     with pytest.raises(SystemExit, match=re.escape(message)):
         serve_cli.build_server(args)
+
+
+def test_serve_vae_encode_dtype_bf16(tmp_path):
+    """`--vae_encode_dtype bf16` reaches the served pipeline: a request over
+    HTTP downloads the bytes of the same request run in process on it, and
+    its video is not the fp32 encode's."""
+    cfg = tiny_test_config()
+    lc.save_pipeline_params(init_pipeline_params(cfg, device="cpu", dtype=torch.float32,
+                                                 seed=0), cfg, str(tmp_path / "ckpt"))
+    args = serve_cli.parse_args(["--ckpt_path", str(tmp_path / "ckpt"), "--device", "cpu",
+                                 "--attn_type", "ref", "--vae_encode_dtype", "bf16",
+                                 "--out_dir", str(tmp_path / "out")])
+    server = serve_cli.build_server(args, tokenizer=FakeTokenizer(), dtype=torch.float32)
+    assert server.pipe.vae_encode_dtype == torch.bfloat16
+    image = png_bytes(40, 48, seed=4)
+    base, stop = serve_in_thread(server.app)
+    try:
+        client = VideoClient(base, timeout=30)
+        task = client.submit_video_task("a cat playing piano", image, size="32x32",
+                                        num_frames=5, fps=24.0, seed=7,
+                                        num_inference_steps=2, negative_prompt="blurry")
+        done = client.wait_for_completion(task.task_id, poll_interval=0.05, timeout=300)
+        assert done.status == "completed", done.error
+        dest = str(tmp_path / "download.avi")
+        with urllib.request.urlopen(base + done.download_url, timeout=30) as r, \
+                open(dest, "wb") as f:
+            shutil.copyfileobj(r, f)
+    finally:
+        stop()
+    frames, _ = _frames([image])
+    kw = dict(KW, negative_prompt="blurry", seed=7, video_fps=24.0)
+    with torch.no_grad():
+        res = server.pipe("a cat playing piano", frames[0], **kw)
+        fp32 = MOVAPipeline(cfg, server.pipe.modules, tokenizer=FakeTokenizer(),
+                            compute_dtype=torch.float32, device="cpu", attn_impl="ref")(
+            "a cat playing piano", frames[0], **kw)
+    want = save_video_with_audio(str(tmp_path / "in_process.mp4"), res.video, res.audio,
+                                 fps=res.fps, sample_rate=res.sample_rate)
+    with open(dest, "rb") as f, open(want, "rb") as g:
+        assert f.read() == g.read()
+    assert not np.array_equal(res.video, fp32.video)
 
 
 def test_serve_offload_group_builds(tmp_path):
